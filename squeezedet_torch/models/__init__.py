@@ -1,0 +1,113 @@
+"""Model registry + Detector facade (counterpart of
+``squeezedet_tpu/models/__init__.py``).
+
+:class:`Detector` bundles a backbone with the shared interpretation
+graph and postprocessing, so entry points deal with one object.  Unlike
+the JAX facade it owns its parameters, as an ``nn.Module``; the weight
+bridge (``squeezedet_torch.weights``) loads the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from squeezedet_torch.config import (ModelConfig, config_for_net,
+                                     require_ported)
+from squeezedet_torch.data.device_pipeline import normalize_images
+from squeezedet_torch.models import squeezedet
+from squeezedet_torch.models.skeleton import Interpretation, interpret
+from squeezedet_torch.ops.postprocess import filter_prediction_device
+
+_BACKBONES = {"squeezeDet": squeezedet.SqueezeDet}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class Detector(nn.Module):
+    """A backbone + the shared ConvDet skeleton.
+
+    Typical use::
+
+        det = get_model('squeezeDet', cfg, device='cuda')
+        boxes, probs, classes, keep = det.predict_raw_postprocessed(u8)
+    """
+
+    def __init__(self, cfg: ModelConfig, backbone: nn.Module, net: str, *,
+                 device):
+        super().__init__()
+        self.cfg = cfg
+        self.net = net
+        self.backbone = backbone
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.register_buffer(
+            "anchors", torch.tensor(cfg.anchor_box, dtype=torch.float32,
+                                    device=device), persistent=False)
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """Backbone + ConvDet head -> raw preds [B, H, W, APG*(C+5)] f32."""
+        images = images.to(self.compute_dtype).contiguous()
+        return self.backbone(images).float()
+
+    def interpret(self, preds: torch.Tensor) -> Interpretation:
+        cfg = self.cfg
+        return interpret(
+            preds, self.anchors, num_classes=cfg.classes,
+            anchor_per_grid=cfg.anchor_per_grid,
+            image_width=cfg.image_width, image_height=cfg.image_height,
+            exp_thresh=cfg.exp_thresh)
+
+    @torch.inference_mode()
+    def predict(self, images: torch.Tensor) -> Interpretation:
+        """Inference graph on mean-subtracted images: forward + interpret."""
+        return self.interpret(self(images))
+
+    @torch.inference_mode()
+    def predict_raw(self, images_u8: torch.Tensor) -> Interpretation:
+        """Serving path: uint8 BGR images [B, H, W, 3] -> Interpretation,
+        with the mean subtraction on the device."""
+        images = normalize_images(images_u8, self.cfg.bgr_means,
+                                  self.compute_dtype)
+        return self.interpret(self.backbone(images).float())
+
+    # -- postprocess ---------------------------------------------------------
+    def postprocess_device(self, interp: Interpretation):
+        """On-device top-K + per-class NMS with this model's thresholds."""
+        cfg = self.cfg
+        return filter_prediction_device(
+            interp.det_boxes, interp.det_probs, interp.det_class,
+            top_n=cfg.top_n_detection, nms_thresh=cfg.nms_thresh,
+            num_classes=cfg.classes, prob_thresh=cfg.prob_thresh)
+
+    @torch.inference_mode()
+    def predict_postprocessed(self, images: torch.Tensor):
+        """Forward + decode + top-K + NMS on mean-subtracted images:
+        fixed-shape (boxes [B,K,4], probs [B,K], classes [B,K],
+        keep [B,K])."""
+        return self.postprocess_device(self.predict(images))
+
+    @torch.inference_mode()
+    def predict_raw_postprocessed(self, images_u8: torch.Tensor):
+        """uint8 twin of :meth:`predict_postprocessed`: the whole
+        uint8 -> detections program."""
+        return self.postprocess_device(self.predict_raw(images_u8))
+
+
+def get_model(net: str, cfg: Optional[ModelConfig] = None, *, device,
+              generator: Optional[torch.Generator] = None) -> Detector:
+    """Build a randomly initialised Detector by reference net name on
+    ``device``.  ``generator`` (a CPU generator; seed 0 when omitted)
+    draws the initial weights."""
+    require_ported(net)
+    if net not in _BACKBONES:
+        raise ValueError(
+            "Selected neural net architecture not supported: {}".format(net))
+    if cfg is None:
+        cfg = config_for_net(net)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    backbone = _BACKBONES[net](cfg, device=device, generator=generator)
+    return Detector(cfg, backbone, net, device=device).eval()

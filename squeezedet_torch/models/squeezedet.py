@@ -1,0 +1,60 @@
+"""SqueezeDet backbone + ConvDet head (counterpart of
+``squeezedet_tpu/models/squeezedet.py``).
+
+conv1 (64f 3x3 s2, frozen) -> pool1 -> fire2..3 -> pool3 -> fire4..5 ->
+pool5 -> fire6..9 -> fire10..11 -> conv12 ConvDet head with
+APG*(C+1+4) channels, 3x3, no relu, stddev 1e-4.  All pools are 3x3
+stride-2 SAME; overall stride 16.  conv1+pool1 always run through the
+K1 wrapper (:func:`squeezedet_torch.ops.fused_frontend.conv1_pool1`):
+the CUDA kernel on the card, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from squeezedet_torch.models import layers as L
+from squeezedet_torch.ops import fused_frontend
+
+# (name, s1x1, e1x1, e3x3) for fire2..fire11.
+_FIRES = [
+    ("fire2", 16, 64, 64), ("fire3", 16, 64, 64),
+    ("fire4", 32, 128, 128), ("fire5", 32, 128, 128),
+    ("fire6", 48, 192, 192), ("fire7", 48, 192, 192),
+    ("fire8", 64, 256, 256), ("fire9", 64, 256, 256),
+    ("fire10", 96, 384, 384), ("fire11", 96, 384, 384),
+]
+# pools come after these layers
+_POOL_AFTER = {"conv1": "pool1", "fire3": "pool3", "fire5": "pool5"}
+
+
+class SqueezeDet(nn.Module):
+    """Backbone + head parameters; ``forward`` maps [B, H, W, 3] BGR
+    mean-subtracted images to ConvDet preds [B, Hg, Wg, APG*(C+5)], both
+    NHWC, in the images' dtype."""
+
+    def __init__(self, cfg, *, device, generator: torch.Generator):
+        super().__init__()
+        self.tracer = L.NetTracer.for_config(cfg)
+        xavier = cfg.scratch_init == "xavier"
+        self.conv1 = L.init_conv(generator, self.tracer, "conv1", 64, 3, 2,
+                                 device=device, freeze=True, xavier=xavier)
+        self.tracer.pool("pool1", 3, 2, "SAME")
+        for name, s, e1, e3 in _FIRES:
+            self.add_module(name, L.Fire(generator, self.tracer, name, s, e1,
+                                         e3, device=device, xavier=xavier))
+            if name in _POOL_AFTER:
+                self.tracer.pool(_POOL_AFTER[name], 3, 2, "SAME")
+        self.conv12 = L.init_conv(generator, self.tracer, "conv12",
+                                  cfg.head_channels, 3, 1, device=device,
+                                  xavier=False, stddev=0.0001)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = fused_frontend.conv1_pool1(
+            images, self.conv1.weight.permute(2, 3, 1, 0), self.conv1.bias)
+        pair = x
+        for name, _, _, _ in _FIRES:
+            pool = (3, 2) if name in _POOL_AFTER else None
+            pair = L.fire_pair(getattr(self, name), pair, pool=pool)
+        return L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)

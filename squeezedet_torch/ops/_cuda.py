@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``squeezedet_torch/_build/`` at first use,
+keyed by a hash of its source and flags, then loaded with ``ctypes``.
+Nothing here runs at import: the package imports on machines with no
+``nvcc`` and no GPU, and only a launch on a CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+# nvcc's output (ptxas register/shared-memory report) of each build this
+# process ran, by kernel name
+BUILD_LOGS: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(found, os.X_OK):
+        raise RuntimeError("nvcc not found on PATH or at "
+                           "/usr/local/cuda/bin/nvcc: cannot build the "
+                           "CUDA kernels")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """The cached .so for csrc/<name>.cu at its current source."""
+    digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / "lib{}-{}.so".format(name, digest[:16])
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its hashed .so already exists."""
+    so = library_path(name)
+    if so.exists():
+        return so
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(so.name + ".{}.tmp".format(os.getpid()))
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / (name + ".cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed ({}):\n{}{}".format(
+            " ".join(cmd), proc.stdout, proc.stderr))
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu once per process."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            lib.sdt_error_string.argtypes = [ctypes.c_int]
+            lib.sdt_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError("{} failed: CUDA error {} ({})".format(
+            what, err, lib.sdt_error_string(err).decode()))

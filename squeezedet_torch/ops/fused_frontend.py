@@ -1,0 +1,115 @@
+"""conv1 + bias + ReLU + pool1 in one kernel (K1).
+
+Counterpart of the Pallas kernel ``squeezedet_tpu/ops/fused_frontend.py:
+conv1_pool1_fused``: ``max_pool_3x3_s2_SAME(relu(conv_3x3_s2_SAME(x, k)
++ b))``, the squeezeDet conv1+pool1 stack.  On a CUDA tensor
+:func:`conv1_pool1` launches the hand-written kernel in
+``csrc/conv1_pool1.cu``; on a CPU tensor it runs
+:func:`conv1_pool1_reference`, the plain PyTorch version of the same
+function.  Nothing falls back: a CUDA tensor the kernel does not take
+raises.
+
+Numerics of both versions: the kernel and bias are rounded to the
+images' dtype (as the JAX layer casts them), everything after that is
+f32 (sum, bias, ReLU, max), and the result is rounded to the images'
+dtype once.  Padding is TF SAME for the conv and the pool, so any H and
+W are taken.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from squeezedet_torch.models.layers import same_padding
+from squeezedet_torch.ops import _cuda
+
+# Kernel launches by :func:`conv1_pool1` on CUDA tensors in this process.
+LAUNCHES = 0
+
+FILTERS = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+def geometry(height: int, width: int):
+    """(Hc, Wc, Hp, Wp, pad_t, pad_l, ppad_t, ppad_l): conv and pool output
+    sizes and their TF SAME leading pads for a 3x3 s2 conv then pool."""
+    hc, pad_t, _ = same_padding(height, 3, 2)
+    wc, pad_l, _ = same_padding(width, 3, 2)
+    hp, ppad_t, _ = same_padding(hc, 3, 2)
+    wp, ppad_l, _ = same_padding(wc, 3, 2)
+    return hc, wc, hp, wp, pad_t, pad_l, ppad_t, ppad_l
+
+
+def _check(images, kernel, bias) -> None:
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError("images must be [B, H, W, 3], got {}".format(
+            tuple(images.shape)))
+    if images.dtype not in _DTYPES:
+        raise TypeError("images must be float32 or bfloat16, got {}".format(
+            images.dtype))
+    if tuple(kernel.shape) != (3, 3, 3, FILTERS) or \
+            tuple(bias.shape) != (FILTERS,):
+        raise ValueError("kernel must be [3, 3, 3, {0}] HWIO and bias [{0}], "
+                         "got {1} and {2}".format(FILTERS, tuple(kernel.shape),
+                                                  tuple(bias.shape)))
+    if kernel.device != images.device or bias.device != images.device:
+        raise ValueError("images, kernel and bias must share a device")
+
+
+def conv1_pool1_reference(images: torch.Tensor, kernel: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch conv1+pool1: [B, H, W, 3] -> [B, Hp, Wp, 64] NHWC."""
+    _check(images, kernel, bias)
+    dtype = images.dtype
+    _, h, w, _ = images.shape
+    _, pt, pb = same_padding(h, 3, 2)
+    _, pl, pr = same_padding(w, 3, 2)
+    x = F.pad(images.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    k = kernel.to(dtype).float().permute(3, 2, 0, 1)
+    y = F.conv2d(x, k, stride=2) + bias.to(dtype).float().view(1, -1, 1, 1)
+    y = F.relu(y)
+    _, pt, pb = same_padding(y.shape[2], 3, 2)
+    _, pl, pr = same_padding(y.shape[3], 3, 2)
+    y = F.max_pool2d(F.pad(y, (pl, pr, pt, pb), value=-math.inf), 3, 2)
+    return y.permute(0, 2, 3, 1).to(dtype).contiguous()
+
+
+def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """conv1+pool1: images [B, H, W, 3] (f32 or bf16, contiguous NHWC),
+    kernel [3, 3, 3, 64] HWIO, bias [64] -> [B, Hp, Wp, 64] NHWC in the
+    images' dtype.  ``out.permute(0, 3, 1, 2)`` is the same tensor as
+    NCHW in ``channels_last`` memory format."""
+    global LAUNCHES
+    _check(images, kernel, bias)
+    if images.device.type == "cpu":
+        return conv1_pool1_reference(images, kernel, bias)
+    if images.device.type != "cuda":
+        raise ValueError("conv1_pool1 runs on cpu or cuda tensors, got "
+                         "{}".format(images.device))
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous NHWC")
+    b, h, w, _ = images.shape
+    if not 1 <= b <= 65535:
+        raise ValueError("batch must be 1..65535 (grid z), got {}".format(b))
+    geo = geometry(h, w)
+    dtype = images.dtype
+    k = kernel.detach().to(dtype).float().contiguous()
+    bs = bias.detach().to(dtype).float().contiguous()
+    out = torch.empty((b, geo[2], geo[3], FILTERS), dtype=dtype,
+                      device=images.device)
+    lib = _cuda.load("conv1_pool1")
+    fn = lib.sdt_conv1_pool1
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(images.data_ptr(), k.data_ptr(), bs.data_ptr(),
+                 out.data_ptr(), b, h, w, *geo, _DTYPES[dtype], stream)
+    _cuda.check(lib, err, "conv1_pool1 kernel launch")
+    LAUNCHES += 1
+    return out

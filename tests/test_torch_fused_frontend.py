@@ -1,0 +1,147 @@
+"""K1 (conv1+pool1) in the port: the plain version against the JAX
+package's Pallas kernel (interpret mode) and XLA path on the CPU; the
+CUDA kernel against the plain version on a GPU.
+
+The GPU cases run where jax is not installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_fused_frontend.py``
+so the JAX package is imported only inside the tests that use it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from squeezedet_torch.ops import fused_frontend as ff
+
+
+def _jax_xla_frontend(x, k, bias):
+    """The JAX package's unfused conv1+pool1 (XLA)."""
+    import jax.numpy as jnp
+
+    from squeezedet_tpu.models import layers as L
+    return np.asarray(L.max_pool(L.conv2d(
+        {"kernel": jnp.asarray(k), "bias": jnp.asarray(bias)},
+        jnp.asarray(x), 2), 3, 2, "SAME"))
+
+
+def _inputs(rng, b, h, w):
+    x = rng.randn(b, h, w, 3).astype(np.float32)
+    k = rng.randn(3, 3, 3, 64).astype(np.float32) * 0.1
+    bias = rng.randn(64).astype(np.float32) * 0.1
+    return x, k, bias
+
+
+def _port(x, k, bias):
+    return ff.conv1_pool1(torch.from_numpy(x), torch.from_numpy(k),
+                          torch.from_numpy(bias)).numpy()
+
+
+@pytest.fixture
+def rng():
+    return np.random.RandomState(0)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64), (1, 96, 160),
+                                   (1, 32, 1248)])
+def test_plain_k1_matches_pallas_kernel(shape, rng):
+    """Tolerance 1e-5: the two sum the 27 taps in different orders."""
+    import jax.numpy as jnp
+
+    from squeezedet_tpu.ops.fused_frontend import conv1_pool1_fused
+    b, h, w = shape
+    x, k, bias = _inputs(rng, b, h, w)
+    want = np.asarray(conv1_pool1_fused(jnp.asarray(x), jnp.asarray(k),
+                                        jnp.asarray(bias), interpret=True))
+    launches = ff.LAUNCHES
+    got = _port(x, k, bias)
+    assert ff.LAUNCHES == launches  # a CPU tensor never launches
+    assert got.shape == (b, h // 4, w // 4, 64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 33, 47), (2, 375, 1242),
+                                   (1, 30, 62), (1, 9, 5)])
+def test_plain_k1_matches_xla_at_any_size(shape, rng):
+    """Odd and non-multiple-of-4 sizes (TF SAME pads (1, 1) on odd
+    extents) against L.max_pool(L.conv2d(...)), to 1e-5."""
+    b, h, w = shape
+    x, k, bias = _inputs(rng, b, h, w)
+    want = _jax_xla_frontend(x, k, bias)
+    got = _port(x, k, bias)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_geometry_is_tf_same():
+    # even extents pad (0, 1) in both layers; odd ones (1, 1)
+    assert ff.geometry(384, 1248) == (192, 624, 96, 312, 0, 0, 0, 0)
+    assert ff.geometry(375, 1242) == (188, 621, 94, 311, 1, 0, 0, 1)
+
+
+def test_k1_corner_impulse_canary():
+    """A corner impulse: TF SAME pads bottom/right on an even input, so
+    the impulse reaches output (0, 0) through conv tap (0, 0) only;
+    torch's symmetric padding=1 would route it through tap (1, 1)."""
+    x = np.zeros((1, 8, 8, 3), np.float32)
+    x[0, 0, 0, :] = 1.0
+    k = np.zeros((3, 3, 3, 64), np.float32)
+    k[0, 0, :, 0] = 1.0   # only tap (0, 0) of channel 0
+    k[1, 1, :, 1] = 1.0   # only tap (1, 1) of channel 1
+    got = _port(x, k, np.zeros(64, np.float32))
+    want = _jax_xla_frontend(x, k, np.zeros(64, np.float32))
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0, 0, 0] == 3.0 and got[0, 0, 0, 1] == 0.0
+
+
+def test_k1_bf16_rounds_once(rng):
+    """bf16 images: f32 math on bf16-rounded operands, one final
+    rounding, so the result is the f32 result rounded to bf16."""
+    x, k, bias = _inputs(rng, 1, 16, 24)
+    xb = torch.from_numpy(x).bfloat16()
+    got = ff.conv1_pool1(xb, torch.from_numpy(k), torch.from_numpy(bias))
+    want = ff.conv1_pool1(xb.float(), torch.from_numpy(k).bfloat16().float(),
+                          torch.from_numpy(bias).bfloat16().float())
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["channels", "dtype", "kernel", "device"])
+def test_k1_rejects_what_the_kernel_does_not_take(bad):
+    x = torch.zeros(1, 8, 8, 3)
+    k, b = torch.zeros(3, 3, 3, 64), torch.zeros(64)
+    if bad == "channels":
+        x = torch.zeros(1, 8, 8, 4)
+    elif bad == "dtype":
+        x = x.half()
+    elif bad == "kernel":
+        k = torch.zeros(3, 3, 3, 32)
+    else:
+        x = x.to("meta")
+    with pytest.raises((ValueError, TypeError)):
+        ff.conv1_pool1(x, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 384, 1248), (1, 375, 1242)])
+def test_cuda_k1_matches_plain(shape, dtype):
+    """CUDA kernel vs the plain version on the card, TF32 off: f32 to
+    1e-4 + 1e-5*|x|; bf16 to 2 bf16 ulps (floored at the f32 bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    x, k, bias = _inputs(rng, *shape)
+    dt = getattr(torch, dtype)
+    xt = torch.from_numpy(x * 50).to("cuda", dt)
+    kt, bt = torch.from_numpy(k).cuda(), torch.from_numpy(bias * 100).cuda()
+    launches = ff.LAUNCHES
+    got = ff.conv1_pool1(xt, kt, bt).float()
+    assert ff.LAUNCHES == launches + 1
+    want = ff.conv1_pool1_reference(xt, kt, bt).float()
+    allowed = 1e-4 + 1e-5 * want.abs()
+    if dt == torch.bfloat16:
+        _, e = torch.frexp(want.abs())
+        ulp = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0)
+        allowed = torch.maximum(allowed, 2 * ulp)
+    assert ((got - want).abs() <= allowed).all()

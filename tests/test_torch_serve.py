@@ -1,0 +1,122 @@
+"""The port's HTTP server and micro-batcher on the CPU device, and the
+port's import boundary."""
+
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import cv2
+import numpy as np
+import pytest
+
+import squeezedet_torch as st
+from squeezedet_torch import serve
+
+REPO = __file__.rsplit("/tests/", 1)[0]
+
+
+@pytest.fixture
+def server():
+    args = serve.build_arg_parser().parse_args(
+        ["--device", "cpu", "--port", "0", "--compute_dtype", "float32",
+         "--prob_thresh", "0"])
+    srv, batcher = serve.build_server(args, st.tiny_test_config())
+    assert batcher is None  # --max_batch 1: serial server
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield "http://127.0.0.1:{}".format(srv.server_address[1])
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_healthz(server):
+    with urllib.request.urlopen(server + "/healthz", timeout=30) as r:
+        assert r.status == 200 and r.read() == b"ok"
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(server + "/nope", timeout=30)
+    assert e.value.code == 404
+
+
+def test_detect_png(server):
+    """A differently-sized PNG: the server resizes and scales boxes back."""
+    im = np.random.RandomState(0).randint(0, 255, (48, 192, 3), np.uint8)
+    png = cv2.imencode(".png", im)[1].tobytes()
+    req = urllib.request.Request(server + "/detect", data=png, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        payload = json.loads(r.read())
+    assert "latency_ms" in payload
+    assert 0 < len(payload["detections"]) <= 64
+    for d in payload["detections"]:
+        assert set(d) == {"box", "score", "class_name"}
+        assert d["class_name"] in st.tiny_test_config().class_names
+        assert len(d["box"]) == 4 and all(np.isfinite(d["box"]))
+    bad = urllib.request.Request(server + "/detect", data=b"not an image",
+                                 method="POST")
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(bad, timeout=30)
+    assert e.value.code == 400
+
+
+def test_micro_batcher_groups_concurrent_requests():
+    """8 concurrent submits at batch 4 run as 2+ padded batches, and each
+    caller gets back its own row."""
+    seen = []
+
+    def run(imgs):
+        seen.append(imgs.shape[0])
+        time.sleep(0.05)
+        ids = imgs[:, 0, 0, 0].astype(np.float32)
+        return ids[:, None], ids[:, None] > 0
+
+    batcher = serve.MicroBatcher(run, batch=4, window_ms=50.0)
+    frames = [np.full((2, 2, 3), i, np.uint8) for i in range(8)]
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(batcher.submit, frames))
+    assert all(s == 4 for s in seen)
+    assert 2 <= batcher.batches_run < 8 and batcher.requests == 8
+    for i, (ids, _) in enumerate(outs):
+        assert ids.shape == (1, 1) and ids[0, 0] == i
+
+
+def test_micro_batcher_rejects_and_propagates_errors():
+    def boom(imgs):
+        raise ValueError("device fault")
+
+    batcher = serve.MicroBatcher(boom, batch=2, window_ms=1.0)
+    with pytest.raises(ValueError, match="device fault"):
+        batcher.submit(np.zeros((2, 2, 3), np.uint8))
+    full = serve.MicroBatcher(lambda x: (x,), batch=2, window_ms=1.0,
+                              max_queue=1)
+    with full._cv:  # hold the worker off so the queue stays full
+        full._pending.append((np.zeros((1,)), {}, threading.Event()))
+        with pytest.raises(serve.Overloaded):
+            full.submit(np.zeros((1,)))
+    assert full.rejects == 1
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "x"], ["--artifact", "x"],
+                                  ["--quantize", "int8"],
+                                  ["--num_devices", "2"]])
+def test_unported_options_name_their_roadmap_item(flag):
+    args = serve.build_arg_parser().parse_args(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        serve.build_server(args, st.tiny_test_config())
+
+
+def test_port_imports_no_jax():
+    """squeezedet_torch and its server import neither jax nor the JAX
+    package (whose __init__ imports jax)."""
+    code = ("import sys; import squeezedet_torch, squeezedet_torch.serve, "
+            "squeezedet_torch.weights, squeezedet_torch.ops.fused_frontend; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'squeezedet_tpu', 'cv2')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
