@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch's CUDA
    version and ``nvcc --version``;
-2. build: the K1 kernel from ``squeezedet_torch/csrc`` with nvcc;
+2. build: the K1 and K2 kernels from ``squeezedet_torch/csrc``, one nvcc
+   each, started together; ptxas' register and shared-memory reports;
 3. K1 against its plain PyTorch version on the card, at the flagship
    shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then both
    timed with CUDA events at B=128 bf16;
-4. the uint8 -> detections main path at 1248x384 with seeded random
+4. K2 against its plain version on the card in f32 (TF32 off) and bf16,
+   at every conv shape the train step routes to it (B=20, 1248x384) and
+   at five odd shapes (B=2); two launches must be bitwise equal; K2, its
+   plain version and cuDNN's weight gradient timed at the train shapes;
+5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
-   B=128 for throughput;
-5. the HTTP server at --max_batch 8: /healthz, then 16 concurrent
-   single-frame requests through the micro-batcher.
+   B=128 for throughput; then the HTTP server at --max_batch 8:
+   /healthz, then 16 concurrent single-frame requests;
+6. train path: ``make_train_step_device`` at 1248x384: one f32 B=2 step
+   on the card against the same step on the CPU (equal matcher targets;
+   loss, params and momentum within tolerance); one f32 B=20 step in each
+   filter-grad mode (K2 on against cuDNN's weight gradient, and 12 / 10 /
+   0 K2 launches per backward); then a bf16 training run with dropout
+   and the on-device augment at B=20 and B=128 in each mode (a smoke
+   reading of ms/step, not a benchmark), whose loss must fall.
 
-The last lines are a JSON object describing each kernel and then
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or when
-``squeezedet_torch`` does not sit beside this file, the script fails
-before printing either.
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after.  The last lines are a JSON object describing
+each kernel and then ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or when ``squeezedet_torch`` does not sit beside this file, the
+script fails before printing either.
 """
 
 import json
@@ -51,6 +63,44 @@ BOX_ATOL, PROB_ATOL = 1e-3, 1e-5
 # differences of the scores (~1e-6) and IoUs (~3e-6), which the run prints.
 MIN_GAP, MIN_IOU_MARGIN = 5e-6, 1e-4
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
+
+KERNELS = ("conv1_pool1", "filter_grad")
+# K2 against its plain version: both sum f32 products (bf16 operands
+# widen exactly) in different orders over up to 150k terms, so each
+# output may differ by K2_RTOL times sum|x|*|dy| of its own terms (the
+# plain version run on absolute values), plus K2_ATOL.
+K2_RTOL, K2_ATOL = 1e-5, 1e-6
+# (kh, C, O, H, W) of the convs the train step routes to K2 at 1248x384,
+# each called once for each of its two conv2d_pair halves: the squeeze
+# 1x1s of fire5, fire6, fire9, fire10, fire11 ("1x1" mode), then conv12's
+# 3x3 (True mode adds it).
+K2_TRAIN_SHAPES = [(1, 128, 32, 48, 156), (1, 128, 48, 24, 78),
+                   (1, 256, 64, 24, 78), (1, 256, 96, 24, 78),
+                   (1, 384, 96, 24, 78), (3, 384, 72, 24, 78)]
+K2_TRAIN_BATCH = 20
+# the odd shapes of tests/test_filter_grad.py: (kh, kw, H, W), C = O = 128
+K2_ODD_SHAPES = [(1, 1, 4, 4), (1, 1, 5, 7), (3, 3, 6, 10), (3, 3, 5, 7),
+                 (5, 5, 9, 11)]
+# K2 launches per backward of one train step, by filter-grad mode
+K2_PER_STEP = {False: 0, "1x1": 10, True: 12}
+# Train step, card against CPU (f32, TF32 off): loss terms to rtol
+# LOSS_RTOL; each updated param and momentum leaf within STEP_TOL of that
+# leaf's update norm (L2).  STEP_TOL is wide because a weight or bias
+# gradient is an f32 sum over B*H*W positions whose terms mostly cancel
+# (the 1e-4 head init keeps the data gradients small), and the card and
+# the CPU, or cuDNN and K2, sum in other orders: the worst leaf measured
+# 6.5e-3 (fire3.squeeze1x1.weight) card against CPU on an H100, while a
+# routing or layout fault is off by O(1).  The matcher's choices must be
+# equal, so the batch is the first seeded one whose CPU matching keeps
+# every choice MIN_MATCH_GAP in IoU above the next smaller IoU (see
+# match_gap): the matched anchors, labels and boxes must then be equal,
+# and the deltas within DELTA_RTOL (relative, with the same floor), a few
+# f32 ulps of a log that the two devices may round differently.
+LOSS_RTOL, STEP_TOL, MIN_MATCH_GAP, DELTA_RTOL = 1e-4, 2e-2, 1e-4, 1e-6
+MAX_GT = 48  # GT slots per image, as the JAX data layer pads them
+# bf16 training run: steps of warm-up and of timing per (batch, mode)
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+TRAIN_RUN_BATCHES = (20, 128)
 
 
 def log(*a):
@@ -103,12 +153,17 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
     from squeezedet_torch.ops import _cuda
     t0 = time.perf_counter()
-    _cuda.load("conv1_pool1")
-    log("[build] conv1_pool1 in {:.1f} s -> {}".format(
-        time.perf_counter() - t0, _cuda.library_path("conv1_pool1").name))
-    log(_cuda.BUILD_LOGS.get("conv1_pool1", "(cached build)").strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_cuda.build, KERNELS))
+    for name in KERNELS:
+        _cuda.load(name)
+        log("[build] {} -> {}".format(name, _cuda.library_path(name).name))
+        log(_cuda.BUILD_LOGS.get(name, "(cached build)").strip())
+    log("[build] {} kernels in {:.1f} s".format(len(KERNELS),
+                                                 time.perf_counter() - t0))
 
 
 def k1_inputs(b, h, w, dtype, seed):
@@ -195,6 +250,91 @@ def _phase_k1(card):
             json.dumps(times)))
     return {"max_abs_err": max_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"]}
+
+
+def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
+    """K2 against its plain version on one shape; returns max abs err."""
+    import torch
+
+    from squeezedet_torch.ops import filter_grad as fg
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(b, h, w, o, device="cuda", generator=gen).to(dtype)
+    got = fg.filter_grad(x, dy, kh, kw)
+    again = fg.filter_grad(x, dy, kh, kw)
+    want = fg.filter_grad_reference(x, dy, kh, kw)
+    scale = fg.filter_grad_reference(x.abs(), dy.abs(), kh, kw)
+    torch.cuda.synchronize()
+    if got.shape != (kh, kw, c, o) or got.dtype != torch.float32:
+        raise AssertionError("K2 shape/dtype {} {}".format(
+            tuple(got.shape), got.dtype))
+    if not torch.equal(got, again):
+        raise AssertionError("two K2 launches differ")
+    err = (got - want).abs()
+    worst = (err / (K2_RTOL * scale + K2_ATOL)).max().item()
+    log("[k2] B={} {}x{} C={} O={} {}x{} {}: max abs err {:.3e}, worst "
+        "err/tolerance {:.3f}, bitwise repeatable".format(
+            b, kh, kw, c, o, h, w, str(dtype).replace("torch.", ""),
+            err.max().item(), worst))
+    if worst > 1.0:
+        raise AssertionError("K2 disagrees with its plain version")
+    return err.max().item()
+
+
+def phase_k2(card):
+    """K2 against its plain version at the train step's and the odd
+    shapes, then K2, its plain version and cuDNN's weight gradient timed
+    at the train step's shapes (B=20) in f32 and bf16."""
+    import torch
+
+    from squeezedet_torch.ops import filter_grad as fg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for kh, c, o, h, w in K2_TRAIN_SHAPES:
+            max_err = max(max_err, check_k2(K2_TRAIN_BATCH, kh, kh, h, w, c,
+                                            o, dtype, gen))
+        for kh, kw, h, w in K2_ODD_SHAPES:
+            max_err = max(max_err, check_k2(2, kh, kw, h, w, 128, 128, dtype,
+                                            gen))
+
+    sums = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0}
+        largest = None
+        for kh, c, o, h, w in K2_TRAIN_SHAPES:
+            x = torch.randn(K2_TRAIN_BATCH, h, w, c, device="cuda",
+                            generator=gen).to(dtype)
+            dy = torch.randn(K2_TRAIN_BATCH, h, w, o, device="cuda",
+                             generator=gen).to(dtype)
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            fns = {
+                "kernel": lambda: fg.filter_grad(x, dy, kh, kh),
+                "plain": lambda: fg.filter_grad_reference(x, dy, kh, kh),
+                # what autograd runs with the mode off
+                "cudnn": lambda: torch.nn.grad.conv2d_weight(
+                    xn, (o, c, kh, kh), dyn, padding=kh // 2),
+            }
+            ms = {n: [] for n in fns}
+            for n in ("plain", "kernel", "cudnn", "cudnn", "kernel", "plain"):
+                ms[n].append(cuda_ms(fns[n], iters=10))
+            ms = {n: sum(v) / len(v) for n, v in ms.items()}
+            for n in total:  # each conv's two conv2d_pair halves
+                total[n] += 2 * ms[n]
+            if largest is None or ms["kernel"] > largest[1]["kernel"]:
+                largest = ((kh, c, o, h, w), ms)
+            log("[k2] time B={} {}x{} C={} O={} {}x{} {}: kernel {:.4f} ms, "
+                "plain {:.4f} ms, cuDNN weight grad {:.4f} ms".format(
+                    K2_TRAIN_BATCH, kh, kh, c, o, h, w, name, ms["kernel"],
+                    ms["plain"], ms["cudnn"]))
+        log("[k2] one backward's 12 K2 calls, B={} {} on {}: kernel {:.4f} ms,"
+            " plain {:.4f} ms, cuDNN weight grad {:.4f} ms; largest call "
+            "{} kernel {:.4f} ms".format(
+                K2_TRAIN_BATCH, name, card, total["kernel"], total["plain"],
+                total["cudnn"], largest[0], largest[1]["kernel"]))
+        sums[name] = total
+    return {"max_abs_err": max_err, "ms": sums["bfloat16"]["kernel"],
+            "plain_ms": sums["bfloat16"]["plain"]}
 
 
 def _top_gap(probs):
@@ -348,31 +488,289 @@ def phase_server():
     return 1 + batcher.batches_run  # warm-up forward + batches
 
 
+def gt_batch(rs, b, cfg):
+    """Seeded padded ground truth: MAX_GT center-format boxes per image
+    inside the image, of which the first 1..MAX_GT/2 are valid; the padded
+    slots hold boxes too, which the matcher must ignore."""
+    import numpy as np
+    import torch
+    bw = rs.uniform(20, cfg.image_width / 4, (b, MAX_GT))
+    bh = rs.uniform(20, cfg.image_height / 2, (b, MAX_GT))
+    cx = rs.uniform(bw / 2, cfg.image_width - bw / 2)
+    cy = rs.uniform(bh / 2, cfg.image_height - bh / 2)
+    boxes = np.stack([cx, cy, bw, bh], axis=-1).astype(np.float32)
+    labels = rs.randint(0, cfg.classes, (b, MAX_GT))
+    num_gt = rs.randint(1, MAX_GT // 2 + 1, b)
+    return [torch.from_numpy(a) for a in (boxes, labels, num_gt)]
+
+
+def match_gap(anchors, boxes, num_gt):
+    """The matcher's choices replayed on the CPU: the smallest gap
+    between a choice's IoU and the next smaller unclaimed IoU, or -1 if a
+    choice falls back to the distance rule.  Exact ties are common (a box
+    that contains several anchors of one shape) and harmless: the IoU
+    takes only +, -, *, / and min/max, which round the same on both
+    devices, and both break an exact tie by the largest index."""
+    import torch
+
+    from squeezedet_torch.ops.boxes import batch_iou
+    gap = float("inf")
+    for i in range(boxes.shape[0]):
+        claimed = torch.zeros(anchors.shape[0], dtype=torch.bool)
+        for g in range(int(num_gt[i])):
+            iou = batch_iou(anchors, boxes[i, g]).masked_fill(claimed, -1.0)
+            best = iou.max()
+            if best <= 0:
+                return -1.0
+            gap = min(gap, (best - iou[iou < best].max()).item())
+            claimed[(iou == best).nonzero().max()] = True
+    return gap
+
+
+def fresh_state(cfg, device, weights):
+    """A TrainState on ``device``: the detector with ``weights`` (a
+    backbone state_dict) and a new optimizer."""
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.optim import build_optimizer
+    from squeezedet_torch.trainer import TrainState
+    det = get_model("squeezeDet", cfg, device=device)
+    det.backbone.load_state_dict(weights)
+    return TrainState(det, build_optimizer(cfg, det))
+
+
+def worst_step_ratio(got, want, before):
+    """max over leaves of ||got - want|| / ||want - before|| (L2): the
+    disagreement of two updated params relative to the update."""
+    worst, leaf = 0.0, None
+    for name, w in want.items():
+        diff = (got[name].cpu() - w.cpu()).norm().item()
+        moved = (w.cpu() - before[name].cpu()).norm().item()
+        if moved == 0.0:
+            if diff != 0.0:
+                raise AssertionError("{} moved on one side only".format(name))
+            continue
+        if diff / moved > worst:
+            worst, leaf = diff / moved, name
+    return worst, leaf
+
+
+def phase_train_check(weights):
+    """One f32 B=2 train step on the card against the CPU; returns the
+    number of steps run on the card."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data.device_pipeline import assign_anchors_device
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.trainer import make_train_step_device
+    cfg = kitti_squeezedet_config().replace(keep_prob=1.0)
+    anchors = torch.tensor(cfg.anchor_box, dtype=torch.float32)
+    for seed in range(1, 65):
+        rs = np.random.RandomState(seed)
+        u8 = torch.from_numpy(rs.randint(0, 256, (2, cfg.image_height,
+                                                  cfg.image_width, 3),
+                                         dtype=np.uint8))
+        gt = gt_batch(rs, 2, cfg)
+        gap = match_gap(anchors, gt[0], gt[2])
+        if gap >= MIN_MATCH_GAP:
+            break
+    else:
+        raise AssertionError("no seeded batch with separated matches")
+
+    want = assign_anchors_device(anchors, *gt, cfg.classes)
+    got = assign_anchors_device(anchors.cuda(), *[t.cuda() for t in gt],
+                                cfg.classes)
+    for name in ("input_mask", "box_input", "labels"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+            raise AssertionError("matcher targets {} differ".format(name))
+    # the deltas take a log, which the two devices may round differently
+    delta = (got.box_delta_input.cpu() - want.box_delta_input).abs().max()
+    torch.testing.assert_close(got.box_delta_input.cpu(),
+                               want.box_delta_input, rtol=DELTA_RTOL,
+                               atol=DELTA_RTOL)
+    log("[train] f32 B=2, batch seed {}: {} GT boxes, IoU gap to the "
+        "next smaller IoU >= {:.3e}; matcher mask, boxes and labels equal "
+        "on card and CPU, deltas within {:.3e}".format(
+            seed, int(gt[2].sum()), gap, delta.item()))
+
+    L.set_filter_grad(True)
+    cpu = fresh_state(cfg, "cpu", weights)
+    gpu = fresh_state(cfg, "cuda", weights)
+    lb_cpu = make_train_step_device(cpu, uint8_ingest=True)(u8, *gt)
+    lb_gpu = make_train_step_device(gpu, uint8_ingest=True)(
+        u8.cuda(), *[t.cuda() for t in gt])
+    torch.testing.assert_close(torch.stack(list(lb_gpu)).cpu(),
+                               torch.stack(list(lb_cpu)), rtol=LOSS_RTOL,
+                               atol=0)
+    params, momentum = worst_step_ratio(
+        gpu.det.backbone.state_dict(), cpu.det.backbone.state_dict(),
+        weights), worst_step_ratio(gpu.opt.trace, cpu.opt.trace,
+                                   {n: torch.zeros_like(t)
+                                    for n, t in cpu.opt.trace.items()})
+    log("[train] f32 B=2 step, card vs CPU: loss {} vs {}; worst leaf "
+        "||diff||/||update||: params {:.3e} ({}), momentum {:.3e} ({})".format(
+            [round(float(v), 6) for v in lb_gpu],
+            [round(float(v), 6) for v in lb_cpu], *params, *momentum))
+    if params[0] > STEP_TOL or momentum[0] > STEP_TOL:
+        raise AssertionError("card and CPU train steps disagree")
+    return 1
+
+
+def phase_train_modes(weights):
+    """One f32 B=20 step per filter-grad mode from the same state: K2's
+    weight gradients against cuDNN's, and K2's launches per backward.
+    Returns the number of steps run."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.trainer import make_train_step_device
+    cfg = kitti_squeezedet_config().replace(keep_prob=1.0)
+    rs = np.random.RandomState(100)
+    u8 = torch.from_numpy(rs.randint(0, 256, (20, cfg.image_height,
+                                              cfg.image_width, 3),
+                                     dtype=np.uint8)).cuda()
+    gt = [t.cuda() for t in gt_batch(rs, 20, cfg)]
+    after = {}
+    for mode in (False, "1x1", True):
+        L.set_filter_grad(mode)
+        state = fresh_state(cfg, "cuda", weights)
+        launches = fg.LAUNCHES
+        make_train_step_device(state, uint8_ingest=True)(u8, *gt)
+        torch.cuda.synchronize()
+        launches = fg.LAUNCHES - launches
+        log("[train] f32 B=20 step, filter-grad mode {!r}: {} K2 "
+            "launches".format(mode, launches))
+        if launches != K2_PER_STEP[mode]:
+            raise AssertionError("K2 launches {} in mode {!r}, expected "
+                                 "{}".format(launches, mode,
+                                             K2_PER_STEP[mode]))
+        after[mode] = state.det.backbone.state_dict()
+    for mode in ("1x1", True):
+        worst, leaf = worst_step_ratio(after[mode], after[False], weights)
+        log("[train] mode {!r} vs False (cuDNN weight grads): worst leaf "
+            "||diff||/||update|| {:.3e} ({})".format(mode, worst, leaf))
+        if worst > STEP_TOL:
+            raise AssertionError("K2 and cuDNN train steps disagree")
+    return 3
+
+
+def phase_train_run(card, weights):
+    """bf16 training with dropout and the on-device augment, B=20 and
+    B=128, each filter-grad mode from the same weights, on one fixed
+    canvas batch at lr 1e-3.  Returns (steps run, K2 launches expected)."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.trainer import make_train_step_device
+    cfg = kitti_squeezedet_config().replace(compute_dtype="bfloat16",
+                                            learning_rate=1e-3)
+    h0, w0 = 375, 1242  # a KITTI frame; the canvas holds it whole
+    steps = k2 = 0
+    for batch in TRAIN_RUN_BATCHES:
+        rs = np.random.RandomState(batch)
+        canvas = torch.from_numpy(rs.randint(0, 256, (batch, h0, w0, 3),
+                                             dtype=np.uint8)).cuda()
+        dx = rs.randint(-cfg.drift_x, cfg.drift_x + 1, batch)
+        dy = rs.randint(-cfg.drift_y, cfg.drift_y + 1, batch)
+        aug = torch.from_numpy(np.stack(
+            [dx, dy, rs.randint(0, 2, batch), w0 - dx, h0 - dy],
+            axis=1).astype(np.float32)).cuda()
+        gt = [t.cuda() for t in gt_batch(rs, batch, cfg)]
+        for mode in (False, "1x1", True):
+            L.set_filter_grad(mode)
+            state = fresh_state(cfg, "cuda", weights)
+            step = make_train_step_device(state, uint8_ingest=True,
+                                          device_augment=True)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            losses = [step(canvas, aug, *gt, generator=gen)
+                      for _ in range(WARMUP_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                losses.append(step(canvas, aug, *gt, generator=gen))
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / TIMED_STEPS
+            steps += WARMUP_STEPS + TIMED_STEPS
+            k2 += (WARMUP_STEPS + TIMED_STEPS) * K2_PER_STEP[mode]
+            totals = [float(lb.total) for lb in losses]
+            log("[train] smoke reading, not a benchmark: bf16 B={} "
+                "device_augment keep_prob {} mode {!r}: {:.3f} ms/step, "
+                "{:.1f} img/s, peak {:.2f} GiB; loss {:.4f} -> {:.4f} over "
+                "{} steps on one batch, on {}".format(
+                    batch, cfg.keep_prob, mode, dt * 1e3, batch / dt,
+                    torch.cuda.max_memory_allocated() / 2**30, totals[0],
+                    totals[-1], len(totals), card))
+            if not all(np.isfinite(totals)) or totals[-1] >= totals[0]:
+                raise AssertionError("loss did not fall: {}".format(totals))
+    return steps, k2
+
+
 def main():
     import_port()
     import torch
     card = phase_device()
     phase_build()
     k1 = phase_k1(card)
+    k2 = phase_k2(card)
 
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
-    ff.LAUNCHES = 0  # count only the main path's launches from here
+
+    # serving path: counts from 0 just before it, read just after
+    ff.LAUNCHES = fg.LAUNCHES = 0
     forwards = phase_main_path(card)
     forwards += phase_server()
-    launches = ff.LAUNCHES
-    if launches == 0 or launches != forwards:
-        raise AssertionError("K1 launches {} on the main path, {} "
-                             "forwards".format(launches, forwards))
+    serve = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    if serve["k1"] == 0 or serve["k1"] != forwards or serve["k2"] != 0:
+        raise AssertionError("serving path: K1 launches {k1}, K2 launches "
+                             "{k2}, {0} forwards".format(forwards, **serve))
+
+    # train path, from one set of seeded weights
+    from squeezedet_torch.config import kitti_squeezedet_config
+    weights = get_model("squeezeDet", kitti_squeezedet_config(),
+                        device="cpu").backbone.state_dict()
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    steps = phase_train_check(weights)
+    steps += phase_train_modes(weights)
+    run_steps, run_k2 = phase_train_run(card, weights)
+    L.set_filter_grad(False)
+    train = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    want_k2 = K2_PER_STEP[True] + sum(K2_PER_STEP.values()) + run_k2
+    steps += run_steps
+    if train["k1"] != steps or train["k2"] == 0 or train["k2"] != want_k2:
+        raise AssertionError("train path: K1 launches {k1} for {0} steps, "
+                             "K2 launches {k2}, expected {1}".format(
+                                 steps, want_k2, **train))
+    log("[train] path: {} steps, K1 launches {}, K2 launches {}".format(
+        steps, train["k1"], train["k2"]))
 
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
-        "launches": launches,
+        "launches": serve["k1"] + train["k1"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+    }, {
+        "name": "filter_grad",
+        "route": "cuda",
+        "source": "squeezedet_torch/csrc/filter_grad.cu",
+        "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
+        "launches": train["k2"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,15 @@ A second package beside ``squeezedet_tpu`` (the JAX reference it is
 held against), written for one NVIDIA H100.  It imports torch and
 numpy only: never jax, and nothing from ``squeezedet_tpu``.
 
-This slice covers the uint8 -> detections serving path of the
-squeezeDet backbone: mean subtraction, the backbone with conv1+pool1
-in a hand-written CUDA kernel (``ops/fused_frontend.py``), the ConvDet
-head, interpretation, and top-K + per-class NMS.  Every constructor
-and entry point takes an explicit ``device``.
+It covers two paths of the squeezeDet backbone.  Serving: uint8 ->
+detections (mean subtraction, the backbone with conv1+pool1 in a
+hand-written CUDA kernel, ``ops/fused_frontend.py``, the ConvDet head,
+interpretation, top-K + per-class NMS).  Training: the single-device
+train step (``trainer.py``: on-device ingest and anchor matching, the
+forward with dropout, the loss, the backward with the weight gradients
+of eligible convs in a second hand-written kernel,
+``ops/filter_grad.py``, and the optimizer in ``optim.py``).  Every
+constructor and entry point takes an explicit ``device``.
 """
 
 from squeezedet_torch.config import (  # noqa: F401

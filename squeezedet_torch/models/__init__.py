@@ -9,7 +9,7 @@ bridge (``squeezedet_torch.weights``) loads the JAX package's.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -17,8 +17,11 @@ from torch import nn
 from squeezedet_torch.config import (ModelConfig, config_for_net,
                                      require_ported)
 from squeezedet_torch.data.device_pipeline import normalize_images
+from squeezedet_torch.models import layers as L
 from squeezedet_torch.models import squeezedet
-from squeezedet_torch.models.skeleton import Interpretation, interpret
+from squeezedet_torch.models.skeleton import (Interpretation, LossBreakdown,
+                                              Targets, detection_loss,
+                                              interpret)
 from squeezedet_torch.ops.postprocess import filter_prediction_device
 
 _BACKBONES = {"squeezeDet": squeezedet.SqueezeDet}
@@ -46,11 +49,22 @@ class Detector(nn.Module):
             "anchors", torch.tensor(cfg.anchor_box, dtype=torch.float32,
                                     device=device), persistent=False)
 
+    # -- parameters ---------------------------------------------------------
+    def trainable_mask(self) -> Dict[str, bool]:
+        """Backbone state_dict name -> whether it trains (conv1 is frozen,
+        as ``requires_grad=False``; the rest trains)."""
+        return {name: p.requires_grad
+                for name, p in self.backbone.named_parameters()}
+
     # -- forward ------------------------------------------------------------
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """Backbone + ConvDet head -> raw preds [B, H, W, APG*(C+5)] f32."""
+    def forward(self, images: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Backbone + ConvDet head -> raw preds [B, H, W, APG*(C+5)] f32.
+        ``train`` turns dropout on, drawn from ``generator`` (on the
+        images' device)."""
         images = images.to(self.compute_dtype).contiguous()
-        return self.backbone(images).float()
+        return self.backbone(images, train=train,
+                             generator=generator).float()
 
     def interpret(self, preds: torch.Tensor) -> Interpretation:
         cfg = self.cfg
@@ -72,6 +86,24 @@ class Detector(nn.Module):
         images = normalize_images(images_u8, self.cfg.bgr_means,
                                   self.compute_dtype)
         return self.interpret(self.backbone(images).float())
+
+    # -- loss ---------------------------------------------------------------
+    def loss(self, images: torch.Tensor, targets: Targets,
+             generator: Optional[torch.Generator] = None,
+             train: bool = True) -> LossBreakdown:
+        """Forward (with dropout when training) + interpretation + the
+        3-term loss plus weight decay on the trainable conv weights."""
+        cfg = self.cfg
+        interp = self.interpret(self(images, train=train,
+                                     generator=generator))
+        wd = L.weight_decay_loss(self.backbone, cfg.weight_decay)
+        return detection_loss(
+            interp, targets, num_anchors=cfg.anchors,
+            loss_coef_class=cfg.loss_coef_class,
+            loss_coef_conf_pos=cfg.loss_coef_conf_pos,
+            loss_coef_conf_neg=cfg.loss_coef_conf_neg,
+            loss_coef_bbox=cfg.loss_coef_bbox,
+            epsilon=cfg.epsilon, weight_decay_term=wd)
 
     # -- postprocess ---------------------------------------------------------
     def postprocess_device(self, interp: Interpretation):

@@ -10,9 +10,11 @@ Padding follows TF SAME (pad_top = pad_total // 2): on a stride-2 layer
 with an even input it pads (0, 1), not torch's symmetric ``padding=1``.
 Max-pool SAME pads with -inf.
 
-Only the squeezeDet float inference path is ported here; int8,
-``conv2d_s2d``, ``conv_bn``, fc, dropout and the custom filter-gradient
-backward come with later slices.
+The squeezeDet float path is ported here, for inference and training:
+dropout, weight decay, and the filter-gradient routing that sends the
+weight gradient of eligible stride-1 SAME convs through K2
+(``ops/filter_grad.py``).  int8, ``conv2d_s2d``, ``conv_bn`` and fc come
+with later slices.
 """
 
 from __future__ import annotations
@@ -132,10 +134,90 @@ def _conv_nchw(x: torch.Tensor, weight: torch.Tensor,
                     stride=stride, padding=pad)
 
 
+# --- filter-gradient routing (K2) -----------------------------------------
+#
+# False: plain autograd (cuDNN's weight gradient on the card).  "1x1":
+# stride-1 SAME 1x1 convs with C % 128 == 0 and H*W % 16 == 0 take their
+# weight gradient from K2; the data gradient stays a transposed conv.
+# True: also odd-sized kernels (3x3, 5x5) with C % 128 == 0.  The JAX
+# package's modes and eligibility (squeezedet_tpu/models/layers.py:
+# set_pallas_filter_grad, _pallas_dw_eligible); where it needs a TPU
+# backend, here K2 launches its kernel on a CUDA tensor and runs its plain
+# version on a CPU tensor.  Module-level, like the JAX switch: it applies
+# to forwards run after it is set.
+_FILTER_GRAD = False
+
+
+def set_filter_grad(mode) -> None:
+    """Route eligible convs' weight gradients through K2: False, "1x1"
+    or True."""
+    global _FILTER_GRAD
+    if not (mode is False or mode is True or mode == "1x1"):
+        raise ValueError("filter-grad mode must be False, '1x1' or True, "
+                         "got {!r}".format(mode))
+    _FILTER_GRAD = mode
+
+
+def filter_grad_eligible(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether a stride-1 SAME conv of NHWC ``x`` by OIHW ``weight``
+    takes its weight gradient from K2 in the current mode."""
+    _, c, kh, kw = weight.shape
+    if not _FILTER_GRAD:
+        return False
+    if kh % 2 != 1 or kw % 2 != 1 or c % 128 != 0:
+        return False
+    if _FILTER_GRAD == "1x1" and not (
+            kh == kw == 1 and (x.shape[1] * x.shape[2]) % 16 == 0):
+        return False
+    return True
+
+
+class _ConvS1Same(torch.autograd.Function):
+    """Stride-1 SAME conv, no bias: NHWC x and OIHW weight (in x's dtype)
+    -> NCHW (channels_last) output.  Backward: dX is the transposed conv
+    (cuDNN on the card), dW comes from K2, in f32 cast to the weight's
+    dtype, as the JAX custom VJP casts it to the kernel's."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _conv_nchw(x, weight, None, 1, "SAME")
+
+    @staticmethod
+    def backward(ctx, g):
+        from squeezedet_torch.ops.filter_grad import filter_grad
+        x, weight = ctx.saved_tensors
+        _, _, kh, kw = weight.shape
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(
+                list(x.permute(0, 3, 1, 2).shape), weight, g,
+                padding=((kh - 1) // 2, (kw - 1) // 2)).permute(0, 2, 3, 1)
+        if ctx.needs_input_grad[1]:
+            dw = filter_grad(x.contiguous(),
+                             g.permute(0, 2, 3, 1).contiguous(), kh, kw)
+            dw = dw.permute(3, 2, 0, 1).to(weight.dtype)
+        return dx, dw
+
+
+def _conv_op(x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor], stride: int,
+             padding: str) -> torch.Tensor:
+    """The conv (+ bias) as :func:`_conv_nchw` computes it, through the
+    K2-backward Function when routed."""
+    if stride == 1 and padding == "SAME" and \
+            filter_grad_eligible(x, weight):
+        y = _ConvS1Same.apply(x, weight.to(x.dtype))
+        if bias is not None:
+            y = y + bias.to(x.dtype).view(1, -1, 1, 1)
+        return y
+    return _conv_nchw(x, weight, bias, stride, padding)
+
+
 def conv2d(conv: Conv, x: torch.Tensor, stride: int, padding: str = "SAME",
            relu: bool = True) -> torch.Tensor:
     """NHWC conv + bias (+ relu), matching tf.nn.conv2d SAME/VALID."""
-    y = _conv_nchw(x, conv.weight, conv.bias, stride, padding)
+    y = _conv_op(x, conv.weight, conv.bias, stride, padding)
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)
@@ -167,6 +249,44 @@ def max_pool(x: torch.Tensor, size: int, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+def dropout(x: torch.Tensor, keep_prob: float,
+            generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability keep_prob and
+    scale the kept ones by 1/keep_prob.
+
+    When keep_prob is q/256 (0.5 is), one uint8 per element is drawn and
+    kept where it is below q, as the JAX layer draws it; otherwise one
+    f32 uniform per element.  ``generator`` lives on x's device; the two
+    frameworks draw different bits from a seed.
+    """
+    if not train or keep_prob >= 1.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator on "
+                         "the activations' device")
+    q = round(keep_prob * 256)
+    if 0 < q < 256 and abs(q - keep_prob * 256) < 1e-9:
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                             device=x.device, generator=generator)
+        keep = bits < q
+    else:
+        keep = torch.rand(x.shape, device=x.device,
+                          generator=generator) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def weight_decay_loss(module: nn.Module, wd: float):
+    """wd * 0.5 * ||W||^2 in f32, summed over the conv weights of
+    ``module`` that train (requires_grad); frozen layers and biases
+    carry no decay."""
+    total = 0.0
+    for name, p in module.named_parameters():
+        if name.endswith("weight") and p.requires_grad:
+            total = total + wd * 0.5 * torch.sum(torch.square(p.float()))
+    return total
+
+
 class Fire(nn.Module):
     """Fire module parameters: squeeze1x1 -> (expand1x1, expand3x3)."""
 
@@ -192,8 +312,8 @@ def conv2d_pair(conv: Conv, xa: torch.Tensor, xb: torch.Tensor,
     conv(xa, k[:, :Ca]) + conv(xb, k[:, Ca:]), so fire outputs are never
     concatenated."""
     ca = xa.shape[-1]
-    y = _conv_nchw(xa, conv.weight[:, :ca], conv.bias, stride, "SAME")
-    y = y + _conv_nchw(xb, conv.weight[:, ca:], None, stride, "SAME")
+    y = _conv_op(xa, conv.weight[:, :ca], conv.bias, stride, "SAME")
+    y = y + _conv_op(xb, conv.weight[:, ca:], None, stride, "SAME")
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)

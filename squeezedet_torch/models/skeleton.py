@@ -1,6 +1,5 @@
-"""Detection interpretation graph (counterpart of
-``squeezedet_tpu/models/skeleton.py``; the loss arrives with the train
-step).
+"""Detection interpretation graph and loss (counterpart of
+``squeezedet_tpu/models/skeleton.py``).
 
 Channel-layout contract: the ConvDet output [B, H, W, APG*(C+1+4)] is
 sliced as [class_probs | conf | deltas] with anchor-major, class-minor
@@ -10,6 +9,7 @@ output is permuted first.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -74,3 +74,106 @@ def interpret(preds: torch.Tensor, anchors: torch.Tensor, *,
     return Interpretation(pred_class_probs, pred_conf, pred_box_delta,
                           det_boxes, det_probs, det_class,
                           pred_class_logits)
+
+
+def tensor_iou(box1, box2, mask: torch.Tensor,
+               epsilon: float) -> torch.Tensor:
+    """IoU of corner-format box tuples (xmin, ymin, xmax, ymax), each
+    element [B, A], times ``mask``."""
+    xmin = torch.maximum(box1[0], box2[0])
+    ymin = torch.maximum(box1[1], box2[1])
+    xmax = torch.minimum(box1[2], box2[2])
+    ymax = torch.minimum(box1[3], box2[3])
+    w = (xmax - xmin).clamp(min=0.0)
+    h = (ymax - ymin).clamp(min=0.0)
+    intersection = w * h
+    w1 = box1[2] - box1[0]
+    h1 = box1[3] - box1[1]
+    w2 = box2[2] - box2[0]
+    h2 = box2[3] - box2[1]
+    union = w1 * h1 + w2 * h2 - intersection
+    return intersection / (union + epsilon) * mask
+
+
+def _center_to_corners(boxes: torch.Tensor):
+    cx, cy, w, h = boxes.unbind(-1)
+    return (cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
+
+
+class Targets(NamedTuple):
+    """Dense training targets, one row per anchor."""
+
+    input_mask: torch.Tensor       # [B, A] 1.0 where an anchor owns a gt box
+    box_delta_input: torch.Tensor  # [B, A, 4] target deltas
+    box_input: torch.Tensor        # [B, A, 4] gt boxes (cx, cy, w, h)
+    labels: torch.Tensor           # [B, A, C] one-hot class labels
+
+
+class LossBreakdown(NamedTuple):
+    total: torch.Tensor
+    class_loss: torch.Tensor
+    conf_loss: torch.Tensor
+    bbox_loss: torch.Tensor
+    mean_iou: torch.Tensor
+
+
+def detection_loss(interp: Interpretation, targets: Targets, *,
+                   num_anchors: int, loss_coef_class: float,
+                   loss_coef_conf_pos: float, loss_coef_conf_neg: float,
+                   loss_coef_bbox: float, epsilon: float = 1e-16,
+                   weight_decay_term=0.0) -> LossBreakdown:
+    """The 3-term squeezeDet loss (class, confidence, box) plus the
+    weight-decay term, as the JAX function computes it:
+
+    * the class loss is taken in log space from the logits, with the
+      row max detached, so saturated softmaxes give bounded gradients
+      (the probs-only branch keeps the reference's literal formula);
+    * every normaliser is ``max(sum(mask), 1)``, so an all-background
+      batch gives zero class and box losses instead of NaN;
+    * the confidence target IoU is detached;
+    * the negative-anchor denominator is ``max(A - num_objects, 1)``.
+    """
+    mask = targets.input_mask
+    mask3 = mask[..., None]
+    num_objects = mask.sum().clamp(min=1.0)
+
+    if interp.pred_class_logits is not None:
+        logits = interp.pred_class_logits
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        shifted = logits - m
+        e = torch.exp(shifted)
+        s = e.sum(dim=-1, keepdim=True)
+        # torch.maximum (not clamp) splits the gradient at a tie, as
+        # jnp.maximum does: saturated logits reach the floor exactly
+        log_floor = logits.new_tensor(math.log(epsilon))
+        log_p = torch.maximum(shifted - torch.log(s), log_floor)
+        # log(1 - p_i) = log(sum_{j != i} e_j) - log(sum_j e_j)
+        log_1mp = torch.maximum(
+            torch.log(torch.maximum(s - e, logits.new_tensor(epsilon)))
+            - torch.log(s), log_floor)
+        class_loss = torch.sum(
+            (targets.labels * (-log_p) + (1 - targets.labels) * (-log_1mp))
+            * mask3 * loss_coef_class) / num_objects
+    else:
+        p = interp.pred_class_probs
+        class_loss = torch.sum(
+            (targets.labels * (-torch.log(p + epsilon))
+             + (1 - targets.labels) * (-torch.log(1 - p + epsilon)))
+            * mask3 * loss_coef_class) / num_objects
+
+    ious = tensor_iou(_center_to_corners(interp.det_boxes),
+                      _center_to_corners(targets.box_input), mask,
+                      epsilon).detach()
+    conf_weight = (mask * loss_coef_conf_pos / num_objects
+                   + (1 - mask) * loss_coef_conf_neg
+                   / (num_anchors - num_objects).clamp(min=1.0))
+    conf_loss = torch.mean(torch.sum(
+        torch.square(ious - interp.pred_conf) * conf_weight, dim=1))
+
+    bbox_loss = torch.sum(loss_coef_bbox * torch.square(
+        mask3 * (interp.pred_box_delta - targets.box_delta_input))
+    ) / num_objects
+
+    mean_iou = ious.sum() / num_objects
+    total = class_loss + conf_loss + bbox_loss + weight_decay_term
+    return LossBreakdown(total, class_loss, conf_loss, bbox_loss, mean_iou)

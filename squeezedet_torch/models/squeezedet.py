@@ -2,7 +2,8 @@
 ``squeezedet_tpu/models/squeezedet.py``).
 
 conv1 (64f 3x3 s2, frozen) -> pool1 -> fire2..3 -> pool3 -> fire4..5 ->
-pool5 -> fire6..9 -> fire10..11 -> conv12 ConvDet head with
+pool5 -> fire6..9 -> fire10..11 -> dropout (training) -> conv12 ConvDet
+head with
 APG*(C+1+4) channels, 3x3, no relu, stddev 1e-4.  All pools are 3x3
 stride-2 SAME; overall stride 16.  conv1+pool1 always run through the
 K1 wrapper (:func:`squeezedet_torch.ops.fused_frontend.conv1_pool1`):
@@ -10,6 +11,8 @@ the CUDA kernel on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,6 +39,7 @@ class SqueezeDet(nn.Module):
 
     def __init__(self, cfg, *, device, generator: torch.Generator):
         super().__init__()
+        self.keep_prob = cfg.keep_prob
         self.tracer = L.NetTracer.for_config(cfg)
         xavier = cfg.scratch_init == "xavier"
         self.conv1 = L.init_conv(generator, self.tracer, "conv1", 64, 3, 2,
@@ -50,11 +54,17 @@ class SqueezeDet(nn.Module):
                                   cfg.head_channels, 3, 1, device=device,
                                   xavier=False, stddev=0.0001)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """In training, two independent dropout draws from ``generator``
+        mask the fire11 halves before conv12."""
         x = fused_frontend.conv1_pool1(
             images, self.conv1.weight.permute(2, 3, 1, 0), self.conv1.bias)
         pair = x
         for name, _, _, _ in _FIRES:
             pool = (3, 2) if name in _POOL_AFTER else None
             pair = L.fire_pair(getattr(self, name), pair, pool=pool)
+        pair = (L.dropout(pair[0], self.keep_prob, generator, train),
+                L.dropout(pair[1], self.keep_prob, generator, train))
         return L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)

@@ -7,6 +7,25 @@ import numpy as np
 import torch
 
 
+def batch_iou(boxes: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """IoU of center-format boxes [N, 4] against one box [4] -> [N].
+
+    A batch of boxes [B, 4] gives [B, N], one row per box.  No epsilon,
+    as in the JAX function: two zero-area boxes divide by zero.
+    """
+    bx, by = box[..., None, 0], box[..., None, 1]
+    bw, bh = box[..., None, 2], box[..., None, 3]
+    lr = (torch.minimum(boxes[:, 0] + 0.5 * boxes[:, 2], bx + 0.5 * bw) -
+          torch.maximum(boxes[:, 0] - 0.5 * boxes[:, 2], bx - 0.5 * bw)
+          ).clamp(min=0)
+    tb = (torch.minimum(boxes[:, 1] + 0.5 * boxes[:, 3], by + 0.5 * bh) -
+          torch.maximum(boxes[:, 1] - 0.5 * boxes[:, 3], by - 0.5 * bh)
+          ).clamp(min=0)
+    inter = lr * tb
+    union = boxes[:, 2] * boxes[:, 3] + bw * bh - inter
+    return inter / union
+
+
 def pairwise_iou_center(a: torch.Tensor, b: torch.Tensor,
                         eps: float = 0.0) -> torch.Tensor:
     """IoU matrix [..., N, M] between center-format box sets [..., N, 4]

@@ -7,7 +7,8 @@ conv1_pool1_fused``: ``max_pool_3x3_s2_SAME(relu(conv_3x3_s2_SAME(x, k)
 ``csrc/conv1_pool1.cu``; on a CPU tensor it runs
 :func:`conv1_pool1_reference`, the plain PyTorch version of the same
 function.  Nothing falls back: a CUDA tensor the kernel does not take
-raises.
+raises, and so does a CUDA call that autograd would differentiate (the
+kernel has no backward; the plain version on the CPU does).
 
 Numerics of both versions: the kernel and bias are rounded to the
 images' dtype (as the JAX layer casts them), everything after that is
@@ -61,6 +62,25 @@ def _check(images, kernel, bias) -> None:
         raise ValueError("images, kernel and bias must share a device")
 
 
+def check_no_grad(images, kernel, bias) -> None:
+    """Refuse a call whose result autograd would differentiate.
+
+    The CUDA kernel has no backward: its output carries no graph, so a
+    gradient into the images, kernel or bias would silently vanish.
+    squeezeDet's conv1 is frozen and its input needs no gradient, so the
+    train step never asks for one; anything that does must fail loudly.
+    """
+    if not torch.is_grad_enabled():
+        return
+    wants = [name for name, t in (("images", images), ("kernel", kernel),
+                                  ("bias", bias)) if t.requires_grad]
+    if wants:
+        raise RuntimeError(
+            "conv1_pool1's CUDA kernel has no backward, but {} require(s) "
+            "grad; freeze conv1 or call it under torch.no_grad()".format(
+                ", ".join(wants)))
+
+
 def conv1_pool1_reference(images: torch.Tensor, kernel: torch.Tensor,
                           bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch conv1+pool1: [B, H, W, 3] -> [B, Hp, Wp, 64] NHWC."""
@@ -94,6 +114,7 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
                          "{}".format(images.device))
     if not images.is_contiguous():
         raise ValueError("images must be contiguous NHWC")
+    check_no_grad(images, kernel, bias)
     b, h, w, _ = images.shape
     if not 1 <= b <= 65535:
         raise ValueError("batch must be 1..65535 (grid z), got {}".format(b))

@@ -4,7 +4,9 @@ The JAX tree nests layer names (``conv1``, ``fire2/squeeze1x1``, ...,
 ``conv12``) down to ``{"kernel": HWIO, "bias": [O]}`` leaves; the port's
 backbone ``state_dict`` names the same layers with dots and holds OIHW
 ``weight`` and ``bias`` tensors.  Both directions only transpose, so a
-round trip JAX -> torch -> JAX is bit-identical.
+round trip JAX -> torch -> JAX is bit-identical.  The optimizer state
+maps the same way: the optax chain's momentum ``trace`` tree and step
+``count`` to and from ``optim.Momentum.state_dict()``.
 """
 
 from __future__ import annotations
@@ -53,3 +55,50 @@ def to_jax_params(state_dict) -> dict:
             node = node.setdefault(name, {})
         node[_TO_JAX[leaf]] = arr
     return tree
+
+
+def _chain_field(opt_state, name: str):
+    """The one entry of an optax chain state tuple that has ``name``."""
+    found = [part for part in opt_state
+             if name in getattr(part, "_fields", ())]
+    if len(found) != 1:
+        raise ValueError("expected one '{}' in the optax chain state, found "
+                         "{}".format(name, len(found)))
+    return found[0]
+
+
+def from_jax_opt_state(opt_state, trainable: Dict[str, bool]) -> dict:
+    """The JAX package's optimizer state (the ``build_optimizer`` chain:
+    its ``trace`` tree and schedule ``count``) -> ``Momentum.state_dict()``
+    of the port: OIHW momentum buffers of the trainable parameters, and
+    the step.  ``trainable`` is ``Detector.trainable_mask()``; a frozen
+    leaf's trace must be zero, as the chain keeps it."""
+    trace = from_jax_params(_chain_field(opt_state, "trace").trace)
+    if set(trace) != set(trainable):
+        raise ValueError("trace names {} do not match the parameters "
+                         "{}".format(sorted(trace), sorted(trainable)))
+    for name, t in trace.items():
+        if not trainable[name] and bool(t.any()):
+            raise ValueError("frozen {} has a non-zero trace".format(name))
+    return {"step": int(np.asarray(_chain_field(opt_state, "count").count)),
+            "momentum": {n: t for n, t in trace.items() if trainable[n]}}
+
+
+def to_jax_opt_state(state: dict, params: Dict[str, torch.Tensor], like):
+    """``Momentum.state_dict()`` -> the JAX package's chain state,
+    shaped like ``like`` (a state of the same chain): the trace tree
+    holds the momentum buffers (HWIO) and zeros at the frozen leaves of
+    ``params`` (the backbone state_dict), and ``count`` the step."""
+    full = {name: state["momentum"].get(name, torch.zeros_like(p))
+            for name, p in params.items()}
+    tree = to_jax_params(full)
+    parts = []
+    for part in like:
+        fields = getattr(part, "_fields", ())
+        if "trace" in fields:
+            part = part._replace(trace=tree)
+        elif "count" in fields:
+            part = part._replace(count=np.asarray(
+                state["step"], np.asarray(part.count).dtype))
+        parts.append(part)
+    return tuple(parts)

@@ -121,6 +121,49 @@ def test_k1_rejects_what_the_kernel_does_not_take(bad):
         ff.conv1_pool1(x, k, b)
 
 
+@pytest.mark.parametrize("wants", ["images", "kernel", "bias"])
+def test_k1_refuses_a_gradient_it_would_drop(wants):
+    """The CUDA kernel has no backward: a call that autograd would
+    differentiate raises, naming the tensor, instead of returning a
+    result with no graph.  Under no_grad, or with nothing requiring
+    grad, the same call passes."""
+    args = {"images": torch.zeros(1, 8, 8, 3),
+            "kernel": torch.zeros(3, 3, 3, 64), "bias": torch.zeros(64)}
+    args[wants].requires_grad_()
+    with pytest.raises(RuntimeError, match=wants):
+        ff.check_no_grad(args["images"], args["kernel"], args["bias"])
+    with torch.no_grad():
+        ff.check_no_grad(args["images"], args["kernel"], args["bias"])
+    args[wants].requires_grad_(False)
+    ff.check_no_grad(args["images"], args["kernel"], args["bias"])
+
+
+def test_frozen_conv1_train_step_never_asks_k1_for_a_gradient(monkeypatch):
+    """The train step (tiny config, CPU) runs K1's wrapper with grad mode
+    on; every call passes the check the CUDA path makes, because conv1
+    is frozen and the images need no gradient."""
+    import squeezedet_torch as st
+    from squeezedet_torch.optim import build_optimizer
+    from squeezedet_torch.trainer import TrainState, make_train_step_device
+    cfg = st.tiny_test_config().replace(keep_prob=1.0)
+    det = st.get_model("squeezeDet", cfg, device="cpu")
+    real, checked = ff.conv1_pool1, []
+
+    def checking(images, kernel, bias):
+        ff.check_no_grad(images, kernel, bias)
+        checked.append(torch.is_grad_enabled())
+        return real(images, kernel, bias)
+    monkeypatch.setattr(ff, "conv1_pool1", checking)
+    step = make_train_step_device(TrainState(det, build_optimizer(cfg, det)),
+                                  uint8_ingest=True)
+    u8 = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, 96, 96, 3), dtype=np.uint8))
+    boxes = torch.tensor([[[40.0, 40.0, 20.0, 30.0]]] * 2)
+    lb = step(u8, boxes, torch.zeros(2, 1, dtype=torch.long),
+              torch.tensor([1, 1]))
+    assert checked == [True] and torch.isfinite(lb.total)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 384, 1248), (1, 375, 1242)])
