@@ -9,13 +9,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    version and ``nvcc --version``;
 2. build: the K1 and K2 kernels from ``squeezedet_torch/csrc``, one nvcc
    each, started together; ptxas' register and shared-memory reports;
+   the tensor-core instructions (HMMA) in each kernel's SASS, by
+   ``cuobjdump -sass``: the bf16 (tensor-core) kernels must have some;
 3. K1 against its plain PyTorch version on the card, at the flagship
-   shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then both
-   timed with CUDA events at B=128 bf16;
+   shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then
+   timed with CUDA events at B=128 bf16 beside its plain version and the
+   unfused cuDNN layers;
 4. K2 against its plain version on the card in f32 (TF32 off) and bf16,
    at every conv shape the train step routes to it (B=20, 1248x384) and
    at five odd shapes (B=2); two launches must be bitwise equal; K2, its
-   plain version and cuDNN's weight gradient timed at the train shapes;
+   plain version and cuDNN's weight gradient timed at the train shapes
+   (B=20), and K2 and cuDNN at B=128;
 5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
    B=128 for throughput; then the HTTP server at --max_batch 8:
@@ -30,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
-each kernel and then ``{"ok": true, "device": {...}}``.  Without a CUDA
+each kernel (its times, its launches on the paths, and its bound: the
+larger of the bytes it must move over the card's memory rate and its
+operations over the peak rate of their type), and then
+``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or when ``squeezedet_torch`` does not sit beside this file, the
 script fails before printing either.
 """
@@ -65,6 +72,12 @@ MIN_GAP, MIN_IOU_MARGIN = 5e-6, 1e-4
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
 KERNELS = ("conv1_pool1", "filter_grad")
+# the bf16 (tensor-core) kernel functions of each source, by name
+TC_FUNCTIONS = {"conv1_pool1": "conv1_pool1_tc",
+                "filter_grad": "filter_grad_tc_partial"}
+# H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
+# and f32 CUDA-core FLOP/s
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # K2 against its plain version: both sum f32 products (bf16 operands
 # widen exactly) in different orders over up to 150k terms, so each
 # output may differ by K2_RTOL times sum|x|*|dy| of its own terms (the
@@ -78,6 +91,7 @@ K2_TRAIN_SHAPES = [(1, 128, 32, 48, 156), (1, 128, 48, 24, 78),
                    (1, 256, 64, 24, 78), (1, 256, 96, 24, 78),
                    (1, 384, 96, 24, 78), (3, 384, 72, 24, 78)]
 K2_TRAIN_BATCH = 20
+K2_BIG_BATCH = 128  # the device-bound train step (PERF.md section 5)
 # the odd shapes of tests/test_filter_grad.py: (kh, kw, H, W), C = O = 128
 K2_ODD_SHAPES = [(1, 1, 4, 4), (1, 1, 5, 7), (3, 3, 6, 10), (3, 3, 5, 7),
                  (5, 5, 9, 11)]
@@ -135,6 +149,51 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, flops, peak):
+    """(ms, what binds): the least time for moving ``nbytes`` and doing
+    ``flops`` at the card's peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k1_bound(b, h, w):
+    """bf16 K1: read the images once, write the pooled output once; 27
+    multiply-adds for each of the 64 channels of each conv output."""
+    from squeezedet_torch.ops import fused_frontend as ff
+    hc, wc, hp, wp = ff.geometry(h, w)[:4]
+    return bound(2 * b * h * w * 3 + 2 * b * hp * wp * 64,
+                 2 * 27 * 64 * b * hc * wc, BF16_FLOPS)
+
+
+def k2_bound(b, kh, c, o, h, w):
+    """bf16 K2: read X and dY once, write dW (f32) once; a multiply-add
+    for every (position, tap, c, o)."""
+    m = b * h * w
+    return bound(2 * m * (c + o) + 4 * kh * kh * c * o,
+                 2 * m * c * o * kh * kh, BF16_FLOPS)
+
+
+def tensor_core_counts(so):
+    """{kernel function: HMMA/HGMMA instructions} in a library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
+def _nvcc():
+    from squeezedet_torch.ops import _cuda
+    return _cuda.nvcc_path()
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -164,6 +223,18 @@ def phase_build():
         log(_cuda.BUILD_LOGS.get(name, "(cached build)").strip())
     log("[build] {} kernels in {:.1f} s".format(len(KERNELS),
                                                  time.perf_counter() - t0))
+    tc = {}
+    for name in KERNELS:
+        counts = tensor_core_counts(_cuda.library_path(name))
+        for fn, n in sorted(counts.items()):
+            log("[build] {}: {} tensor-core instructions (HMMA/HGMMA) in "
+                "{}".format(name, n, fn))
+        tc[name] = sum(n for fn, n in counts.items()
+                       if TC_FUNCTIONS[name] in fn)
+        if tc[name] == 0:
+            raise AssertionError("{}'s bf16 kernel has no tensor-core "
+                                 "instruction in its SASS".format(name))
+    return tc
 
 
 def k1_inputs(b, h, w, dtype, seed):
@@ -244,12 +315,16 @@ def _phase_k1(card):
         fn = {"plain": plain, "kernel": kern, "unfused": unfused}[name]
         times[name].append(cuda_ms(fn, iters=10))
     ms = {n: sum(v) / len(v) for n, v in times.items()}
+    bound_ms, bound_by = k1_bound(128, 384, 1248)
     log("[k1] B=128 384x1248 bf16 on {}: kernel {:.4f} ms, plain {:.4f} ms, "
-        "unfused bf16 layers {:.4f} ms (runs: {})".format(
-            card, ms["kernel"], ms["plain"], ms["unfused"],
-            json.dumps(times)))
+        "unfused bf16 layers {:.4f} ms, bound {:.4f} ms ({}) (runs: {})".format(
+            card, ms["kernel"], ms["plain"], ms["unfused"], bound_ms,
+            bound_by, json.dumps(times)))
+    # no one PyTorch call computes conv + bias + ReLU + pool: library_ms is
+    # null, and the unfused layers' time is printed above as the yardstick
     return {"max_abs_err": max_err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"]}
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
@@ -280,10 +355,79 @@ def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
     return err.max().item()
 
 
+def time_k2(card, batch, dtype, gen, with_plain):
+    """K2, (its plain version) and cuDNN's weight gradient timed at the
+    train step's shapes, each in turn; returns the sums over one
+    backward's 12 calls (each conv's two conv2d_pair halves)."""
+    import torch
+
+    from squeezedet_torch.ops import filter_grad as fg
+    name = str(dtype).replace("torch.", "")
+    total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0, "bound": 0.0,
+             "bytes": 0.0, "operations": 0.0}
+    largest = None
+    for kh, c, o, h, w in K2_TRAIN_SHAPES:
+        x = torch.randn(batch, h, w, c, device="cuda", generator=gen).to(dtype)
+        dy = torch.randn(batch, h, w, o, device="cuda",
+                         generator=gen).to(dtype)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        fns = {
+            "kernel": lambda: fg.filter_grad(x, dy, kh, kh),
+            "plain": lambda: fg.filter_grad_reference(x, dy, kh, kh),
+            # what autograd runs with the mode off
+            "cudnn": lambda: torch.nn.grad.conv2d_weight(
+                xn, (o, c, kh, kh), dyn, padding=kh // 2),
+        }
+        order = ("plain", "kernel", "cudnn", "cudnn", "kernel", "plain")
+        if not with_plain:
+            order = ("kernel", "cudnn", "cudnn", "kernel")
+        ms = {n: [] for n in fns}
+        for n in order:
+            ms[n].append(cuda_ms(fns[n], iters=10))
+        ms = {n: sum(v) / len(v) if v else 0.0 for n, v in ms.items()}
+        ms["bound"], bound_by = k2_bound(batch, kh, c, o, h, w)
+        ms["bytes"] = ms["operations"] = 0.0
+        ms[bound_by] = ms["bound"]
+        for n in total:  # each conv's two conv2d_pair halves
+            total[n] += 2 * ms[n]
+        if largest is None or ms["kernel"] > largest[1]["kernel"]:
+            largest = ((kh, c, o, h, w), ms)
+        log("[k2] time B={} {}x{} C={} O={} {}x{} {}: kernel {:.4f} ms, "
+            "plain {}, cuDNN weight grad {:.4f} ms; bf16 bound {:.4f} ms "
+            "({}), kernel at {:.1f} TFLOP/s".format(
+                batch, kh, kh, c, o, h, w, name, ms["kernel"],
+                "{:.4f} ms".format(ms["plain"]) if with_plain else "not timed",
+                ms["cudnn"], ms["bound"], bound_by,
+                2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9))
+        del x, dy, xn, dyn
+    if dtype == torch.bfloat16:  # conv12's blocks: one tap against three
+        kh, c, o, h, w = K2_TRAIN_SHAPES[-1]
+        x = torch.randn(batch, h, w, c, device="cuda", generator=gen).to(dtype)
+        dy = torch.randn(batch, h, w, o, device="cuda",
+                         generator=gen).to(dtype)
+        ms = {1: [], 3: []}
+        for tw in (1, 3, 3, 1):
+            ms[tw].append(cuda_ms(
+                lambda: fg.filter_grad(x, dy, kh, kh, taps_per_block=tw),
+                iters=10))
+        log("[k2] time B={} 3x3 C={} O={} bf16, blocks of one tap {:.4f} "
+            "ms, of three taps {:.4f} ms".format(
+                batch, c, o, sum(ms[1]) / 2, sum(ms[3]) / 2))
+        del x, dy
+    log("[k2] one backward's 12 K2 calls, B={} {} on {}: kernel {:.4f} ms, "
+        "plain {}, cuDNN weight grad {:.4f} ms, bf16 bound {:.4f} ms; "
+        "largest call {} kernel {:.4f} ms".format(
+            batch, name, card, total["kernel"],
+            "{:.4f} ms".format(total["plain"]) if with_plain else "not timed",
+            total["cudnn"], total["bound"], largest[0], largest[1]["kernel"]))
+    return total
+
+
 def phase_k2(card):
     """K2 against its plain version at the train step's and the odd
     shapes, then K2, its plain version and cuDNN's weight gradient timed
-    at the train step's shapes (B=20) in f32 and bf16."""
+    at the train step's shapes (B=20) in f32 and bf16, and K2 and cuDNN
+    in bf16 at B=128."""
     import torch
 
     from squeezedet_torch.ops import filter_grad as fg
@@ -297,44 +441,18 @@ def phase_k2(card):
             max_err = max(max_err, check_k2(2, kh, kw, h, w, 128, 128, dtype,
                                             gen))
 
-    sums = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
-        total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0}
-        largest = None
-        for kh, c, o, h, w in K2_TRAIN_SHAPES:
-            x = torch.randn(K2_TRAIN_BATCH, h, w, c, device="cuda",
-                            generator=gen).to(dtype)
-            dy = torch.randn(K2_TRAIN_BATCH, h, w, o, device="cuda",
-                             generator=gen).to(dtype)
-            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-            fns = {
-                "kernel": lambda: fg.filter_grad(x, dy, kh, kh),
-                "plain": lambda: fg.filter_grad_reference(x, dy, kh, kh),
-                # what autograd runs with the mode off
-                "cudnn": lambda: torch.nn.grad.conv2d_weight(
-                    xn, (o, c, kh, kh), dyn, padding=kh // 2),
-            }
-            ms = {n: [] for n in fns}
-            for n in ("plain", "kernel", "cudnn", "cudnn", "kernel", "plain"):
-                ms[n].append(cuda_ms(fns[n], iters=10))
-            ms = {n: sum(v) / len(v) for n, v in ms.items()}
-            for n in total:  # each conv's two conv2d_pair halves
-                total[n] += 2 * ms[n]
-            if largest is None or ms["kernel"] > largest[1]["kernel"]:
-                largest = ((kh, c, o, h, w), ms)
-            log("[k2] time B={} {}x{} C={} O={} {}x{} {}: kernel {:.4f} ms, "
-                "plain {:.4f} ms, cuDNN weight grad {:.4f} ms".format(
-                    K2_TRAIN_BATCH, kh, kh, c, o, h, w, name, ms["kernel"],
-                    ms["plain"], ms["cudnn"]))
-        log("[k2] one backward's 12 K2 calls, B={} {} on {}: kernel {:.4f} ms,"
-            " plain {:.4f} ms, cuDNN weight grad {:.4f} ms; largest call "
-            "{} kernel {:.4f} ms".format(
-                K2_TRAIN_BATCH, name, card, total["kernel"], total["plain"],
-                total["cudnn"], largest[0], largest[1]["kernel"]))
-        sums[name] = total
-    return {"max_abs_err": max_err, "ms": sums["bfloat16"]["kernel"],
-            "plain_ms": sums["bfloat16"]["plain"]}
+    t32 = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
+    t16 = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
+    time_k2(card, K2_BIG_BATCH, torch.bfloat16, gen, False)
+    log("[k2] f32 route, B={}: kernel {:.4f} ms against its CUDA-core f32 "
+        "bound {:.4f} ms".format(K2_TRAIN_BATCH, t32["kernel"], sum(
+            2 * 2 * K2_TRAIN_BATCH * h * w * c * o * kh * kh / F32_FLOPS * 1e3
+            for kh, c, o, h, w in K2_TRAIN_SHAPES)))
+    # what binds the larger part of the 12 calls' summed bound
+    bound_by = max(("bytes", "operations"), key=lambda k: t16[k])
+    return {"max_abs_err": max_err, "ms": t16["kernel"],
+            "plain_ms": t16["plain"], "bound_ms": t16["bound"],
+            "bound_by": bound_by, "library_ms": t16["cudnn"]}
 
 
 def _top_gap(probs):
@@ -716,7 +834,7 @@ def main():
     import_port()
     import torch
     card = phase_device()
-    phase_build()
+    tc = phase_build()
     k1 = phase_k1(card)
     k2 = phase_k2(card)
 
@@ -759,18 +877,16 @@ def main():
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        "tensor_core_instructions": tc["conv1_pool1"],
+        **k1,
     }, {
         "name": "filter_grad",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
         "launches": train["k2"],
-        "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
+        "tensor_core_instructions": tc["filter_grad"],
+        **k2,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,31 +4,45 @@
 //   out = max_pool_3x3_s2_SAME(relu(conv_3x3_s2_SAME(x, k) + b))
 // with x [B,H,W,3] NHWC (f32 or bf16), k [3,3,3,64] HWIO and b [64] given in
 // f32 (already rounded to x's dtype by the wrapper), out [B,Hp,Wp,64] NHWC in
-// x's dtype.  Sums, bias and ReLU are f32; the result is rounded once, at the
-// store.  Padding is TF SAME (pad_top = pad_total / 2) for the conv (zeros)
-// and the pool (-inf: a tap outside the conv output is skipped), so any H and
-// W are taken; the wrapper computes the geometry and passes it in.
+// x's dtype.  Sums, bias and ReLU are f32; the result is rounded once.
+// Padding is TF SAME (pad_top = pad_total / 2) for the conv (zeros) and the
+// pool (-inf: a tap outside the conv output is skipped), so any H and W are
+// taken; the wrapper computes the geometry and passes it in.
 //
-// What bounds it (H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s f32 on CUDA
-// cores).  At batch 128, 384x1248, bf16 the kernel reads 368 MB of images and
-// writes 491 MB of pooled output: ~0.26 ms of memory time.  The unfused path
-// also writes and reads back a 1.96 GB conv1 activation.  The conv itself is
-// about 53 GFLOP (K = 27 taps x 64 channels per output) on CUDA cores: ~0.8 ms
-// at peak.  So this kernel is compute-bound on CUDA cores unless the conv
-// moves to tensor cores.  A pool window overlaps its neighbours, and
-// computing each conv output inside every window that needs it would cost
-// 2.25x the conv; instead a block computes each conv output of its tile once
-// into an f32 shared-memory tile and pools out of it, so only the halo rows
-// and columns of a tile are computed twice (~1.16x at the tile size below).
+// What bounds it (H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 on tensor
+// cores, 67 TFLOP/s f32 on CUDA cores).  At batch 128, 384x1248, bf16 the
+// kernel must read 368 MB of images and write 491 MB of pooled output:
+// 0.26 ms of memory time.  The conv is 53 GFLOP (K = 27 taps x 64 channels
+// per output): 0.054 ms on bf16 tensor cores, 0.8 ms on f32 CUDA cores.  So
+// on tensor cores the kernel is bound by bytes.  The unfused path would
+// also write and read back a 1.96 GB conv1 activation; here a block
+// computes each conv output of its tile once into shared memory and pools
+// out of it, so only the halo rows and columns of a tile are computed twice.
 //
-// Design (simple first): one block per (image, TP x TQ tile of pool outputs).
-//   1. load the input halo tile, zero-padded, as f32 into shared memory;
-//   2. compute the tile's (2TP+1) x (2TQ+1) conv outputs for all 64 channels
-//      into shared memory (16 channels per work item, weights read as float4
-//      broadcasts); conv positions outside the conv output hold -inf;
-//   3. pool 3x3 s2 out of the tile and store only the pooled values.
-// The conv1 activation never reaches device memory.  wgmma, TMA and fusing
-// the uint8 mean-subtract into the load are later work.
+// bf16 route (tensor cores): persistent blocks of 8 warps, as many as are
+// resident (2 on each SM), walk the (image, 8 x 16 tile of pool outputs)
+// tiles, i.e. 17 x 33 conv outputs a tile (1.10x the pooled area).  Each
+// tile runs four steps; the next tile's halo loads (step 1) are issued
+// before this tile's steps 2-4, so they are in flight while it computes:
+//   1. the input halo tile (35 x 67 pixels) is copied into shared memory as
+//      bf16 with aligned 16-byte loads covering each row (a pixel is 6 bytes,
+//      so rows are not 16-byte aligned); each element is moved to its place,
+//      and everything outside the image is zero;
+//   2. the conv is a GEMM: M = the 561 conv positions (36 m16 tiles), N = 64,
+//      K = 27 taps padded to 32 (two k16 steps of mma.sync.m16n8k16, f32
+//      accumulators).  The 32 x 64 weight matrix lives in each warp's
+//      registers as B fragments (the 5 pad taps are zero); A fragments are
+//      gathered from the halo tile (the pad taps read a zero slot);
+//   3. the epilogue adds the f32 bias, applies ReLU and stores the conv tile
+//      in shared memory as bf16 (positions outside the conv output hold
+//      -inf).  Rounding is monotonic, so pooling the rounded values equals
+//      rounding the pooled f32 value once;
+//   4. each thread pools 8 channels of one output and stores them as one
+//      16-byte write.
+// f32 route (CUDA cores): one block per (image, 4 x 16 pool tile); the halo
+// tile as f32, the conv tile computed in f32 (16 channels per work item,
+// weights read as float4 broadcasts), then pooled, one value per store.
+// The conv1 activation never reaches device memory on either route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,22 +51,9 @@
 
 namespace {
 
-constexpr int kTP = 4;                  // pool rows per block
-constexpr int kTQ = 16;                 // pool cols per block
-constexpr int kCR = 2 * kTP + 1;        // conv rows per block
-constexpr int kCC = 2 * kTQ + 1;        // conv cols per block
-constexpr int kIR = 2 * kCR + 1;        // input rows per block
-constexpr int kIC = 2 * kCC + 1;        // input cols per block
 constexpr int kCin = 3;
 constexpr int kTaps = 9 * kCin;         // 27
 constexpr int kCout = 64;
-constexpr int kCStride = kCout + 1;     // padded conv-tile row: no bank conflicts
-constexpr int kGroup = 16;              // output channels per work item
-constexpr int kThreads = 256;
-
-constexpr int kSmemFloats = kTaps * kCout + kCout + kIR * kIC * kCin +
-                            kCR * kCC * kCStride;
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
 
 struct Geometry {
   int H, W;            // input
@@ -62,20 +63,26 @@ struct Geometry {
   int ppad_t, ppad_l;  // pool SAME pads (top, left)
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// ---- f32 route (CUDA cores) ----------------------------------------------
 
-template <typename T>
+constexpr int kTP = 4;                  // pool rows per block
+constexpr int kTQ = 16;                 // pool cols per block
+constexpr int kCR = 2 * kTP + 1;        // conv rows per block
+constexpr int kCC = 2 * kTQ + 1;        // conv cols per block
+constexpr int kIR = 2 * kCR + 1;        // input rows per block
+constexpr int kIC = 2 * kCC + 1;        // input cols per block
+constexpr int kCStride = kCout + 1;     // padded conv-tile row: no bank conflicts
+constexpr int kGroup = 16;              // output channels per work item
+constexpr int kThreads = 256;
+
+constexpr int kSmemFloats = kTaps * kCout + kCout + kIR * kIC * kCin +
+                            kCR * kCC * kCStride;
+constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+
 __global__ void __launch_bounds__(kThreads, 2)
-conv1_pool1_kernel(const T* __restrict__ x, const float* __restrict__ k,
-                   const float* __restrict__ bias, T* __restrict__ out,
-                   Geometry g) {
+conv1_pool1_f32(const float* __restrict__ x, const float* __restrict__ k,
+                const float* __restrict__ bias, float* __restrict__ out,
+                Geometry g) {
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);  // [27][64], float4-aligned
   float* s_b = s_w + kTaps * kCout;              // [64]
@@ -94,7 +101,7 @@ conv1_pool1_kernel(const T* __restrict__ x, const float* __restrict__ k,
   if (threadIdx.x < kCout) s_b[threadIdx.x] = bias[threadIdx.x];
 
   // 1. input halo tile; a row's 3 * kIC values are contiguous in x
-  const T* xb = x + (size_t)b * g.H * g.W * kCin;
+  const float* xb = x + (size_t)b * g.H * g.W * kCin;
   for (int i = threadIdx.x; i < kIR * kIC * kCin; i += kThreads) {
     const int r = i / (kIC * kCin);
     const int rem = i - r * (kIC * kCin);
@@ -102,7 +109,7 @@ conv1_pool1_kernel(const T* __restrict__ x, const float* __restrict__ k,
     const int xx = ic0 + rem / kCin;
     float v = 0.f;
     if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W)
-      v = load_f32(xb + ((size_t)yy * g.W + xx) * kCin + rem % kCin);
+      v = xb[((size_t)yy * g.W + xx) * kCin + rem % kCin];
     s_x[i] = v;
   }
   __syncthreads();
@@ -155,7 +162,7 @@ conv1_pool1_kernel(const T* __restrict__ x, const float* __restrict__ k,
   __syncthreads();
 
   // 3. pool out of the tile; channel-fastest threads give coalesced stores
-  T* ob = out + (size_t)b * g.Hp * g.Wp * kCout;
+  float* ob = out + (size_t)b * g.Hp * g.Wp * kCout;
   for (int i = threadIdx.x; i < kTP * kTQ * kCout; i += kThreads) {
     const int o = i % kCout;
     const int pq = i / kCout;
@@ -170,21 +177,332 @@ conv1_pool1_kernel(const T* __restrict__ x, const float* __restrict__ k,
 #pragma unroll
       for (int bb = 0; bb < 3; ++bb)
         m = fmaxf(m, s_c[((2 * pr + a) * kCC + 2 * pc + bb) * kCStride + o]);
-    store(ob + ((size_t)p * g.Wp + q) * kCout + o, m);
+    ob[((size_t)p * g.Wp + q) * kCout + o] = m;
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* k, const void* bias, void* out, int B,
-           const Geometry& g, cudaStream_t stream) {
+// ---- bf16 route (tensor cores) -------------------------------------------
+
+constexpr int kTcTP = 8;                    // pool rows per block
+constexpr int kTcTQ = 16;                   // pool cols per block
+constexpr int kTcCR = 2 * kTcTP + 1;        // 17 conv rows per block
+constexpr int kTcCC = 2 * kTcTQ + 1;        // 33 conv cols per block
+constexpr int kTcIR = 2 * kTcCR + 1;        // 35 input rows per block
+constexpr int kTcIC = 2 * kTcCC + 1;        // 67 input cols per block
+constexpr int kTcPos = kTcCR * kTcCC;       // 561 conv positions
+constexpr int kTcM16 = (kTcPos + 15) / 16;  // 36 m16 tiles
+constexpr int kRowElems = kTcIC * kCin;     // 201 bf16 in a halo row
+constexpr int kHaloElems = kTcIR * kRowElems;  // 7035
+constexpr int kZero = kHaloElems;           // a zero element: the pad taps
+constexpr int kHaloAlloc = (kHaloElems + 1 + 7) / 8 * 8;
+constexpr int kWords = (kRowElems + 7) / 8 + 1;  // 16-byte words over a row
+constexpr int kCPitch = kCout + 8;          // bf16; 144-byte rows: the
+                                            // epilogue's stores hit 8 banks
+constexpr int kTcThreads = 256;
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kLoads = (kTcIR * kWords + kTcThreads - 1) / kTcThreads;  // 4
+constexpr size_t kTcSmemBytes =
+    sizeof(__nv_bfloat16) * (kTcPos * kCPitch + kHaloAlloc) +
+    sizeof(float) * kCout;
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two bf16 (lo at the smaller k) in one register
+__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// elementwise max of two bf16 pairs held in registers
+__device__ __forceinline__ uint32_t hmax2_bits(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r =
+      __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Where one tile (kTcTP x kTcTQ pool outputs of one image) lies
+struct Tile {
+  int b, p0, q0;   // image; first pool row and column
+  int cr0, cc0;    // first conv row and column
+  int ir0, ic0;    // first input row and column
+};
+
+__device__ __forceinline__ Tile tile_at(int64_t t, int tiles_q, int tiles_p,
+                                        const Geometry& g) {
+  Tile tl;
+  const int64_t per_image = (int64_t)tiles_q * tiles_p;
+  tl.b = (int)(t / per_image);
+  const int rest = (int)(t - tl.b * per_image);
+  tl.p0 = (rest / tiles_q) * kTcTP;
+  tl.q0 = (rest % tiles_q) * kTcTQ;
+  tl.cr0 = 2 * tl.p0 - g.ppad_t;
+  tl.cc0 = 2 * tl.q0 - g.ppad_l;
+  tl.ir0 = 2 * tl.cr0 - g.pad_t;
+  tl.ic0 = 2 * tl.cc0 - g.pad_l;
+  return tl;
+}
+
+// Slot j of a thread covers the 16-byte word (i - r * kWords) of halo row r,
+// i = tid + j * kTcThreads, counted from the word holding the row's first
+// in-image element; -1 if that word holds none of the row's elements.
+__device__ __forceinline__ int64_t halo_word(const Tile& tl, const Geometry& g,
+                                             int tid, int j) {
+  const int xlo = max(tl.ic0, 0), xhi = min(tl.ic0 + kTcIC, g.W);
+  const int i = tid + j * kTcThreads;
+  const int r = i / kWords;
+  const int yy = tl.ir0 + r;
+  if (i >= kTcIR * kWords || yy < 0 || yy >= g.H || xlo >= xhi) return -1;
+  const int64_t row = ((int64_t)tl.b * g.H + yy) * g.W * kCin;
+  const int64_t word = (row + (int64_t)xlo * kCin) / 8 + (i - r * kWords);
+  return word * 8 < row + (int64_t)xhi * kCin ? word : -1;
+}
+
+// Issue this thread's (up to kLoads) 16-byte loads of a tile's halo rows.
+__device__ __forceinline__ void load_halo(const uint16_t* xs, const Tile& tl,
+                                          const Geometry& g, int64_t total,
+                                          int tid, uint4* raw) {
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int64_t word = halo_word(tl, g, tid, j);
+    if (word < 0) continue;
+    if (word * 8 + 8 <= total) {
+      raw[j] = __ldg(reinterpret_cast<const uint4*>(xs) + word);
+    } else {  // the tensor's last, partial word
+      uint16_t v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = word * 8 + e < total ? xs[word * 8 + e] : (uint16_t)0;
+      raw[j] = make_uint4(pack(v[0], v[1]), pack(v[2], v[3]),
+                          pack(v[4], v[5]), pack(v[6], v[7]));
+    }
+  }
+}
+
+// Move the loaded words' in-image elements to their place in the halo
+// tile, and write zeros where the tile lies outside the image (the two
+// sets are disjoint, so no barrier separates them).
+__device__ __forceinline__ void fill_halo(uint16_t* s_x, const Tile& tl,
+                                          const Geometry& g, int tid,
+                                          const uint4* raw) {
+  const int xlo = max(tl.ic0, 0), xhi = min(tl.ic0 + kTcIC, g.W);
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int64_t word = halo_word(tl, g, tid, j);
+    if (word < 0) continue;
+    const int r = (tid + j * kTcThreads) / kWords;
+    const int64_t row = ((int64_t)tl.b * g.H + tl.ir0 + r) * g.W * kCin;
+    const int64_t e0 = row + (int64_t)tl.ic0 * kCin;  // tile element 0
+    const int64_t v0 = row + (int64_t)xlo * kCin;     // valid [v0, v1)
+    const int64_t v1 = row + (int64_t)xhi * kCin;
+    const uint32_t w4[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int64_t el = word * 8 + e;
+      if (el >= v0 && el < v1)
+        s_x[r * kRowElems + (int)(el - e0)] =
+            (uint16_t)(e & 1 ? w4[e / 2] >> 16 : w4[e / 2] & 0xffffu);
+    }
+  }
+  const bool edge = tl.ir0 < 0 || tl.ir0 + kTcIR > g.H || tl.ic0 < 0 ||
+                    tl.ic0 + kTcIC > g.W;
+  if (!edge) return;  // block-uniform: only edge tiles hold padding
+  for (int i = tid; i < kHaloElems; i += kTcThreads) {
+    const int r = i / kRowElems;
+    const int xx = tl.ic0 + (i - r * kRowElems) / kCin;
+    const int yy = tl.ir0 + r;
+    if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W) s_x[i] = 0;
+  }
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ...; while it computes
+// and pools one tile, its loads of the next tile's halo are in flight.
+__global__ void __launch_bounds__(kTcThreads, 2)
+conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
+               const float* __restrict__ k, const float* __restrict__ bias,
+               __nv_bfloat16* __restrict__ out, Geometry g, int tiles_q,
+               int tiles_p, int64_t n_tiles, int batch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [561][kCPitch] bf16 conv tile, then the halo tile, then the bias
+  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(s_c + kTcPos * kCPitch);
+  float* s_b = reinterpret_cast<float*>(s_x + kHaloAlloc);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, q = lane & 3;  // mma fragment row and column
+  const int64_t total = (int64_t)batch * g.H * g.W * kCin;  // elements
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
+
+  int64_t t = blockIdx.x;
+  uint4 raw[kLoads];  // the next tile's halo words, in flight
+  if (t < n_tiles) load_halo(xs, tile_at(t, tiles_q, tiles_p, g), g, total,
+                             tid, raw);
+  if (tid < kCout) s_b[tid] = bias[tid];
+  if (tid == 0) s_x[kZero] = 0;
+
+  // B fragments of the 32 x 64 weight matrix (k = (di*3 + dj)*3 + ci),
+  // for k16 step s and n8 tile j: (k 16s+2q, +1 | 16s+2q+8, +9; n 8j+gq)
+  uint32_t bw[2][8][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = 16 * s + 2 * q + 8 * h;
+        const int n = 8 * j + gq;
+        const uint16_t lo = k0 < kTaps ? bf16_bits(k[k0 * kCout + n]) : 0;
+        const uint16_t hi =
+            k0 + 1 < kTaps ? bf16_bits(k[(k0 + 1) * kCout + n]) : 0;
+        bw[s][j][h] = pack(lo, hi);
+      }
+  // halo offset of this thread's A columns: k = 16s + 2q + {0, 1, 8, 9}
+  int koff[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = 16 * s + 2 * q + (e & 1) + 8 * (e >> 1);
+      const int tap = kk / kCin, ci = kk % kCin;
+      koff[s][e] = kk < kTaps ? ((tap / 3) * kTcIC + tap % 3) * kCin + ci : -1;
+    }
+
+  for (; t < n_tiles; t += gridDim.x) {
+    const Tile tl = tile_at(t, tiles_q, tiles_p, g);
+    // 1. halo tile (the previous tile's conv has read it: barrier below)
+    fill_halo(s_x, tl, g, tid, raw);
+    __syncthreads();
+    if (t + gridDim.x < n_tiles)
+      load_halo(xs, tile_at(t + gridDim.x, tiles_q, tiles_p, g), g, total,
+                tid, raw);
+
+    // 2 + 3. conv GEMM over the tile's m16 tiles, then bias, ReLU, bf16
+    // (the previous tile's pool has read s_c: the barrier above)
+    for (int mt = warp; mt < kTcM16; mt += kTcWarps) {
+      int base[2];  // halo offset of the row's pixel (top-left tap)
+      bool live[2], inside[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * mt + gq + 8 * h;
+        live[h] = m < kTcPos;
+        const int mm = live[h] ? m : 0;
+        const int r = mm / kTcCC, c = mm - r * kTcCC;
+        base[h] = (2 * r * kTcIC + 2 * c) * kCin;
+        const int cy = tl.cr0 + r, cx = tl.cc0 + c;
+        inside[h] = cy >= 0 && cy < g.Hc && cx >= 0 && cx < g.Wc;
+      }
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint16_t av[2][4];  // [row h][column e]
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            av[h][e] = s_x[koff[s][e] < 0 ? kZero : base[h] + koff[s][e]];
+        // a0a1 (row g, k 2q..), a2a3 (row g+8), a4a5 (row g, k 2q+8..), a6a7
+        const uint32_t a[4] = {
+            pack(av[0][0], av[0][1]), pack(av[1][0], av[1][1]),
+            pack(av[0][2], av[0][3]), pack(av[1][2], av[1][3])};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_bf16(acc[j], a, bw[s][j]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live[h]) continue;
+        __nv_bfloat16* dst = s_c + (16 * mt + gq + 8 * h) * kCPitch;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = 8 * j + 2 * q;
+          float v0 = -INFINITY, v1 = -INFINITY;
+          if (inside[h]) {
+            v0 = fmaxf(acc[j][2 * h] + s_b[n], 0.f);
+            v1 = fmaxf(acc[j][2 * h + 1] + s_b[n + 1], 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst + n) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. pool: a thread takes 8 channels of one output, one 16-byte store
+    __nv_bfloat16* ob = out + (size_t)tl.b * g.Hp * g.Wp * kCout;
+    for (int i = tid; i < kTcTP * kTcTQ * (kCout / 8); i += kTcThreads) {
+      const int grp = i & 7;
+      const int pq = i >> 3;
+      const int pr = pq / kTcTQ, pc = pq - pr * kTcTQ;
+      const int p = tl.p0 + pr, qq = tl.q0 + pc;
+      if (p >= g.Hp || qq >= g.Wp) continue;
+      uint4 m;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb) {
+          const uint4 u = *reinterpret_cast<const uint4*>(
+              s_c + ((2 * pr + a) * kTcCC + 2 * pc + bb) * kCPitch + 8 * grp);
+          if (a == 0 && bb == 0) {
+            m = u;
+          } else {
+            m.x = hmax2_bits(m.x, u.x);
+            m.y = hmax2_bits(m.y, u.y);
+            m.z = hmax2_bits(m.z, u.z);
+            m.w = hmax2_bits(m.w, u.w);
+          }
+        }
+      *reinterpret_cast<uint4*>(ob + ((size_t)p * g.Wp + qq) * kCout +
+                                8 * grp) = m;
+    }
+  }
+}
+
+int launch_f32(const float* x, const float* k, const float* bias, float* out,
+               int B, const Geometry& g, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv1_pool1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv1_pool1_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((g.Wp + kTQ - 1) / kTQ, (g.Hp + kTP - 1) / kTP, B);
-  conv1_pool1_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(k),
-      static_cast<const float*>(bias), static_cast<T*>(out), g);
+  conv1_pool1_f32<<<grid, kThreads, kSmemBytes, stream>>>(x, k, bias, out, g);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc(const __nv_bfloat16* x, const float* k, const float* bias,
+              __nv_bfloat16* out, int B, const Geometry& g,
+              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv1_pool1_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTcSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, conv1_pool1_tc, kTcThreads, kTcSmemBytes)) != cudaSuccess)
+    return (int)err;
+  const int tiles_q = (g.Wp + kTcTQ - 1) / kTcTQ;
+  const int tiles_p = (g.Hp + kTcTP - 1) / kTcTP;
+  const int64_t n_tiles = (int64_t)tiles_q * tiles_p * B;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(n_tiles < resident ? n_tiles : resident);
+  conv1_pool1_tc<<<blocks, kTcThreads, kTcSmemBytes, stream>>>(
+      x, k, bias, out, g, tiles_q, tiles_p, n_tiles, B);
   return (int)cudaGetLastError();
 }
 
@@ -192,15 +510,22 @@ int launch(const void* x, const void* k, const void* bias, void* out, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; x must be
+// 16-byte aligned).  Returns the cudaError_t of the launch.
 int sdt_conv1_pool1(const void* x, const void* k, const void* bias, void* out,
                     int B, int H, int W, int Hc, int Wc, int Hp, int Wp,
                     int pad_t, int pad_l, int ppad_t, int ppad_l, int dtype,
                     void* stream) {
   const Geometry g{H, W, Hc, Wc, Hp, Wp, pad_t, pad_l, ppad_t, ppad_l};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, k, bias, out, B, g, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, k, bias, out, B, g, s);
+  const float* kf = static_cast<const float*>(k);
+  const float* bf = static_cast<const float*>(bias);
+  if (dtype == 0)
+    return launch_f32(static_cast<const float*>(x), kf, bf,
+                      static_cast<float*>(out), B, g, s);
+  if (dtype == 1 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_tc(static_cast<const __nv_bfloat16*>(x), kf, bf,
+                     static_cast<__nv_bfloat16*>(out), B, g, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,27 +4,40 @@
 //   dW[i, j, c, o] = sum_{b,y,x} X[b, y+i-ph, x+j-pw, c] * dY[b, y, x, o]
 // with X [B,H,W,C] and dY [B,H,W,O] contiguous NHWC (both f32 or both bf16),
 // odd kh and kw, ph = (kh-1)/2, pw = (kw-1)/2, X read as zero outside the
-// image, and dW [kh,kw,C,O] in f32.  bf16 operands are widened to f32, where
-// their product is exact; every sum is f32.
+// image, and dW [kh,kw,C,O] in f32.  Every product of two bf16 values is
+// exact in f32 and every sum is f32.
 //
-// What bounds it (H100 SXM data sheet: 67 TFLOP/s f32 on CUDA cores,
-// 3.35 TB/s).  The contraction runs over all B*H*W positions: at the
-// squeezeDet train step (B=20, 1248x384) a fire squeeze half contracts 150k
-// (48x156) or 37k (24x78) positions into a C x O tile of 128x32 .. 384x96,
-// and conv12's two 3x3 halves each do 9 taps of 37k x 384 x 72.  One
-// backward's 12 calls are ~52 GFLOP (conv12's halves 37 of them) over ~0.3 GB
-// of operands, so the kernel is bound by arithmetic, on CUDA cores here:
-// >= 0.78 ms at their peak.  The output is small, so parallelism has to come from splitting the
-// contraction.
+// What bounds it (H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 on tensor
+// cores, 67 TFLOP/s f32 on CUDA cores).  A call reads X and dY once
+// (2 * B*H*W * (C + O) bytes in bf16) and writes dW (4 * kh*kw*C*O bytes);
+// it does 2 * B*H*W * C * O * kh*kw operations.  At the squeezeDet train
+// step (B=20, 1248x384) the ten 1x1 squeeze halves move 13-48 MB for
+// 0.6-4 GFLOP each, so they are bound by bytes (4-14 us each); conv12's two
+// 3x3 halves (C=384, O=72, 24x78) do 18.6 GFLOP on 16 MB each, bound by the
+// tensor cores (19 us each).  Summed over one backward's 12 calls the bound
+// is ~0.126 ms.  The output is small, so parallelism has to come from
+// splitting the contraction.
 //
-// Design (simple first, no tensor cores, wgmma or TMA):
-//   pass 1: block (C x O tile of 64 x 64, tap, split) walks its split's
-//     chunk of positions 32 at a time.  Per step it stages the 32 shifted X
-//     rows (zero outside the image) and the 32 dY rows of its tile in shared
-//     memory, then each of 256 threads accumulates a 4 x 4 sub-tile in f32
-//     registers.  Ragged C and O edges (O = 72, 96) load zeros and skip the
-//     store.  The partial goes to ws[split, tap, C, O].
-//   pass 2: out[t, c, o] = sum over splits of ws[s, t, c, o], s = 0, 1, ...
+// bf16 route (tensor cores):
+//   pass 1: block = (C tile of 128, O tile of up to 128 columns (all of O
+//     in squeezeDet: no wasted columns at O = 32..96), tap, split).  It walks
+//     its split's chunk of positions 64 at a time through a 3-stage ring in
+//     shared memory (96 KB), filled by 16-byte cp.async as the operands lie
+//     (bf16, [position][channel]); a shifted X row outside the image, and a
+//     row past the chunk's end, is copied as zeros (src-size 0).  Each
+//     position is split into (b, y, x) to find its shifted row, so rows never
+//     wrap across image rows.  Both operands have the contraction (position)
+//     axis as their slow axis, so ldmatrix.trans loads the A (X^T) and B (dY)
+//     fragments; rows are 256 bytes with the 16-byte chunk index XORed by
+//     (row & 7), so the 8 rows an ldmatrix reads fall in 8 distinct bank
+//     groups.  8 warps: 4 along C (32 rows each) x 2 along O, each issuing
+//     mma.sync.m16n8k16 bf16 -> f32 on its 2 x NTW fragment tiles.  The
+//     partial goes to ws[split, tap, C, O] (or straight to dW when there is
+//     one split).
+//   pass 2: dW[t, c, o] = sum over splits of ws[s, t, c, o], s = 0, 1, ...
+// f32 route (CUDA cores, unchanged): 64 x 64 C x O tile per (tap, split),
+//   32 positions staged per step as f32 in shared memory, 4 x 4 f32 FMAs per
+//   thread; the same pass 2.
 // Every sum runs in a fixed order and no atomics are used, so two launches
 // on the same inputs give the same bits.
 
@@ -34,31 +47,41 @@
 
 namespace {
 
+constexpr int kStep = 32;     // f32 route: positions per step; every split's
+                              // chunk of positions is a multiple of it
+
+// ---- f32 route (CUDA cores) ----------------------------------------------
 constexpr int kTC = 64;       // C rows of a block's output tile
 constexpr int kTO = 64;       // O columns of a block's output tile
-constexpr int kTK = 32;       // positions staged per step
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+
+// ---- bf16 route (tensor cores) -------------------------------------------
+constexpr int kMC = 128;      // C rows of a block's output tile
+constexpr int kNO = 128;      // at most this many O columns per block
+constexpr int kTcStep = 64;   // positions per stage
+constexpr int kStages = 3;    // cp.async ring depth
+constexpr int kChunks = 16;   // 16-byte chunks in a 256-byte staged row
+constexpr int kTcThreads = 256;
+constexpr int kStageXBytes = (kTcStep + 2) * kChunks * 16;  // 66 X rows
+constexpr int kStageDBytes = kTcStep * kChunks * 16;        // 64 dY rows
+constexpr int kTcSmemBytes =
+    kStages * (kStageXBytes + kStageDBytes + kTcStep);      // ~98 KB
 
 struct Shape {
   int B, H, W, C, O, kh, kw;
   int64_t M;       // B * H * W positions
-  int64_t chunk;   // positions per split (a multiple of kTK)
-  int c_tiles;     // ceil(C / kTC)
+  int64_t chunk;   // positions per split (a multiple of kStep)
+  int c_tiles;     // C tiles of the route
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-filter_grad_partial(const T* __restrict__ x, const T* __restrict__ dy,
-                    float* __restrict__ ws, Shape s) {
-  __shared__ __align__(16) float s_x[kTK][kTC];
-  __shared__ __align__(16) float s_d[kTK][kTO];
-  __shared__ int64_t s_xrow[kTK];  // X element offset of the row, or -1
-  __shared__ int64_t s_drow[kTK];  // dY element offset of the row, or -1
+filter_grad_partial_f32(const float* __restrict__ x,
+                        const float* __restrict__ dy, float* __restrict__ ws,
+                        Shape s) {
+  __shared__ __align__(16) float s_x[kStep][kTC];
+  __shared__ __align__(16) float s_d[kStep][kTO];
+  __shared__ int64_t s_xrow[kStep];  // X element offset of the row, or -1
+  __shared__ int64_t s_drow[kStep];  // dY element offset of the row, or -1
 
   const int c0 = (blockIdx.x % s.c_tiles) * kTC;
   const int o0 = (blockIdx.x / s.c_tiles) * kTO;
@@ -81,8 +104,8 @@ filter_grad_partial(const T* __restrict__ x, const T* __restrict__ dy,
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 
   const int hw = s.H * s.W;
-  for (int64_t p0 = p_begin; p0 < p_end; p0 += kTK) {
-    if (tid < kTK) {
+  for (int64_t p0 = p_begin; p0 < p_end; p0 += kStep) {
+    if (tid < kStep) {
       const int64_t p = p0 + tid;
       int64_t xoff = -1, doff = -1;
       if (p < p_end) {
@@ -100,17 +123,17 @@ filter_grad_partial(const T* __restrict__ x, const T* __restrict__ dy,
     }
     __syncthreads();
 #pragma unroll
-    for (int k = row0; k < kTK; k += kThreads / 64) {
+    for (int k = row0; k < kStep; k += kThreads / 64) {
       const int64_t xoff = s_xrow[k];
       const int64_t doff = s_drow[k];
       const int c = c0 + lane;
       const int o = o0 + lane;
-      s_x[k][lane] = (xoff >= 0 && c < s.C) ? to_f32(x[xoff + c]) : 0.f;
-      s_d[k][lane] = (doff >= 0 && o < s.O) ? to_f32(dy[doff + o]) : 0.f;
+      s_x[k][lane] = (xoff >= 0 && c < s.C) ? x[xoff + c] : 0.f;
+      s_d[k][lane] = (doff >= 0 && o < s.O) ? dy[doff + o] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
-    for (int k = 0; k < kTK; ++k) {
+    for (int k = 0; k < kStep; ++k) {
       const float4 xv = *reinterpret_cast<const float4*>(&s_x[k][4 * tc]);
       const float4 dv = *reinterpret_cast<const float4*>(&s_d[k][4 * to]);
       const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
@@ -137,53 +160,402 @@ filter_grad_partial(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ---- bf16 route helpers ----------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// byte offset of 16-byte chunk `chunk` of staged row `row` (XOR swizzle)
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)((row * kChunks + (chunk ^ (row & 7))) * 16);
+}
+
+// (b, y, x) of a flat position, stepped kTcStep positions per stage
+struct Pos {
+  int b, y, x;
+  __device__ void init(int64_t p, int H, int W) {
+    const int64_t hw = (int64_t)H * W;
+    b = (int)(p / hw);
+    const int r = (int)(p - (int64_t)b * hw);
+    y = r / W;
+    x = r - y * W;
+  }
+  __device__ void advance(int n, int H, int W) {
+    x += n;
+    while (x >= W) {
+      x -= W;
+      if (++y == H) {
+        y = 0;
+        ++b;
+      }
+    }
+  }
+  // the position before this one, in flat order
+  __device__ Pos prev(int H, int W) const {
+    Pos q{b, y, x - 1};
+    if (q.x < 0) {
+      q.x = W - 1;
+      if (--q.y < 0) {
+        q.y = H - 1;
+        --q.b;
+      }
+    }
+    return q;
+  }
+};
+
+// NTW: n8 tiles of O per warp.  TW: taps per block, 1, or 3 = the three
+// taps of one row of a 3-wide kernel, which share the block's dY fragments
+// and one staged X slab (66 rows: the stage's positions and one on each
+// side in flat order; a tap reads it one row earlier or later, and the
+// positions where that crosses an image row are masked to zero in its A
+// fragments).  MT: m16 tiles of C per warp, so the block's C tile is 128
+// (TW = 1) or 64 (TW = 3, whose three taps need 3x the accumulators).
+template <int NTW, int TW>
+__global__ void __launch_bounds__(kTcThreads, 2)
+filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ dy,
+                       float* __restrict__ ws, Shape s) {
+  constexpr int MT = TW == 1 ? 2 : 1;
+  constexpr int kMTile = 4 * 16 * MT;        // C rows of the block
+  constexpr int kOff = (TW - 1) / 2;         // X rows staged before dY row 0
+  constexpr int kRows = kTcStep + TW - 1;    // X rows staged per stage
+  constexpr int kLoadRows = (kRows + 15) / 16;
+  constexpr int NP = (NTW + 1) / 2;          // ldmatrix.x4 loads of dY
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_x = smem;                              // [stage][66][256 B]
+  unsigned char* s_d = smem + kStages * kStageXBytes;     // [stage][64][256 B]
+  uint8_t* s_f = s_d + kStages * kStageDBytes;            // [stage][64] flags
+
+  const int c0 = (blockIdx.x % s.c_tiles) * kMTile;
+  const int o0 = (blockIdx.x / s.c_tiles) * kNO;
+  const int nt8 = min(kNO, s.O - o0) / 8;  // O is a multiple of 8
+  // blockIdx.y is the tap (TW = 1) or the kernel row (TW = 3)
+  const int di = (TW == 1 ? (int)blockIdx.y / s.kw : (int)blockIdx.y) -
+                 (s.kh - 1) / 2;
+  const int dj = TW == 1 ? (int)blockIdx.y % s.kw - (s.kw - 1) / 2 : 0;
+  const int tap0 = TW == 1 ? blockIdx.y : blockIdx.y * s.kw;
+  const int64_t p_begin = (int64_t)blockIdx.z * s.chunk;
+  const int64_t p_end = p_begin + s.chunk < s.M ? p_begin + s.chunk : s.M;
+  const int n_stages = (int)((p_end - p_begin + kTcStep - 1) / kTcStep);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp & 3;   // C rows 16*MT*wm .. of the tile
+  const int wn = warp >> 2;  // O tiles NTW*wn .. NTW*wn+NTW-1
+
+  // loader: this thread copies chunk `lc` of staged X rows lr + 16 h, and
+  // of the dY rows kOff below them; pos[h] is the flat position kOff after
+  // its X row's (the dY row's, so never negative)
+  const int lc = tid & 15;
+  const int lr = tid >> 4;
+  const bool x_chunk = lc < 2 * MT * 4 && c0 + 8 * lc < s.C;
+  const bool d_chunk = lc < nt8;
+  Pos pos[kLoadRows];
+#pragma unroll
+  for (int h = 0; h < kLoadRows; ++h) pos[h].init(p_begin + lr + 16 * h,
+                                                   s.H, s.W);
+
+  auto load_stage = [&](int slot, int stage) {
+    unsigned char* xs = s_x + slot * kStageXBytes;
+    unsigned char* ds = s_d + slot * kStageDBytes;
+#pragma unroll
+    for (int h = 0; h < kLoadRows; ++h) {
+      const int row = lr + 16 * h;
+      if (row >= kRows) break;
+      const int64_t q = p_begin + (int64_t)stage * kTcStep + row - kOff;
+      const Pos pq = kOff ? pos[h].prev(s.H, s.W) : pos[h];
+      const int ys = pq.y + di, xs_ = pq.x + dj;
+      // TW = 1: the X row of live position q, shifted by the tap; TW = 3:
+      // the X row of any position q of the tensor (a neighbour of a live
+      // one), shifted by the kernel row only
+      const bool in = (TW == 1 ? q < p_end : q >= 0 && q < s.M) && ys >= 0 &&
+                      ys < s.H && xs_ >= 0 && xs_ < s.W;
+      if (lc < 2 * MT * 4) {
+        const __nv_bfloat16* src = x;
+        if (in && x_chunk)
+          src = x + (((int64_t)pq.b * s.H + ys) * s.W + xs_) * s.C + c0 +
+                8 * lc;
+        cp_async16(smem_addr(xs) + swz(row, lc), src,
+                   (in && x_chunk) ? 16 : 0);
+      }
+      const int r = row - kOff;  // the dY row of position q
+      if (r >= 0 && r < kTcStep) {
+        const bool live = q < p_end;
+        if (d_chunk)
+          cp_async16(smem_addr(ds) + swz(r, lc),
+                     live ? dy + q * s.O + o0 + 8 * lc : dy, live ? 16 : 0);
+        if (TW > 1 && lc == 0)  // image-row edges: masks of taps -1, +1
+          s_f[slot * kTcStep + r] =
+              (uint8_t)((pq.x == 0) | ((pq.x == s.W - 1) << 1));
+      }
+      pos[h].advance(kTcStep, s.H, s.W);
+    }
+  };
+
+  float acc[TW][MT][NTW][4];
+#pragma unroll
+  for (int t = 0; t < TW; ++t)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[t][i][j][v] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_stages) load_stage(st, st);
+    cp_async_commit();
+  }
+
+  // ldmatrix row addresses: lane -> (matrix lane/8, row lane%8)
+  const int mat = lane >> 3, mrow = lane & 7;
+  const int q2 = 2 * (lane & 3);  // this thread's first k in a fragment
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = st + kStages - 1;
+    if (next < n_stages) load_stage(next % kStages, next);
+    cp_async_commit();
+
+    const int slot = st % kStages;
+    const uint32_t xs = smem_addr(s_x + slot * kStageXBytes);
+    const uint32_t ds = smem_addr(s_d + slot * kStageDBytes);
+#pragma unroll
+    for (int k0 = 0; k0 < kTcStep; k0 += 16) {
+      // B = dY: matrices (k 0-7, n t), (k 8-15, n t), (k 0-7, n t+1),
+      // (k 8-15, n t+1), stored [k][n]
+      uint32_t b[NP][4];
+#pragma unroll
+      for (int jp = 0; jp < NP; ++jp) {
+        const int t0 = NTW * wn + 2 * jp;
+        if (t0 < nt8)
+          ldmatrix_x4_trans(
+              ds + swz(k0 + mrow + ((mat & 1) << 3), t0 + (mat >> 1)), b[jp]);
+      }
+      // A = X^T: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+      // (m 8-15, k 8-15), stored [k][m]; tap t reads the X rows t - kOff
+      // after its dY rows.  Every fragment of the step is loaded before
+      // the first mma, so the loads' latencies overlap.
+      uint32_t a[TW][MT][4];
+#pragma unroll
+      for (int t = 0; t < TW; ++t)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int mcol = 16 * MT * wm + 16 * i + ((mat & 1) << 3);
+          ldmatrix_x4_trans(
+              xs + swz(k0 + t + mrow + ((mat >> 1) << 3), mcol >> 3), a[t][i]);
+        }
+      if (TW > 1) {  // zero tap -1 at x == 0 and tap +1 at x == W - 1
+        const uint8_t* f = s_f + slot * kTcStep + k0 + q2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int hk = 0; hk < 2; ++hk) {
+            const int bit = 1 << e;
+            const uint32_t m = ((f[8 * hk] & bit) ? 0u : 0xffffu) |
+                               ((f[8 * hk + 1] & bit) ? 0u : 0xffff0000u);
+            // k 2q.. sits in registers 0 and 1, k 2q+8.. in 2 and 3
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              a[e ? TW - 1 : 0][i][2 * hk] &= m;
+              a[e ? TW - 1 : 0][i][2 * hk + 1] &= m;
+            }
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < TW; ++t)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int jp = 0; jp < NP; ++jp) {
+            const int t0 = NTW * wn + 2 * jp;
+            if (t0 >= nt8) break;
+            mma_bf16(acc[t][i][2 * jp], a[t][i], b[jp]);
+            if (2 * jp + 1 < NTW && t0 + 1 < nt8)
+              mma_bf16(acc[t][i][2 * jp + 1], a[t][i], b[jp] + 2);
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator (t, i, j): tap tap0 + t, rows c0 + 16*MT*wm + 16*i + g
+  // (+8), columns o0 + 8*(NTW*wn + j) + 2*q (+1)
+  const int g = lane >> 2;
+  const int64_t taps = (int64_t)s.kh * s.kw;
+#pragma unroll
+  for (int t = 0; t < TW; ++t) {
+    float* out = ws + (((int64_t)blockIdx.z * taps + tap0 + t) * s.C) * s.O;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 16 * MT * wm + 16 * i + g + 8 * h;
+        if (c >= s.C) continue;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int tile = NTW * wn + j;
+          if (tile >= nt8) break;
+          const int o = o0 + 8 * tile + q2;
+          *reinterpret_cast<float2*>(out + (int64_t)c * s.O + o) =
+              make_float2(acc[t][i][j][2 * h], acc[t][i][j][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// out[i] = ws[0, i] + ws[1, i] + ..., four outputs a thread when n % 4 == 0
+// (always on the bf16 route; the f32 route takes any O)
 __global__ void filter_grad_reduce(const float* __restrict__ ws,
                                    float* __restrict__ out, int64_t n,
                                    int splits) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n % 4 == 0) {
+    const int64_t n4 = n / 4;
+    const float4* w4 = reinterpret_cast<const float4*>(ws);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int64_t i = first; i < n4; i += stride) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sp = 0; sp < splits; ++sp) {
+        const float4 u = w4[(int64_t)sp * n4 + i];
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      o4[i] = v;
+    }
+    return;
+  }
+  for (int64_t i = first; i < n; i += stride) {
     float v = 0.f;
     for (int sp = 0; sp < splits; ++sp) v += ws[(int64_t)sp * n + i];
     out[i] = v;
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dy, float* ws, float* out,
-           const Shape& s, int splits, cudaStream_t stream) {
-  const int o_tiles = (s.O + kTO - 1) / kTO;
-  const dim3 grid(s.c_tiles * o_tiles, s.kh * s.kw, splits);
-  filter_grad_partial<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), ws, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+int launch_reduce(const float* ws, float* out, const Shape& s, int splits,
+                  cudaStream_t stream) {
   const int64_t n = (int64_t)s.kh * s.kw * s.C * s.O;
-  const int64_t want = (n + 255) / 256;
-  const int blocks = (int)(want < 4096 ? want : 4096);
+  const int64_t want = ((n % 4 == 0 ? n / 4 : n) + 255) / 256;
+  const int blocks = (int)(want < 1 ? 1 : (want < 4096 ? want : 4096));
   filter_grad_reduce<<<blocks, 256, 0, stream>>>(ws, out, n, splits);
   return (int)cudaGetLastError();
+}
+
+template <int NTW, int TW>
+cudaError_t launch_tc(const Shape& s, dim3 grid, const void* x,
+                      const void* dy, float* dst, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      filter_grad_tc_partial<NTW, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (err != cudaSuccess) return err;
+  filter_grad_tc_partial<NTW, TW><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), dst, s);
+  return cudaGetLastError();
+}
+
+template <int TW>
+cudaError_t launch_tw(int ntw, const Shape& s, dim3 grid, const void* x,
+                      const void* dy, float* dst, cudaStream_t stream) {
+  switch (ntw) {
+    case 1: return launch_tc<1, TW>(s, grid, x, dy, dst, stream);
+    case 2: return launch_tc<2, TW>(s, grid, x, dy, dst, stream);
+    case 3: return launch_tc<3, TW>(s, grid, x, dy, dst, stream);
+    case 4: return launch_tc<4, TW>(s, grid, x, dy, dst, stream);
+    case 5: return launch_tc<5, TW>(s, grid, x, dy, dst, stream);
+    case 6: return launch_tc<6, TW>(s, grid, x, dy, dst, stream);
+  }
+  if (TW == 1 && ntw == 7) return launch_tc<7, 1>(s, grid, x, dy, dst, stream);
+  if (TW == 1 && ntw == 8) return launch_tc<8, 1>(s, grid, x, dy, dst, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// ws holds splits * kh * kw * C * O floats; chunk * splits >= B * H * W and
-// chunk is a multiple of 32 (the wrapper computes both).  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the cudaError_t of the launches.
+// ws holds splits * kh * kw * C * O floats (unused when splits == 1);
+// chunk * splits >= B * H * W and chunk is a multiple of 32 (the wrapper
+// computes both).  dtype: 0 = float32 (CUDA cores, C x O tiles of 64 x 64),
+// 1 = bfloat16 (tensor cores, O tiles of up to 128; needs C % 8 == 0,
+// O % 8 == 0 and 16-byte aligned x and dy), whose blocks take one tap on C
+// tiles of 128 (taps_per_block 1) or the three taps of a kernel row on C
+// tiles of 64 (taps_per_block 3: kw == 3 and O <= 96).  taps_per_block is
+// 1 for f32.  Returns the cudaError_t of the launches.
 int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
                     int B, int H, int W, int C, int O, int kh, int kw,
-                    int splits, long long chunk, int dtype, void* stream) {
-  if (kh % 2 != 1 || kw % 2 != 1 || chunk % kTK != 0 || splits < 1)
+                    int splits, long long chunk, int dtype,
+                    int taps_per_block, void* stream) {
+  if (kh % 2 != 1 || kw % 2 != 1 || chunk % kStep != 0 || splits < 1 ||
+      (dtype == 0 && taps_per_block != 1))
     return (int)cudaErrorInvalidValue;
-  Shape s{B, H, W, C, O, kh, kw, (int64_t)B * H * W, (int64_t)chunk,
-          (C + kTC - 1) / kTC};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return launch<float>(x, dy, w, o, s, splits, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, dy, w, o, s, splits, st);
-  return (int)cudaErrorInvalidValue;
+  float* dst = splits == 1 ? o : w;
+  const int64_t M = (int64_t)B * H * W;
+  if (dtype == 0) {
+    Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + kTC - 1) / kTC};
+    const dim3 grid(s.c_tiles * ((O + kTO - 1) / kTO), kh * kw, splits);
+    filter_grad_partial_f32<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), dst, s);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    return launch_reduce(w, o, s, splits, st);
+  }
+  // n8 tiles per warp: the block's O columns split over 2 warps
+  const int ntw = ((O < kNO ? O : kNO) / 8 + 1) / 2;
+  if (dtype != 1 || C % 8 != 0 || O % 8 != 0 ||
+      !(taps_per_block == 1 || (taps_per_block == 3 && kw == 3 && ntw <= 6)) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int m_tile = taps_per_block == 1 ? 128 : 64;
+  Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + m_tile - 1) / m_tile};
+  const dim3 grid(s.c_tiles * ((O + kNO - 1) / kNO),
+                  taps_per_block == 1 ? kh * kw : kh, splits);
+  const cudaError_t err =
+      taps_per_block == 1 ? launch_tw<1>(ntw, s, grid, x, dy, dst, st)
+                          : launch_tw<3>(ntw, s, grid, x, dy, dst, st);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return launch_reduce(w, o, s, splits, st);
 }
 
 const char* sdt_error_string(int err) {

@@ -143,8 +143,10 @@ def _conv_nchw(x: torch.Tensor, weight: torch.Tensor,
 # package's modes and eligibility (squeezedet_tpu/models/layers.py:
 # set_pallas_filter_grad, _pallas_dw_eligible); where it needs a TPU
 # backend, here K2 launches its kernel on a CUDA tensor and runs its plain
-# version on a CPU tensor.  Module-level, like the JAX switch: it applies
-# to forwards run after it is set.
+# version on a CPU tensor.  One condition more than the JAX package's:
+# K2's bf16 (tensor-core) route takes only O % 8 == 0, so a bf16 conv with
+# other O stays on autograd.  Module-level, like the JAX switch: it
+# applies to forwards run after it is set.
 _FILTER_GRAD = False
 
 
@@ -165,6 +167,8 @@ def filter_grad_eligible(x: torch.Tensor, weight: torch.Tensor) -> bool:
     if not _FILTER_GRAD:
         return False
     if kh % 2 != 1 or kw % 2 != 1 or c % 128 != 0:
+        return False
+    if x.dtype == torch.bfloat16 and weight.shape[0] % 8 != 0:
         return False
     if _FILTER_GRAD == "1x1" and not (
             kh == kw == 1 and (x.shape[1] * x.shape[2]) % 16 == 0):
@@ -190,9 +194,14 @@ class _ConvS1Same(torch.autograd.Function):
         _, _, kh, kw = weight.shape
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv2d_input(
-                list(x.permute(0, 3, 1, 2).shape), weight, g,
-                padding=((kh - 1) // 2, (kw - 1) // 2)).permute(0, 2, 3, 1)
+            # the saved input (not torch.nn.grad.conv2d_input's expanded
+            # stand-in) lets cuDNN see channels_last, as autograd's own
+            # backward does: dX comes back channels_last, with no layout
+            # copies here or in the ReLU/pool backward that consumes it
+            dx = torch.ops.aten.convolution_backward(
+                g, x.permute(0, 3, 1, 2), weight, None, [1, 1],
+                [(kh - 1) // 2, (kw - 1) // 2], [1, 1], False, [0, 0], 1,
+                [True, False, False])[0].permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
             dw = filter_grad(x.contiguous(),
                              g.permute(0, 2, 3, 1).contiguous(), kh, kw)

@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_FUNCTIONS: dict = {}
 _LOCK = threading.Lock()
 # nvcc's output (ptxas register/shared-memory report) of each build this
 # process ran, by kernel name
@@ -76,8 +77,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error."""
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C function ``symbol`` of csrc/<name>.cu, returning a cudaError_t,
+    with its argument types set once per process (setting them costs
+    microseconds on every call otherwise)."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a launch of csrc/<name>.cu returned a CUDA error."""
     if err != 0:
         raise RuntimeError("{} failed: CUDA error {} ({})".format(
-            what, err, lib.sdt_error_string(err).decode()))
+            what, err, load(name).sdt_error_string(err).decode()))

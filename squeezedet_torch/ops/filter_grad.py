@@ -9,8 +9,10 @@ with X [B, H, W, C], dY [B, H, W, O] NHWC, odd kh and kw, X zero outside
 the image, and dW [kh, kw, C, O] in f32.  On a CUDA tensor
 :func:`filter_grad` launches the hand-written kernel in
 ``csrc/filter_grad.cu``; on a CPU tensor it runs
-:func:`filter_grad_reference`, the plain PyTorch version.  Nothing falls
-back: a CUDA tensor the kernel does not take raises.
+:func:`filter_grad_reference`, the plain PyTorch version.  The operands'
+dtype picks the kernel's route: bf16 runs on the tensor cores (and needs
+C % 8 == 0, O % 8 == 0 and 16-byte aligned operands), f32 on the CUDA
+cores.  Nothing falls back: a CUDA tensor the kernel does not take raises.
 
 The Pallas kernel's padded, guarded flat frames exist for the TPU's DMA
 alignment; the CUDA kernel indexes the shifted X directly instead.  Its
@@ -21,6 +23,7 @@ second pass), so two launches on the same inputs give the same bits.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,15 +35,47 @@ LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-_TILE_C = _TILE_O = 64  # the kernel's output tile
-_STEP = 32              # positions the kernel stages per step
-# Split the contraction until there are about this many blocks (8 for
-# each of the H100's 132 SMs; at 48 registers a thread, 5 blocks of 256
-# threads are resident on an SM at once), but keep at least _MIN_CHUNK
-# positions in a split.
-_TARGET_BLOCKS = 1056
-_MIN_CHUNK = 256
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+_STEP = 32  # positions the kernel stages per step, both routes
+
+
+class Route(NamedTuple):
+    """One dtype's kernel: its output tile and how far the contraction is
+    split.  The contraction is split until there are about
+    ``target_blocks`` blocks (at most that many when ``one_wave``),
+    keeping at least ``min_chunk`` positions in a split."""
+    tile_c: int
+    tile_o: int
+    target_blocks: int
+    min_chunk: int
+    one_wave: bool
+
+
+ROUTES = {
+    # CUDA cores: 64 x 64 tiles; 8 blocks for each of the H100's 132 SMs
+    # (5 blocks of 256 threads are resident on an SM at 48 registers)
+    torch.float32: Route(64, 64, 1056, 256, False),
+    # tensor cores: C tiles of 128, O tiles of up to 128 (all of O in
+    # squeezeDet), 96 KB of shared memory and <= 128 registers a thread:
+    # 2 blocks are resident on an SM, so at most one wave of 264 blocks,
+    # since every further split adds a C x O f32 partial written and read
+    # back (at B=20 the workspace already moves 0.2-1x the operands' bytes)
+    torch.bfloat16: Route(128, 128, 264, 256, True),
+}
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts one call: a block takes ``taps_per_block`` taps
+    (1, or on the bf16 route the 3 taps of a row of a 3-wide kernel, on C
+    tiles of half the route's height) of one of ``tiles`` output tiles (C
+    tiles x O tiles x taps / taps_per_block), and each contraction over
+    the positions is cut into ``splits`` chunks of ``chunk`` positions (a
+    multiple of 32)."""
+    tiles: int
+    splits: int
+    chunk: int
+    taps_per_block: int
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int) -> None:
@@ -75,22 +110,69 @@ def filter_grad_reference(x: torch.Tensor, dy: torch.Tensor, kh: int,
     return out
 
 
-def split_k(positions: int, tiles: int):
+def split_k(positions: int, tiles: int, route: Route = ROUTES[torch.float32]):
     """(splits, chunk): how the kernel cuts ``positions`` contraction
     terms for ``tiles`` output tiles; chunk is a multiple of 32 and
     splits * chunk covers every position."""
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles),
-                        -(-positions // _MIN_CHUNK), 65535))
+    # the f32 route rounds its block count up to the target; the bf16
+    # route, whose target is exactly one wave, rounds down, since one
+    # block more than a wave doubles the time
+    per_tile = (route.target_blocks // tiles if route.one_wave
+                else -(-route.target_blocks // tiles))
+    splits = max(1, min(per_tile, -(-positions // route.min_chunk), 65535))
     chunk = -(-positions // splits)
     chunk = -(-chunk // _STEP) * _STEP
     return -(-positions // chunk), chunk
 
 
-def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int,
-                kw: int) -> torch.Tensor:
+def can_take_three_taps(o: int, kw: int, dtype: torch.dtype) -> bool:
+    """Whether a block may take the three taps of a kernel row: bf16
+    operands, a 3-wide kernel, and an O tile of at most 96 (the three
+    taps' accumulators must fit in registers)."""
+    return dtype == torch.bfloat16 and kw == 3 and \
+        min(o, ROUTES[dtype].tile_o) <= 96
+
+
+def plan(b: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
+         dtype: torch.dtype, taps_per_block: Optional[int] = None) -> Plan:
+    """The launch plan of one K2 call on ``dtype`` operands.  A block
+    takes three taps wherever it can (they share its staged operands,
+    which cuts their shared-memory loads 3x) unless ``taps_per_block``
+    says 1."""
+    route = ROUTES[dtype]
+    tw = 3 if can_take_three_taps(o, kw, dtype) else 1
+    if taps_per_block is not None:
+        if taps_per_block not in (1, tw):
+            raise ValueError("taps_per_block must be 1{} here, got {}".format(
+                " or 3" if tw == 3 else "", taps_per_block))
+        tw = taps_per_block
+    tile_c = route.tile_c // (2 if tw == 3 else 1)
+    tiles = -(-c // tile_c) * -(-o // route.tile_o) * kh * kw // tw
+    return Plan(tiles, *split_k(b * h * w, tiles, route), tw)
+
+
+def check_kernel_layout(x: torch.Tensor, dy: torch.Tensor) -> None:
+    """What the CUDA kernel needs beyond :func:`_check`: contiguous NHWC
+    operands and, for the bf16 (tensor-core) route, whole 16-byte chunks
+    of channels in every row at 16-byte aligned addresses."""
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("x and dy must be contiguous NHWC")
+    if x.dtype != torch.bfloat16:
+        return
+    c, o = x.shape[-1], dy.shape[-1]
+    if c % 8 or o % 8:
+        raise ValueError("bf16 filter_grad needs C % 8 == 0 and O % 8 == 0, "
+                         "got C={} O={}".format(c, o))
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("bf16 filter_grad needs 16-byte aligned x and dy")
+
+
+def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
+                taps_per_block: Optional[int] = None) -> torch.Tensor:
     """K2: x [B, H, W, C], dy [B, H, W, O] (contiguous NHWC, both f32 or
     both bf16), odd kh and kw -> dW [kh, kw, C, O] f32 of the stride-1
-    SAME conv of x."""
+    SAME conv of x.  ``taps_per_block`` overrides :func:`plan`'s choice
+    of the CUDA kernel's blocks (for timing one against the other)."""
     global LAUNCHES
     _check(x, dy, kh, kw)
     if x.device.type == "cpu":
@@ -98,23 +180,20 @@ def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int,
     if x.device.type != "cuda":
         raise ValueError("filter_grad runs on cpu or cuda tensors, got "
                          "{}".format(x.device))
-    if not (x.is_contiguous() and dy.is_contiguous()):
-        raise ValueError("x and dy must be contiguous NHWC")
+    check_kernel_layout(x, dy)
     b, h, w, c = x.shape
     o = dy.shape[-1]
-    tiles = -(-c // _TILE_C) * -(-o // _TILE_O) * kh * kw
-    splits, chunk = split_k(b * h * w, tiles)
-    ws = torch.empty((splits, kh, kw, c, o), dtype=torch.float32,
-                     device=x.device)
+    p = plan(b, h, w, c, o, kh, kw, x.dtype, taps_per_block)
+    # one split writes dW directly; more write partials to the workspace
+    ws = torch.empty((p.splits if p.splits > 1 else 0, kh, kw, c, o),
+                     dtype=torch.float32, device=x.device)
     out = torch.empty((kh, kw, c, o), dtype=torch.float32, device=x.device)
-    lib = _cuda.load("filter_grad")
-    fn = lib.sdt_filter_grad
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _cuda.function("filter_grad", "sdt_filter_grad", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                 b, h, w, c, o, kh, kw, splits, chunk, _DTYPES[x.dtype],
-                 stream)
-    _cuda.check(lib, err, "filter_grad kernel launch")
+                 b, h, w, c, o, kh, kw, p.splits, p.chunk, _DTYPES[x.dtype],
+                 p.taps_per_block, stream)
+    _cuda.check("filter_grad", err, "filter_grad kernel launch")
     LAUNCHES += 1
     return out

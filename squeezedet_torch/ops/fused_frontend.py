@@ -6,7 +6,9 @@ conv1_pool1_fused``: ``max_pool_3x3_s2_SAME(relu(conv_3x3_s2_SAME(x, k)
 :func:`conv1_pool1` launches the hand-written kernel in
 ``csrc/conv1_pool1.cu``; on a CPU tensor it runs
 :func:`conv1_pool1_reference`, the plain PyTorch version of the same
-function.  Nothing falls back: a CUDA tensor the kernel does not take
+function.  The images' dtype picks the kernel's route: bf16 runs the
+conv on the tensor cores (and needs 16-byte aligned images), f32 on the
+CUDA cores.  Nothing falls back: a CUDA tensor the kernel does not take
 raises, and so does a CUDA call that autograd would differentiate (the
 kernel has no backward; the plain version on the CPU does).
 
@@ -62,6 +64,16 @@ def _check(images, kernel, bias) -> None:
         raise ValueError("images, kernel and bias must share a device")
 
 
+def check_kernel_layout(images) -> None:
+    """What the CUDA kernel needs of the images beyond :func:`_check`:
+    contiguous NHWC, and for the bf16 (tensor-core) route a 16-byte
+    aligned start, which its 16-byte loads assume."""
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous NHWC")
+    if images.dtype == torch.bfloat16 and images.data_ptr() % 16:
+        raise ValueError("bf16 conv1_pool1 needs 16-byte aligned images")
+
+
 def check_no_grad(images, kernel, bias) -> None:
     """Refuse a call whose result autograd would differentiate.
 
@@ -112,8 +124,7 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
     if images.device.type != "cuda":
         raise ValueError("conv1_pool1 runs on cpu or cuda tensors, got "
                          "{}".format(images.device))
-    if not images.is_contiguous():
-        raise ValueError("images must be contiguous NHWC")
+    check_kernel_layout(images)
     check_no_grad(images, kernel, bias)
     b, h, w, _ = images.shape
     if not 1 <= b <= 65535:
@@ -124,13 +135,11 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
     bs = bias.detach().to(dtype).float().contiguous()
     out = torch.empty((b, geo[2], geo[3], FILTERS), dtype=dtype,
                       device=images.device)
-    lib = _cuda.load("conv1_pool1")
-    fn = lib.sdt_conv1_pool1
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _cuda.function("conv1_pool1", "sdt_conv1_pool1", _ARGTYPES)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(images.data_ptr(), k.data_ptr(), bs.data_ptr(),
                  out.data_ptr(), b, h, w, *geo, _DTYPES[dtype], stream)
-    _cuda.check(lib, err, "conv1_pool1 kernel launch")
+    _cuda.check("conv1_pool1", err, "conv1_pool1 kernel launch")
     LAUNCHES += 1
     return out

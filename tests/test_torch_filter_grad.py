@@ -107,6 +107,85 @@ def test_split_k_covers_every_position():
         assert splits * chunk >= positions > (splits - 1) * chunk
 
 
+# (B, kh, kw, H, W, C, O): the train step's routed convs at B=20 and 128,
+# the odd shapes, and a C and an O that leave ragged tiles
+PLAN_SHAPES = [(20, 1, 1, 48, 156, 128, 32), (128, 1, 1, 48, 156, 128, 32),
+               (20, 3, 3, 24, 78, 384, 72), (128, 3, 3, 24, 78, 384, 72),
+               (128, 1, 1, 24, 78, 384, 96), (2, 5, 5, 9, 11, 128, 128),
+               (1, 1, 1, 1, 1, 8, 8), (2, 3, 3, 5, 7, 200, 136)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_covers_every_position_tap_and_tile(shape, dtype):
+    """The launch plan: its grid covers every (C tile, O tile) of every
+    tap once, and its splits cover every position once, in whole steps of
+    32, within the grid's 65535 limit."""
+    b, kh, kw, h, w, c, o = shape
+    route = fg.ROUTES[getattr(torch, dtype)]
+    p = fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype))
+    # three taps a block only for the bf16 route's 3-wide kernels, O <= 96
+    assert p.taps_per_block == (3 if dtype == "bfloat16" and kw == 3 and
+                                o <= 96 else 1)
+    assert fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype),
+                   1).taps_per_block == 1
+    if p.taps_per_block == 1:
+        with pytest.raises(ValueError):
+            fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype), 3)
+    tile_c = route.tile_c // (2 if p.taps_per_block == 3 else 1)
+    tiles_c, tiles_o = -(-c // tile_c), -(-o // route.tile_o)
+    assert tiles_c * tile_c >= c > (tiles_c - 1) * tile_c
+    assert tiles_o * route.tile_o >= o > (tiles_o - 1) * route.tile_o
+    assert (kh * kw) % p.taps_per_block == 0
+    assert p.tiles == tiles_c * tiles_o * kh * kw // p.taps_per_block
+    positions = b * h * w
+    assert p.chunk % 32 == 0 and 1 <= p.splits <= 65535
+    assert p.splits * p.chunk >= positions > (p.splits - 1) * p.chunk
+    if p.splits > 1:  # split only while blocks are short of the target
+        assert p.tiles * (p.splits - 1) < route.target_blocks
+        if route.one_wave:  # and never past one wave
+            assert p.tiles * p.splits <= route.target_blocks
+
+
+def test_bf16_plan_bounds_the_workspace():
+    """At B=128 the bf16 route's split-K workspace traffic (f32 partials
+    written once and read back once) stays under 20 % of the operands'
+    bytes at the train shapes: 2.8 % at the fire5 squeeze (958k
+    positions, 264 splits), 13 % at conv12's 3x3 (18 tiles of 3 taps,
+    14 splits)."""
+    for b, kh, kw, h, w, c, o in [PLAN_SHAPES[i] for i in (1, 3, 4)]:
+        p = fg.plan(b, h, w, c, o, kh, kw, torch.bfloat16)
+        ws = 2 * 4 * p.splits * kh * kw * c * o
+        assert ws < 0.2 * 2 * b * h * w * (c + o), (b, kh, c, o, ws)
+
+
+@pytest.mark.parametrize("bad", ["c", "o", "x_offset", "dy_offset",
+                                 "strided"])
+def test_bf16_kernel_refuses_layouts_it_does_not_take(bad):
+    """What the tensor-core route needs (C % 8, O % 8, 16-byte aligned
+    x and dy, contiguous NHWC) is checked before any launch; f32 takes
+    any C and O."""
+    def view(shape, offset=0):
+        n = int(np.prod(shape))
+        return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(
+            shape)
+    x, dy = view((2, 4, 4, 16)), view((2, 4, 4, 8))
+    fg.check_kernel_layout(x, dy)
+    fg.check_kernel_layout(torch.zeros(2, 4, 4, 12), torch.zeros(2, 4, 4, 5))
+    if bad == "c":
+        x = view((2, 4, 4, 12))
+    elif bad == "o":
+        dy = view((2, 4, 4, 12))
+    elif bad == "x_offset":
+        x = view((2, 4, 4, 16), offset=4)
+    elif bad == "dy_offset":
+        dy = view((2, 4, 4, 8), offset=2)
+    else:
+        x = view((2, 4, 4, 32))[..., :16]
+    with pytest.raises(ValueError):
+        fg.check_kernel_layout(x, dy)
+
+
 def _routing_case(rng, pair):
     c = 256 if pair else 128
     kern = (rng.randn(64, c, 3, 3) * 0.1).astype(np.float32)
@@ -171,6 +250,12 @@ def test_ineligible_convs_stay_on_autograd(restore_mode):
     assert TL.filter_grad_eligible(x128_16, torch.zeros(64, 128, 1, 1))
     with pytest.raises(ValueError):
         TL.set_filter_grad("interpret")
+    # the bf16 (tensor-core) route takes O % 8 == 0 only; f32 takes any O
+    TL.set_filter_grad(True)
+    xb = x128.bfloat16()
+    assert TL.filter_grad_eligible(xb, torch.zeros(72, 128, 3, 3))
+    assert not TL.filter_grad_eligible(xb, torch.zeros(36, 128, 3, 3))
+    assert TL.filter_grad_eligible(x128, torch.zeros(36, 128, 3, 3))
     # stride-2 and VALID convs never take K2, whatever the mode
     TL.set_filter_grad(True)
     conv = TL.Conv(torch.ones(8, 128, 3, 3), torch.zeros(8))
@@ -206,3 +291,35 @@ def test_cuda_k2_matches_plain(kh, kw, h, w, dtype):
     scale = fg.filter_grad_reference(xt.abs(), dyt.abs(), kh, kw)
     assert torch.equal(got, again)
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh,c,o,h,w", [(1, 128, 72, 6, 10),
+                                        (3, 384, 72, 24, 78),
+                                        (1, 256, 96, 9, 11),
+                                        (3, 128, 128, 5, 7),
+                                        (3, 200, 96, 4, 1),
+                                        (3, 72, 8, 1, 3),
+                                        (3, 64, 136, 7, 9),
+                                        (5, 128, 96, 9, 11),
+                                        (1, 8, 136, 3, 5)])
+def test_cuda_k2_bf16_tensor_cores_at_ragged_shapes(kh, c, o, h, w):
+    """The bf16 route at O = 72, 96, 128 and 136 (a second, ragged O
+    tile), a 5x5 tap, C = 8 and 200 (ragged C tiles), conv12's shape, and
+    3x3 kernels on images 1 pixel wide or high (every position is at a
+    row edge, where the 3-tap blocks mask their neighbours): within 1e-5
+    of sum|x|*|dy| of the plain version, bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dy = _inputs(np.random.RandomState(1), 2, h, w, c, o)
+    xt = torch.from_numpy(x).to("cuda", torch.bfloat16)
+    dyt = torch.from_numpy(dy).to("cuda", torch.bfloat16)
+    got = fg.filter_grad(xt, dyt, kh, kh)
+    assert torch.equal(got, fg.filter_grad(xt, dyt, kh, kh))
+    want = fg.filter_grad_reference(xt, dyt, kh, kh)
+    scale = fg.filter_grad_reference(xt.abs(), dyt.abs(), kh, kh)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+    if kh == 3 and o <= 96:  # the one-tap blocks at the same shape
+        one = fg.filter_grad(xt, dyt, kh, kh, taps_per_block=1)
+        assert ((one - want).abs() <= 1e-5 * scale + 1e-6).all()

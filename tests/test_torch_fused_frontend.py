@@ -121,6 +121,22 @@ def test_k1_rejects_what_the_kernel_does_not_take(bad):
         ff.conv1_pool1(x, k, b)
 
 
+@pytest.mark.parametrize("bad", ["offset", "strided"])
+def test_k1_kernel_refuses_layouts_it_does_not_take(bad):
+    """The CUDA kernel's own needs, checked before a launch: contiguous
+    NHWC, and for the bf16 route a 16-byte aligned start (its loads are
+    16 bytes wide); f32 takes any aligned-to-its-type start."""
+    n = 8 * 8 * 3
+    ff.check_kernel_layout(torch.zeros(1, 8, 8, 3, dtype=torch.bfloat16))
+    ff.check_kernel_layout(torch.zeros(n + 1)[1:].view(1, 8, 8, 3))
+    if bad == "offset":
+        x = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(1, 8, 8, 3)
+    else:
+        x = torch.zeros(1, 8, 16, 3, dtype=torch.bfloat16)[:, :, ::2]
+    with pytest.raises(ValueError):
+        ff.check_kernel_layout(x)
+
+
 @pytest.mark.parametrize("wants", ["images", "kernel", "bias"])
 def test_k1_refuses_a_gradient_it_would_drop(wants):
     """The CUDA kernel has no backward: a call that autograd would
@@ -187,4 +203,27 @@ def test_cuda_k1_matches_plain(shape, dtype):
         _, e = torch.frexp(want.abs())
         ulp = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0)
         allowed = torch.maximum(allowed, 2 * ulp)
+    assert ((got - want).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 375, 1242), (3, 33, 47), (1, 9, 5),
+                                   (1, 2, 2), (1, 70, 131)])
+def test_cuda_k1_bf16_tensor_cores_at_odd_sizes(shape):
+    """The bf16 route at TF SAME geometries with odd extents, a tensor
+    whose last 16-byte word is partial (1x9x5), a single-tile image and
+    ragged tiles in both directions: within 2 bf16 ulps of the plain
+    version (floored at 1e-4 + 1e-5*|x|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, k, bias = _inputs(np.random.RandomState(2), *shape)
+    xt = torch.from_numpy(x * 50).to("cuda", torch.bfloat16)
+    kt, bt = torch.from_numpy(k).cuda(), torch.from_numpy(bias * 100).cuda()
+    got = ff.conv1_pool1(xt, kt, bt).float()
+    want = ff.conv1_pool1_reference(xt, kt, bt).float()
+    assert got.shape == want.shape
+    _, e = torch.frexp(want.abs())
+    ulp = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0)
+    allowed = torch.maximum(1e-4 + 1e-5 * want.abs(), 2 * ulp)
     assert ((got - want).abs() <= allowed).all()
