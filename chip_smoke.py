@@ -400,20 +400,6 @@ def time_k2(card, batch, dtype, gen, with_plain):
                 ms["cudnn"], ms["bound"], bound_by,
                 2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9))
         del x, dy, xn, dyn
-    if dtype == torch.bfloat16:  # conv12's blocks: one tap against three
-        kh, c, o, h, w = K2_TRAIN_SHAPES[-1]
-        x = torch.randn(batch, h, w, c, device="cuda", generator=gen).to(dtype)
-        dy = torch.randn(batch, h, w, o, device="cuda",
-                         generator=gen).to(dtype)
-        ms = {1: [], 3: []}
-        for tw in (1, 3, 3, 1):
-            ms[tw].append(cuda_ms(
-                lambda: fg.filter_grad(x, dy, kh, kh, taps_per_block=tw),
-                iters=10))
-        log("[k2] time B={} 3x3 C={} O={} bf16, blocks of one tap {:.4f} "
-            "ms, of three taps {:.4f} ms".format(
-                batch, c, o, sum(ms[1]) / 2, sum(ms[3]) / 2))
-        del x, dy
     log("[k2] one backward's 12 K2 calls, B={} {} on {}: kernel {:.4f} ms, "
         "plain {}, cuDNN weight grad {:.4f} ms, bf16 bound {:.4f} ms; "
         "largest call {} kernel {:.4f} ms".format(

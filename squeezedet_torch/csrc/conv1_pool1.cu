@@ -30,15 +30,17 @@
 //      and everything outside the image is zero;
 //   2. the conv is a GEMM: M = the 561 conv positions (36 m16 tiles), N = 64,
 //      K = 27 taps padded to 32 (two k16 steps of mma.sync.m16n8k16, f32
-//      accumulators).  The 32 x 64 weight matrix lives in each warp's
-//      registers as B fragments (the 5 pad taps are zero); A fragments are
-//      gathered from the halo tile (the pad taps read a zero slot);
+//      accumulators), ordered as 3 kernel rows of 10 (9 taps, 1 pad) so
+//      that each A register (2 taps) is one 4-byte load from the halo tile.
+//      The 32 x 64 weight matrix lives in each warp's registers as B
+//      fragments (the 5 pad taps are zero in both operands);
 //   3. the epilogue adds the f32 bias, applies ReLU and stores the conv tile
 //      in shared memory as bf16 (positions outside the conv output hold
 //      -inf).  Rounding is monotonic, so pooling the rounded values equals
 //      rounding the pooled f32 value once;
-//   4. each thread pools 8 channels of one output and stores them as one
-//      16-byte write.
+//   4. each thread pools 8 channels of 4 neighbouring outputs (column
+//      maxima first, shared by neighbours) and stores each output's 8
+//      channels as one 16-byte write.
 // f32 route (CUDA cores): one block per (image, 4 x 16 pool tile); the halo
 // tile as f32, the conv tile computed in f32 (16 channels per work item,
 // weights read as float4 broadcasts), then pooled, one value per store.
@@ -192,15 +194,21 @@ constexpr int kTcIC = 2 * kTcCC + 1;        // 67 input cols per block
 constexpr int kTcPos = kTcCR * kTcCC;       // 561 conv positions
 constexpr int kTcM16 = (kTcPos + 15) / 16;  // 36 m16 tiles
 constexpr int kRowElems = kTcIC * kCin;     // 201 bf16 in a halo row
-constexpr int kHaloElems = kTcIR * kRowElems;  // 7035
-constexpr int kZero = kHaloElems;           // a zero element: the pad taps
-constexpr int kHaloAlloc = (kHaloElems + 1 + 7) / 8 * 8;
+constexpr int kHaloPitch = kRowElems + 1;   // even: 4-byte aligned pairs
+constexpr int kHaloElems = kTcIR * kHaloPitch;  // 7070
+constexpr int kZero = kHaloElems;           // two zeros: the pad taps
+constexpr int kHaloAlloc = (kHaloElems + 2 + 7) / 8 * 8;
+// The GEMM's K index: kernel row di (3) x 10, of which 9 are its taps
+// (dj, ci) and 1 is padding, then 2 padding: 32.  A pair (k, k+1), k even,
+// never spans two kernel rows, so it is one 4-byte load from the halo.
+constexpr int kKRow = 10;
 constexpr int kWords = (kRowElems + 7) / 8 + 1;  // 16-byte words over a row
 constexpr int kCPitch = kCout + 8;          // bf16; 144-byte rows: the
                                             // epilogue's stores hit 8 banks
 constexpr int kTcThreads = 256;
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kLoads = (kTcIR * kWords + kTcThreads - 1) / kTcThreads;  // 4
+constexpr int kPoolRun = 4;  // neighbouring pool outputs a thread takes
 constexpr size_t kTcSmemBytes =
     sizeof(__nv_bfloat16) * (kTcPos * kCPitch + kHaloAlloc) +
     sizeof(float) * kCout;
@@ -295,33 +303,36 @@ __device__ __forceinline__ void load_halo(const uint16_t* xs, const Tile& tl,
 __device__ __forceinline__ void fill_halo(uint16_t* s_x, const Tile& tl,
                                           const Geometry& g, int tid,
                                           const uint4* raw) {
-  const int xlo = max(tl.ic0, 0), xhi = min(tl.ic0 + kTcIC, g.W);
+  // a row's in-image elements are its tile elements [lo, hi)
+  const int lo = (max(tl.ic0, 0) - tl.ic0) * kCin;
+  const int hi = (min(tl.ic0 + kTcIC, g.W) - tl.ic0) * kCin;
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int64_t word = halo_word(tl, g, tid, j);
     if (word < 0) continue;
     const int r = (tid + j * kTcThreads) / kWords;
-    const int64_t row = ((int64_t)tl.b * g.H + tl.ir0 + r) * g.W * kCin;
-    const int64_t e0 = row + (int64_t)tl.ic0 * kCin;  // tile element 0
-    const int64_t v0 = row + (int64_t)xlo * kCin;     // valid [v0, v1)
-    const int64_t v1 = row + (int64_t)xhi * kCin;
+    const int64_t e0 =  // image element of tile element 0 of row r
+        (((int64_t)tl.b * g.H + tl.ir0 + r) * g.W + tl.ic0) * kCin;
+    const int t0 = (int)(word * 8 - e0);  // tile element of the word's first
     const uint32_t w4[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const int64_t el = word * 8 + e;
-      if (el >= v0 && el < v1)
-        s_x[r * kRowElems + (int)(el - e0)] =
+      const int t = t0 + e;
+      if (t >= lo && t < hi)
+        s_x[r * kHaloPitch + t] =
             (uint16_t)(e & 1 ? w4[e / 2] >> 16 : w4[e / 2] & 0xffffu);
     }
   }
   const bool edge = tl.ir0 < 0 || tl.ir0 + kTcIR > g.H || tl.ic0 < 0 ||
                     tl.ic0 + kTcIC > g.W;
   if (!edge) return;  // block-uniform: only edge tiles hold padding
-  for (int i = tid; i < kHaloElems; i += kTcThreads) {
+  for (int i = tid; i < kTcIR * kRowElems; i += kTcThreads) {
     const int r = i / kRowElems;
-    const int xx = tl.ic0 + (i - r * kRowElems) / kCin;
+    const int t = i - r * kRowElems;
+    const int xx = tl.ic0 + t / kCin;
     const int yy = tl.ir0 + r;
-    if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W) s_x[i] = 0;
+    if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W)
+      s_x[r * kHaloPitch + t] = 0;
   }
 }
 
@@ -349,10 +360,14 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
   if (t < n_tiles) load_halo(xs, tile_at(t, tiles_q, tiles_p, g), g, total,
                              tid, raw);
   if (tid < kCout) s_b[tid] = bias[tid];
-  if (tid == 0) s_x[kZero] = 0;
+  if (tid == 0) reinterpret_cast<uint32_t*>(s_x)[kZero / 2] = 0u;
 
-  // B fragments of the 32 x 64 weight matrix (k = (di*3 + dj)*3 + ci),
+  // B fragments of the 32 x 64 weight matrix (k = kKRow*di + 3*dj + ci),
   // for k16 step s and n8 tile j: (k 16s+2q, +1 | 16s+2q+8, +9; n 8j+gq)
+  auto weight = [&](int kk, int n) -> uint16_t {
+    const int di = kk / kKRow, t = kk % kKRow;  // t = 3*dj + ci, 9 = pad
+    return di < 3 && t < 9 ? bf16_bits(k[(9 * di + t) * kCout + n]) : 0;
+  };
   uint32_t bw[2][8][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
@@ -361,21 +376,21 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int k0 = 16 * s + 2 * q + 8 * h;
-        const int n = 8 * j + gq;
-        const uint16_t lo = k0 < kTaps ? bf16_bits(k[k0 * kCout + n]) : 0;
-        const uint16_t hi =
-            k0 + 1 < kTaps ? bf16_bits(k[(k0 + 1) * kCout + n]) : 0;
-        bw[s][j][h] = pack(lo, hi);
+        bw[s][j][h] = pack(weight(k0, 8 * j + gq), weight(k0 + 1, 8 * j + gq));
       }
-  // halo offset of this thread's A columns: k = 16s + 2q + {0, 1, 8, 9}
-  int koff[2][4];
+  // this thread's A pairs k = 16s + 2q + 8h, +1: their halo offset from a
+  // position's top-left pixel (-1: both padding) and the mask that zeroes
+  // a padding half
+  int koff[2][2];
+  uint32_t kmask[2][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = 16 * s + 2 * q + (e & 1) + 8 * (e >> 1);
-      const int tap = kk / kCin, ci = kk % kCin;
-      koff[s][e] = kk < kTaps ? ((tap / 3) * kTcIC + tap % 3) * kCin + ci : -1;
+    for (int h = 0; h < 2; ++h) {
+      const int kk = 16 * s + 2 * q + 8 * h;
+      const int di = kk / kKRow, t = kk % kKRow;
+      koff[s][h] = di < 3 ? di * kHaloPitch + t : -1;
+      kmask[s][h] = t + 1 < 9 ? 0xffffffffu : 0x0000ffffu;
     }
 
   for (; t < n_tiles; t += gridDim.x) {
@@ -389,8 +404,9 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
 
     // 2 + 3. conv GEMM over the tile's m16 tiles, then bias, ReLU, bf16
     // (the previous tile's pool has read s_c: the barrier above)
+    const uint32_t* s_x32 = reinterpret_cast<const uint32_t*>(s_x);
     for (int mt = warp; mt < kTcM16; mt += kTcWarps) {
-      int base[2];  // halo offset of the row's pixel (top-left tap)
+      int base[2];  // halo offset of the row's pixel (top-left tap), even
       bool live[2], inside[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -398,7 +414,7 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
         live[h] = m < kTcPos;
         const int mm = live[h] ? m : 0;
         const int r = mm / kTcCC, c = mm - r * kTcCC;
-        base[h] = (2 * r * kTcIC + 2 * c) * kCin;
+        base[h] = 2 * r * kHaloPitch + 2 * c * kCin;
         const int cy = tl.cr0 + r, cx = tl.cc0 + c;
         inside[h] = cy >= 0 && cy < g.Hc && cx >= 0 && cx < g.Wc;
       }
@@ -409,16 +425,15 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
         for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        uint16_t av[2][4];  // [row h][column e]
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            av[h][e] = s_x[koff[s][e] < 0 ? kZero : base[h] + koff[s][e]];
         // a0a1 (row g, k 2q..), a2a3 (row g+8), a4a5 (row g, k 2q+8..), a6a7
-        const uint32_t a[4] = {
-            pack(av[0][0], av[0][1]), pack(av[1][0], av[1][1]),
-            pack(av[0][2], av[0][3]), pack(av[1][2], av[1][3])};
+        uint32_t a[4];
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            a[2 * kh + h] =
+                s_x32[(koff[s][kh] < 0 ? kZero : base[h] + koff[s][kh]) / 2] &
+                kmask[s][kh];
 #pragma unroll
         for (int j = 0; j < 8; ++j) mma_bf16(acc[j], a, bw[s][j]);
       }
@@ -441,32 +456,47 @@ conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
     }
     __syncthreads();
 
-    // 4. pool: a thread takes 8 channels of one output, one 16-byte store
-    __nv_bfloat16* ob = out + (size_t)tl.b * g.Hp * g.Wp * kCout;
-    for (int i = tid; i < kTcTP * kTcTQ * (kCout / 8); i += kTcThreads) {
-      const int grp = i & 7;
-      const int pq = i >> 3;
-      const int pr = pq / kTcTQ, pc = pq - pr * kTcTQ;
-      const int p = tl.p0 + pr, qq = tl.q0 + pc;
-      if (p >= g.Hp || qq >= g.Wp) continue;
-      uint4 m;
+    // 4. pool, separably: a thread takes 8 channels of 4 neighbouring
+    // outputs of one pool row, maxes 3 conv rows in each of the 9 conv
+    // columns they span, then 3 of those column maxima per output; one
+    // 16-byte store per output
+    static_assert(kTcTP * (kTcTQ / kPoolRun) * (kCout / 8) == kTcThreads,
+                  "one pool work item per thread");
+    {
+      const int grp = tid & 7;
+      const int pc0 = kPoolRun * ((tid >> 3) % (kTcTQ / kPoolRun));
+      const int pr = tid / (8 * (kTcTQ / kPoolRun));
+      const int p = tl.p0 + pr;
+      const __nv_bfloat16* col = s_c + (2 * pr * kTcCC + 2 * pc0) * kCPitch +
+                                 8 * grp;
+      __nv_bfloat16* ob =
+          out + (((size_t)tl.b * g.Hp + p) * g.Wp + tl.q0 + pc0) * kCout +
+          8 * grp;
+      uint4 prev;  // the column maximum shared with the previous output
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+      for (int cc = 0; cc < 2 * kPoolRun + 1; ++cc) {
+        uint4 m = *reinterpret_cast<const uint4*>(col + cc * kCPitch);
 #pragma unroll
-        for (int bb = 0; bb < 3; ++bb) {
+        for (int a = 1; a < 3; ++a) {
           const uint4 u = *reinterpret_cast<const uint4*>(
-              s_c + ((2 * pr + a) * kTcCC + 2 * pc + bb) * kCPitch + 8 * grp);
-          if (a == 0 && bb == 0) {
-            m = u;
-          } else {
-            m.x = hmax2_bits(m.x, u.x);
-            m.y = hmax2_bits(m.y, u.y);
-            m.z = hmax2_bits(m.z, u.z);
-            m.w = hmax2_bits(m.w, u.w);
-          }
+              col + (a * kTcCC + cc) * kCPitch);
+          m = make_uint4(hmax2_bits(m.x, u.x), hmax2_bits(m.y, u.y),
+                         hmax2_bits(m.z, u.z), hmax2_bits(m.w, u.w));
         }
-      *reinterpret_cast<uint4*>(ob + ((size_t)p * g.Wp + qq) * kCout +
-                                8 * grp) = m;
+        if (cc % 2 == 1) {  // columns 2k, 2k+1 seen: keep their max
+          prev = make_uint4(hmax2_bits(prev.x, m.x), hmax2_bits(prev.y, m.y),
+                            hmax2_bits(prev.z, m.z), hmax2_bits(prev.w, m.w));
+        } else {
+          if (cc > 0) {  // output k = cc/2 - 1: columns cc-2 .. cc
+            const uint4 o = make_uint4(
+                hmax2_bits(prev.x, m.x), hmax2_bits(prev.y, m.y),
+                hmax2_bits(prev.z, m.z), hmax2_bits(prev.w, m.w));
+            if (p < g.Hp && tl.q0 + pc0 + cc / 2 - 1 < g.Wp)
+              *reinterpret_cast<uint4*>(ob + (cc / 2 - 1) * kCout) = o;
+          }
+          prev = m;
+        }
+      }
     }
   }
 }

@@ -34,7 +34,10 @@
 //     mma.sync.m16n8k16 bf16 -> f32 on its 2 x NTW fragment tiles.  The
 //     partial goes to ws[split, tap, C, O] (or straight to dW when there is
 //     one split).
-//   pass 2: dW[t, c, o] = sum over splits of ws[s, t, c, o], s = 0, 1, ...
+//   pass 2: dW[t, c, o] = sum over splits of ws[s, t, c, o] in a fixed
+//     order: 8 warps each sum every 8th split of 32 outputs, then their 8
+//     sums are added in warp order, so even a small dW (6k values) keeps
+//     many loads in flight.
 // f32 route (CUDA cores, unchanged): 64 x 64 C x O tile per (tap, split),
 //   32 positions staged per step as f32 in shared memory, 4 x 4 f32 FMAs per
 //   thread; the same pass 2.
@@ -62,10 +65,8 @@ constexpr int kTcStep = 64;   // positions per stage
 constexpr int kStages = 3;    // cp.async ring depth
 constexpr int kChunks = 16;   // 16-byte chunks in a 256-byte staged row
 constexpr int kTcThreads = 256;
-constexpr int kStageXBytes = (kTcStep + 2) * kChunks * 16;  // 66 X rows
-constexpr int kStageDBytes = kTcStep * kChunks * 16;        // 64 dY rows
-constexpr int kTcSmemBytes =
-    kStages * (kStageXBytes + kStageDBytes + kTcStep);      // ~98 KB
+constexpr int kStageBytes = kTcStep * kChunks * 16;        // 16 KB per operand
+constexpr int kTcSmemBytes = 2 * kStages * kStageBytes;    // 96 KB
 
 struct Shape {
   int B, H, W, C, O, kh, kw;
@@ -222,118 +223,72 @@ struct Pos {
       }
     }
   }
-  // the position before this one, in flat order
-  __device__ Pos prev(int H, int W) const {
-    Pos q{b, y, x - 1};
-    if (q.x < 0) {
-      q.x = W - 1;
-      if (--q.y < 0) {
-        q.y = H - 1;
-        --q.b;
-      }
-    }
-    return q;
-  }
 };
 
-// NTW: n8 tiles of O per warp.  TW: taps per block, 1, or 3 = the three
-// taps of one row of a 3-wide kernel, which share the block's dY fragments
-// and one staged X slab (66 rows: the stage's positions and one on each
-// side in flat order; a tap reads it one row earlier or later, and the
-// positions where that crosses an image row are masked to zero in its A
-// fragments).  MT: m16 tiles of C per warp, so the block's C tile is 128
-// (TW = 1) or 64 (TW = 3, whose three taps need 3x the accumulators).
-template <int NTW, int TW>
+// NTW: n8 tiles of O per warp (each warp owns 32 C rows x 8*NTW O columns)
+template <int NTW>
 __global__ void __launch_bounds__(kTcThreads, 2)
 filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ dy,
                        float* __restrict__ ws, Shape s) {
-  constexpr int MT = TW == 1 ? 2 : 1;
-  constexpr int kMTile = 4 * 16 * MT;        // C rows of the block
-  constexpr int kOff = (TW - 1) / 2;         // X rows staged before dY row 0
-  constexpr int kRows = kTcStep + TW - 1;    // X rows staged per stage
-  constexpr int kLoadRows = (kRows + 15) / 16;
-  constexpr int NP = (NTW + 1) / 2;          // ldmatrix.x4 loads of dY
+  constexpr int NP = (NTW + 1) / 2;  // ldmatrix.x4 loads of dY
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* s_x = smem;                              // [stage][66][256 B]
-  unsigned char* s_d = smem + kStages * kStageXBytes;     // [stage][64][256 B]
-  uint8_t* s_f = s_d + kStages * kStageDBytes;            // [stage][64] flags
+  unsigned char* s_x = smem;                           // [stage][64][256 B]
+  unsigned char* s_d = smem + kStages * kStageBytes;   // [stage][64][256 B]
 
-  const int c0 = (blockIdx.x % s.c_tiles) * kMTile;
+  const int c0 = (blockIdx.x % s.c_tiles) * kMC;
   const int o0 = (blockIdx.x / s.c_tiles) * kNO;
   const int nt8 = min(kNO, s.O - o0) / 8;  // O is a multiple of 8
-  // blockIdx.y is the tap (TW = 1) or the kernel row (TW = 3)
-  const int di = (TW == 1 ? (int)blockIdx.y / s.kw : (int)blockIdx.y) -
-                 (s.kh - 1) / 2;
-  const int dj = TW == 1 ? (int)blockIdx.y % s.kw - (s.kw - 1) / 2 : 0;
-  const int tap0 = TW == 1 ? blockIdx.y : blockIdx.y * s.kw;
+  const int tap = blockIdx.y;
+  const int di = tap / s.kw - (s.kh - 1) / 2;
+  const int dj = tap % s.kw - (s.kw - 1) / 2;
   const int64_t p_begin = (int64_t)blockIdx.z * s.chunk;
   const int64_t p_end = p_begin + s.chunk < s.M ? p_begin + s.chunk : s.M;
   const int n_stages = (int)((p_end - p_begin + kTcStep - 1) / kTcStep);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp & 3;   // C rows 16*MT*wm .. of the tile
+  const int wm = warp & 3;   // C rows 32*wm .. 32*wm+31 of the tile
   const int wn = warp >> 2;  // O tiles NTW*wn .. NTW*wn+NTW-1
 
-  // loader: this thread copies chunk `lc` of staged X rows lr + 16 h, and
-  // of the dY rows kOff below them; pos[h] is the flat position kOff after
-  // its X row's (the dY row's, so never negative)
-  const int lc = tid & 15;
-  const int lr = tid >> 4;
-  const bool x_chunk = lc < 2 * MT * 4 && c0 + 8 * lc < s.C;
-  const bool d_chunk = lc < nt8;
-  Pos pos[kLoadRows];
-#pragma unroll
-  for (int h = 0; h < kLoadRows; ++h) pos[h].init(p_begin + lr + 16 * h,
-                                                   s.H, s.W);
+  // loader: this thread copies chunks 4*lq .. 4*lq+3 of staged row lr, so
+  // it finds one row's (b, y, x) per stage
+  static_assert(kTcStep * 4 == kTcThreads, "one staged row per 4 threads");
+  const int lr = tid >> 2;
+  const int lq = tid & 3;
+  Pos pos;
+  pos.init(p_begin + lr, s.H, s.W);
 
   auto load_stage = [&](int slot, int stage) {
-    unsigned char* xs = s_x + slot * kStageXBytes;
-    unsigned char* ds = s_d + slot * kStageDBytes;
+    const uint32_t xs = smem_addr(s_x + slot * kStageBytes);
+    const uint32_t ds = smem_addr(s_d + slot * kStageBytes);
+    const int64_t p = p_begin + (int64_t)stage * kTcStep + lr;
+    const bool live = p < p_end;
+    const int ys = pos.y + di, xs_ = pos.x + dj;
+    const bool in = live && ys >= 0 && ys < s.H && xs_ >= 0 && xs_ < s.W;
+    const __nv_bfloat16* xrow =
+        x + (((int64_t)pos.b * s.H + ys) * s.W + xs_) * s.C + c0;
+    const __nv_bfloat16* drow = dy + p * s.O + o0;
 #pragma unroll
-    for (int h = 0; h < kLoadRows; ++h) {
-      const int row = lr + 16 * h;
-      if (row >= kRows) break;
-      const int64_t q = p_begin + (int64_t)stage * kTcStep + row - kOff;
-      const Pos pq = kOff ? pos[h].prev(s.H, s.W) : pos[h];
-      const int ys = pq.y + di, xs_ = pq.x + dj;
-      // TW = 1: the X row of live position q, shifted by the tap; TW = 3:
-      // the X row of any position q of the tensor (a neighbour of a live
-      // one), shifted by the kernel row only
-      const bool in = (TW == 1 ? q < p_end : q >= 0 && q < s.M) && ys >= 0 &&
-                      ys < s.H && xs_ >= 0 && xs_ < s.W;
-      if (lc < 2 * MT * 4) {
-        const __nv_bfloat16* src = x;
-        if (in && x_chunk)
-          src = x + (((int64_t)pq.b * s.H + ys) * s.W + xs_) * s.C + c0 +
-                8 * lc;
-        cp_async16(smem_addr(xs) + swz(row, lc), src,
-                   (in && x_chunk) ? 16 : 0);
-      }
-      const int r = row - kOff;  // the dY row of position q
-      if (r >= 0 && r < kTcStep) {
-        const bool live = q < p_end;
-        if (d_chunk)
-          cp_async16(smem_addr(ds) + swz(r, lc),
-                     live ? dy + q * s.O + o0 + 8 * lc : dy, live ? 16 : 0);
-        if (TW > 1 && lc == 0)  // image-row edges: masks of taps -1, +1
-          s_f[slot * kTcStep + r] =
-              (uint8_t)((pq.x == 0) | ((pq.x == s.W - 1) << 1));
-      }
-      pos[h].advance(kTcStep, s.H, s.W);
+    for (int j = 0; j < 4; ++j) {
+      const int chunk = 4 * lq + j;
+      const bool xc = in && c0 + 8 * chunk < s.C;
+      cp_async16(xs + swz(lr, chunk), xc ? xrow + 8 * chunk : x,
+                 xc ? 16 : 0);
+      if (chunk < nt8)
+        cp_async16(ds + swz(lr, chunk), live ? drow + 8 * chunk : dy,
+                   live ? 16 : 0);
     }
+    pos.advance(kTcStep, s.H, s.W);
   };
 
-  float acc[TW][MT][NTW][4];
+  float acc[2][NTW][4];
 #pragma unroll
-  for (int t = 0; t < TW; ++t)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int j = 0; j < NTW; ++j)
 #pragma unroll
-      for (int j = 0; j < NTW; ++j)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[t][i][j][v] = 0.f;
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
@@ -343,7 +298,6 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
 
   // ldmatrix row addresses: lane -> (matrix lane/8, row lane%8)
   const int mat = lane >> 3, mrow = lane & 7;
-  const int q2 = 2 * (lane & 3);  // this thread's first k in a fragment
   for (int st = 0; st < n_stages; ++st) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
@@ -351,13 +305,13 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
     if (next < n_stages) load_stage(next % kStages, next);
     cp_async_commit();
 
-    const int slot = st % kStages;
-    const uint32_t xs = smem_addr(s_x + slot * kStageXBytes);
-    const uint32_t ds = smem_addr(s_d + slot * kStageDBytes);
+    const uint32_t xs = smem_addr(s_x + (st % kStages) * kStageBytes);
+    const uint32_t ds = smem_addr(s_d + (st % kStages) * kStageBytes);
 #pragma unroll
     for (int k0 = 0; k0 < kTcStep; k0 += 16) {
-      // B = dY: matrices (k 0-7, n t), (k 8-15, n t), (k 0-7, n t+1),
-      // (k 8-15, n t+1), stored [k][n]
+      // Every fragment of the step is loaded before the first mma, so the
+      // loads' latencies overlap.  B = dY: matrices (k 0-7, n t), (k 8-15,
+      // n t), (k 0-7, n t+1), (k 8-15, n t+1), stored [k][n]
       uint32_t b[NP][4];
 #pragma unroll
       for (int jp = 0; jp < NP; ++jp) {
@@ -367,104 +321,82 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
               ds + swz(k0 + mrow + ((mat & 1) << 3), t0 + (mat >> 1)), b[jp]);
       }
       // A = X^T: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
-      // (m 8-15, k 8-15), stored [k][m]; tap t reads the X rows t - kOff
-      // after its dY rows.  Every fragment of the step is loaded before
-      // the first mma, so the loads' latencies overlap.
-      uint32_t a[TW][MT][4];
+      // (m 8-15, k 8-15) of each 16 x 16 tile, stored [k][m]
+      uint32_t a[2][4];
 #pragma unroll
-      for (int t = 0; t < TW; ++t)
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int mcol = 16 * MT * wm + 16 * i + ((mat & 1) << 3);
-          ldmatrix_x4_trans(
-              xs + swz(k0 + t + mrow + ((mat >> 1) << 3), mcol >> 3), a[t][i]);
-        }
-      if (TW > 1) {  // zero tap -1 at x == 0 and tap +1 at x == W - 1
-        const uint8_t* f = s_f + slot * kTcStep + k0 + q2;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int hk = 0; hk < 2; ++hk) {
-            const int bit = 1 << e;
-            const uint32_t m = ((f[8 * hk] & bit) ? 0u : 0xffffu) |
-                               ((f[8 * hk + 1] & bit) ? 0u : 0xffff0000u);
-            // k 2q.. sits in registers 0 and 1, k 2q+8.. in 2 and 3
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              a[e ? TW - 1 : 0][i][2 * hk] &= m;
-              a[e ? TW - 1 : 0][i][2 * hk + 1] &= m;
-            }
-          }
+      for (int i = 0; i < 2; ++i) {
+        const int mcol = 32 * wm + 16 * i + ((mat & 1) << 3);
+        ldmatrix_x4_trans(xs + swz(k0 + mrow + ((mat >> 1) << 3), mcol >> 3),
+                          a[i]);
       }
 #pragma unroll
-      for (int t = 0; t < TW; ++t)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int jp = 0; jp < NP; ++jp) {
-            const int t0 = NTW * wn + 2 * jp;
-            if (t0 >= nt8) break;
-            mma_bf16(acc[t][i][2 * jp], a[t][i], b[jp]);
-            if (2 * jp + 1 < NTW && t0 + 1 < nt8)
-              mma_bf16(acc[t][i][2 * jp + 1], a[t][i], b[jp] + 2);
-          }
+        for (int jp = 0; jp < NP; ++jp) {
+          const int t0 = NTW * wn + 2 * jp;
+          if (t0 >= nt8) break;
+          mma_bf16(acc[i][2 * jp], a[i], b[jp]);
+          if (2 * jp + 1 < NTW && t0 + 1 < nt8)
+            mma_bf16(acc[i][2 * jp + 1], a[i], b[jp] + 2);
+        }
     }
   }
   cp_async_wait<0>();
 
-  // accumulator (t, i, j): tap tap0 + t, rows c0 + 16*MT*wm + 16*i + g
-  // (+8), columns o0 + 8*(NTW*wn + j) + 2*q (+1)
-  const int g = lane >> 2;
+  // accumulator (i, j): rows c0 + 32*wm + 16*i + g (+8), columns
+  // o0 + 8*(NTW*wn + j) + 2*q (+1)
+  const int g = lane >> 2, q = lane & 3;
   const int64_t taps = (int64_t)s.kh * s.kw;
+  float* out = ws + (((int64_t)blockIdx.z * taps + tap) * s.C) * s.O;
 #pragma unroll
-  for (int t = 0; t < TW; ++t) {
-    float* out = ws + (((int64_t)blockIdx.z * taps + tap0 + t) * s.C) * s.O;
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 32 * wm + 16 * i + g + 8 * h;
+      if (c >= s.C) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = c0 + 16 * MT * wm + 16 * i + g + 8 * h;
-        if (c >= s.C) continue;
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int tile = NTW * wn + j;
-          if (tile >= nt8) break;
-          const int o = o0 + 8 * tile + q2;
-          *reinterpret_cast<float2*>(out + (int64_t)c * s.O + o) =
-              make_float2(acc[t][i][j][2 * h], acc[t][i][j][2 * h + 1]);
-        }
+      for (int j = 0; j < NTW; ++j) {
+        const int t = NTW * wn + j;
+        if (t >= nt8) break;
+        const int o = o0 + 8 * t + 2 * q;
+        *reinterpret_cast<float2*>(out + (int64_t)c * s.O + o) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
   }
 }
 
-// out[i] = ws[0, i] + ws[1, i] + ..., four outputs a thread when n % 4 == 0
-// (always on the bf16 route; the f32 route takes any O)
-__global__ void filter_grad_reduce(const float* __restrict__ ws,
-                                   float* __restrict__ out, int64_t n,
-                                   int splits) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n % 4 == 0) {
-    const int64_t n4 = n / 4;
-    const float4* w4 = reinterpret_cast<const float4*>(ws);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = first; i < n4; i += stride) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int sp = 0; sp < splits; ++sp) {
-        const float4 u = w4[(int64_t)sp * n4 + i];
-        v.x += u.x;
-        v.y += u.y;
-        v.z += u.z;
-        v.w += u.w;
-      }
-      o4[i] = v;
-    }
-    return;
+constexpr int kReduceLanes = 32;   // outputs (float4s or floats) a block
+constexpr int kReduceGroups = 8;   // warps, each summing every 8th split
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+
+// out[i] = sum over splits of ws[s, i], n values (as n / VW vectors V).
+// Warp g of a block sums splits g, g + 8, g + 16, ... in that order for
+// its block's 32 outputs; then the 8 warps' sums are added in warp order.
+// The order is fixed, so the result does not depend on scheduling.
+template <typename V>
+__global__ void __launch_bounds__(kReduceLanes * kReduceGroups)
+filter_grad_reduce(const V* __restrict__ ws, V* __restrict__ out, int64_t n,
+                   int splits) {
+  __shared__ V part[kReduceGroups][kReduceLanes];
+  const int lane = threadIdx.x % kReduceLanes;
+  const int grp = threadIdx.x / kReduceLanes;
+  const int64_t i = (int64_t)blockIdx.x * kReduceLanes + lane;
+  V v = V();
+  if (i < n) {
+#pragma unroll 4
+    for (int sp = grp; sp < splits; sp += kReduceGroups)
+      v = add(v, ws[(int64_t)sp * n + i]);
   }
-  for (int64_t i = first; i < n; i += stride) {
-    float v = 0.f;
-    for (int sp = 0; sp < splits; ++sp) v += ws[(int64_t)sp * n + i];
+  part[grp][lane] = v;
+  __syncthreads();
+  if (grp == 0 && i < n) {
+#pragma unroll
+    for (int g = 1; g < kReduceGroups; ++g) v = add(v, part[g][lane]);
     out[i] = v;
   }
 }
@@ -472,39 +404,31 @@ __global__ void filter_grad_reduce(const float* __restrict__ ws,
 int launch_reduce(const float* ws, float* out, const Shape& s, int splits,
                   cudaStream_t stream) {
   const int64_t n = (int64_t)s.kh * s.kw * s.C * s.O;
-  const int64_t want = ((n % 4 == 0 ? n / 4 : n) + 255) / 256;
-  const int blocks = (int)(want < 1 ? 1 : (want < 4096 ? want : 4096));
-  filter_grad_reduce<<<blocks, 256, 0, stream>>>(ws, out, n, splits);
+  const int threads = kReduceLanes * kReduceGroups;
+  if (n % 4 == 0) {  // always on the bf16 route; the f32 route takes any O
+    const int64_t blocks = (n / 4 + kReduceLanes - 1) / kReduceLanes;
+    filter_grad_reduce<float4><<<(unsigned)blocks, threads, 0, stream>>>(
+        reinterpret_cast<const float4*>(ws), reinterpret_cast<float4*>(out),
+        n / 4, splits);
+  } else {
+    const int64_t blocks = (n + kReduceLanes - 1) / kReduceLanes;
+    filter_grad_reduce<float><<<(unsigned)blocks, threads, 0, stream>>>(
+        ws, out, n, splits);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int NTW, int TW>
+template <int NTW>
 cudaError_t launch_tc(const Shape& s, dim3 grid, const void* x,
                       const void* dy, float* dst, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      filter_grad_tc_partial<NTW, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+      filter_grad_tc_partial<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmemBytes);
   if (err != cudaSuccess) return err;
-  filter_grad_tc_partial<NTW, TW><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+  filter_grad_tc_partial<NTW><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(dy), dst, s);
   return cudaGetLastError();
-}
-
-template <int TW>
-cudaError_t launch_tw(int ntw, const Shape& s, dim3 grid, const void* x,
-                      const void* dy, float* dst, cudaStream_t stream) {
-  switch (ntw) {
-    case 1: return launch_tc<1, TW>(s, grid, x, dy, dst, stream);
-    case 2: return launch_tc<2, TW>(s, grid, x, dy, dst, stream);
-    case 3: return launch_tc<3, TW>(s, grid, x, dy, dst, stream);
-    case 4: return launch_tc<4, TW>(s, grid, x, dy, dst, stream);
-    case 5: return launch_tc<5, TW>(s, grid, x, dy, dst, stream);
-    case 6: return launch_tc<6, TW>(s, grid, x, dy, dst, stream);
-  }
-  if (TW == 1 && ntw == 7) return launch_tc<7, 1>(s, grid, x, dy, dst, stream);
-  if (TW == 1 && ntw == 8) return launch_tc<8, 1>(s, grid, x, dy, dst, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -514,17 +438,13 @@ extern "C" {
 // ws holds splits * kh * kw * C * O floats (unused when splits == 1);
 // chunk * splits >= B * H * W and chunk is a multiple of 32 (the wrapper
 // computes both).  dtype: 0 = float32 (CUDA cores, C x O tiles of 64 x 64),
-// 1 = bfloat16 (tensor cores, O tiles of up to 128; needs C % 8 == 0,
-// O % 8 == 0 and 16-byte aligned x and dy), whose blocks take one tap on C
-// tiles of 128 (taps_per_block 1) or the three taps of a kernel row on C
-// tiles of 64 (taps_per_block 3: kw == 3 and O <= 96).  taps_per_block is
-// 1 for f32.  Returns the cudaError_t of the launches.
+// 1 = bfloat16 (tensor cores, C tiles of 128 and O tiles of up to 128;
+// needs C % 8 == 0, O % 8 == 0 and 16-byte aligned x and dy).  Returns the
+// cudaError_t of the launches.
 int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
                     int B, int H, int W, int C, int O, int kh, int kw,
-                    int splits, long long chunk, int dtype,
-                    int taps_per_block, void* stream) {
-  if (kh % 2 != 1 || kw % 2 != 1 || chunk % kStep != 0 || splits < 1 ||
-      (dtype == 0 && taps_per_block != 1))
+                    int splits, long long chunk, int dtype, void* stream) {
+  if (kh % 2 != 1 || kw % 2 != 1 || chunk % kStep != 0 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
@@ -540,20 +460,25 @@ int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
     if (err != cudaSuccess || splits == 1) return (int)err;
     return launch_reduce(w, o, s, splits, st);
   }
-  // n8 tiles per warp: the block's O columns split over 2 warps
-  const int ntw = ((O < kNO ? O : kNO) / 8 + 1) / 2;
   if (dtype != 1 || C % 8 != 0 || O % 8 != 0 ||
-      !(taps_per_block == 1 || (taps_per_block == 3 && kw == 3 && ntw <= 6)) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(dy) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int m_tile = taps_per_block == 1 ? 128 : 64;
-  Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + m_tile - 1) / m_tile};
-  const dim3 grid(s.c_tiles * ((O + kNO - 1) / kNO),
-                  taps_per_block == 1 ? kh * kw : kh, splits);
-  const cudaError_t err =
-      taps_per_block == 1 ? launch_tw<1>(ntw, s, grid, x, dy, dst, st)
-                          : launch_tw<3>(ntw, s, grid, x, dy, dst, st);
+  Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + kMC - 1) / kMC};
+  const dim3 grid(s.c_tiles * ((O + kNO - 1) / kNO), kh * kw, splits);
+  // n8 tiles per warp: the block's O columns split over 2 warps
+  const int ntw = ((O < kNO ? O : kNO) / 8 + 1) / 2;
+  cudaError_t err;
+  switch (ntw) {
+    case 1: err = launch_tc<1>(s, grid, x, dy, dst, st); break;
+    case 2: err = launch_tc<2>(s, grid, x, dy, dst, st); break;
+    case 3: err = launch_tc<3>(s, grid, x, dy, dst, st); break;
+    case 4: err = launch_tc<4>(s, grid, x, dy, dst, st); break;
+    case 5: err = launch_tc<5>(s, grid, x, dy, dst, st); break;
+    case 6: err = launch_tc<6>(s, grid, x, dy, dst, st); break;
+    case 7: err = launch_tc<7>(s, grid, x, dy, dst, st); break;
+    default: err = launch_tc<8>(s, grid, x, dy, dst, st); break;
+  }
   if (err != cudaSuccess || splits == 1) return (int)err;
   return launch_reduce(w, o, s, splits, st);
 }

@@ -23,7 +23,7 @@ second pass), so two launches on the same inputs give the same bits.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +35,7 @@ LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 _STEP = 32  # positions the kernel stages per step, both routes
 
 
@@ -66,16 +65,12 @@ ROUTES = {
 
 
 class Plan(NamedTuple):
-    """How the kernel cuts one call: a block takes ``taps_per_block`` taps
-    (1, or on the bf16 route the 3 taps of a row of a 3-wide kernel, on C
-    tiles of half the route's height) of one of ``tiles`` output tiles (C
-    tiles x O tiles x taps / taps_per_block), and each contraction over
-    the positions is cut into ``splits`` chunks of ``chunk`` positions (a
-    multiple of 32)."""
+    """How the kernel cuts one call: ``tiles`` output tiles (C tiles x O
+    tiles x taps), each contraction over the positions cut into ``splits``
+    chunks of ``chunk`` positions (a multiple of 32)."""
     tiles: int
     splits: int
     chunk: int
-    taps_per_block: int
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int) -> None:
@@ -125,30 +120,12 @@ def split_k(positions: int, tiles: int, route: Route = ROUTES[torch.float32]):
     return -(-positions // chunk), chunk
 
 
-def can_take_three_taps(o: int, kw: int, dtype: torch.dtype) -> bool:
-    """Whether a block may take the three taps of a kernel row: bf16
-    operands, a 3-wide kernel, and an O tile of at most 96 (the three
-    taps' accumulators must fit in registers)."""
-    return dtype == torch.bfloat16 and kw == 3 and \
-        min(o, ROUTES[dtype].tile_o) <= 96
-
-
 def plan(b: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
-         dtype: torch.dtype, taps_per_block: Optional[int] = None) -> Plan:
-    """The launch plan of one K2 call on ``dtype`` operands.  A block
-    takes three taps wherever it can (they share its staged operands,
-    which cuts their shared-memory loads 3x) unless ``taps_per_block``
-    says 1."""
+         dtype: torch.dtype) -> Plan:
+    """The launch plan of one K2 call on ``dtype`` operands."""
     route = ROUTES[dtype]
-    tw = 3 if can_take_three_taps(o, kw, dtype) else 1
-    if taps_per_block is not None:
-        if taps_per_block not in (1, tw):
-            raise ValueError("taps_per_block must be 1{} here, got {}".format(
-                " or 3" if tw == 3 else "", taps_per_block))
-        tw = taps_per_block
-    tile_c = route.tile_c // (2 if tw == 3 else 1)
-    tiles = -(-c // tile_c) * -(-o // route.tile_o) * kh * kw // tw
-    return Plan(tiles, *split_k(b * h * w, tiles, route), tw)
+    tiles = -(-c // route.tile_c) * -(-o // route.tile_o) * kh * kw
+    return Plan(tiles, *split_k(b * h * w, tiles, route))
 
 
 def check_kernel_layout(x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -167,12 +144,11 @@ def check_kernel_layout(x: torch.Tensor, dy: torch.Tensor) -> None:
         raise ValueError("bf16 filter_grad needs 16-byte aligned x and dy")
 
 
-def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
-                taps_per_block: Optional[int] = None) -> torch.Tensor:
+def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int,
+                kw: int) -> torch.Tensor:
     """K2: x [B, H, W, C], dy [B, H, W, O] (contiguous NHWC, both f32 or
     both bf16), odd kh and kw -> dW [kh, kw, C, O] f32 of the stride-1
-    SAME conv of x.  ``taps_per_block`` overrides :func:`plan`'s choice
-    of the CUDA kernel's blocks (for timing one against the other)."""
+    SAME conv of x."""
     global LAUNCHES
     _check(x, dy, kh, kw)
     if x.device.type == "cpu":
@@ -183,7 +159,7 @@ def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
     check_kernel_layout(x, dy)
     b, h, w, c = x.shape
     o = dy.shape[-1]
-    p = plan(b, h, w, c, o, kh, kw, x.dtype, taps_per_block)
+    p = plan(b, h, w, c, o, kh, kw, x.dtype)
     # one split writes dW directly; more write partials to the workspace
     ws = torch.empty((p.splits if p.splits > 1 else 0, kh, kw, c, o),
                      dtype=torch.float32, device=x.device)
@@ -193,7 +169,7 @@ def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
                  b, h, w, c, o, kh, kw, p.splits, p.chunk, _DTYPES[x.dtype],
-                 p.taps_per_block, stream)
+                 stream)
     _cuda.check("filter_grad", err, "filter_grad kernel launch")
     LAUNCHES += 1
     return out

@@ -124,20 +124,10 @@ def test_plan_covers_every_position_tap_and_tile(shape, dtype):
     b, kh, kw, h, w, c, o = shape
     route = fg.ROUTES[getattr(torch, dtype)]
     p = fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype))
-    # three taps a block only for the bf16 route's 3-wide kernels, O <= 96
-    assert p.taps_per_block == (3 if dtype == "bfloat16" and kw == 3 and
-                                o <= 96 else 1)
-    assert fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype),
-                   1).taps_per_block == 1
-    if p.taps_per_block == 1:
-        with pytest.raises(ValueError):
-            fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype), 3)
-    tile_c = route.tile_c // (2 if p.taps_per_block == 3 else 1)
-    tiles_c, tiles_o = -(-c // tile_c), -(-o // route.tile_o)
-    assert tiles_c * tile_c >= c > (tiles_c - 1) * tile_c
+    tiles_c, tiles_o = -(-c // route.tile_c), -(-o // route.tile_o)
+    assert tiles_c * route.tile_c >= c > (tiles_c - 1) * route.tile_c
     assert tiles_o * route.tile_o >= o > (tiles_o - 1) * route.tile_o
-    assert (kh * kw) % p.taps_per_block == 0
-    assert p.tiles == tiles_c * tiles_o * kh * kw // p.taps_per_block
+    assert p.tiles == tiles_c * tiles_o * kh * kw
     positions = b * h * w
     assert p.chunk % 32 == 0 and 1 <= p.splits <= 65535
     assert p.splits * p.chunk >= positions > (p.splits - 1) * p.chunk
@@ -151,8 +141,7 @@ def test_bf16_plan_bounds_the_workspace():
     """At B=128 the bf16 route's split-K workspace traffic (f32 partials
     written once and read back once) stays under 20 % of the operands'
     bytes at the train shapes: 2.8 % at the fire5 squeeze (958k
-    positions, 264 splits), 13 % at conv12's 3x3 (18 tiles of 3 taps,
-    14 splits)."""
+    positions, 264 splits), 8 % at conv12's 3x3 (27 tiles, 9 splits)."""
     for b, kh, kw, h, w, c, o in [PLAN_SHAPES[i] for i in (1, 3, 4)]:
         p = fg.plan(b, h, w, c, o, kh, kw, torch.bfloat16)
         ws = 2 * 4 * p.splits * kh * kw * c * o
@@ -304,11 +293,11 @@ def test_cuda_k2_matches_plain(kh, kw, h, w, dtype):
                                         (5, 128, 96, 9, 11),
                                         (1, 8, 136, 3, 5)])
 def test_cuda_k2_bf16_tensor_cores_at_ragged_shapes(kh, c, o, h, w):
-    """The bf16 route at O = 72, 96, 128 and 136 (a second, ragged O
-    tile), a 5x5 tap, C = 8 and 200 (ragged C tiles), conv12's shape, and
-    3x3 kernels on images 1 pixel wide or high (every position is at a
-    row edge, where the 3-tap blocks mask their neighbours): within 1e-5
-    of sum|x|*|dy| of the plain version, bitwise repeatable."""
+    """The bf16 route at O = 8, 72, 96, 128 and 136 (a second, ragged O
+    tile), a 5x5 tap, C = 8, 72 and 200 (ragged C tiles), conv12's shape,
+    and 3x3 kernels on images 1 pixel wide or high (every tap but the
+    centre reads outside the image): within 1e-5 of sum|x|*|dy| of the
+    plain version, bitwise repeatable."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -320,6 +309,3 @@ def test_cuda_k2_bf16_tensor_cores_at_ragged_shapes(kh, c, o, h, w):
     want = fg.filter_grad_reference(xt, dyt, kh, kh)
     scale = fg.filter_grad_reference(xt.abs(), dyt.abs(), kh, kh)
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
-    if kh == 3 and o <= 96:  # the one-tap blocks at the same shape
-        one = fg.filter_grad(xt, dyt, kh, kh, taps_per_block=1)
-        assert ((one - want).abs() <= 1e-5 * scale + 1e-6).all()
