@@ -36,7 +36,7 @@ LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-_STEP = 32  # positions the kernel stages per step, both routes
+_STEP = 32  # every split's chunk of positions is a multiple of this
 
 
 class Route(NamedTuple):
