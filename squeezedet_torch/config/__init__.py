@@ -17,6 +17,7 @@ from squeezedet_torch.config.kitti import (  # noqa: F401
     custom_kitti_config,
     grid_for_net,
     kitti_squeezedet_config,
+    scale_recipe_to_batch,
     tiny_test_config,
 )
 
@@ -39,3 +40,16 @@ def config_for_net(net: str) -> ModelConfig:
         raise ValueError(
             "Selected neural net architecture not supported: {}".format(net))
     return _CONFIG_FACTORIES[net]()
+
+
+def config_for_dataset(dataset: str, net: str, image_width: int = 0,
+                       image_height: int = 0) -> ModelConfig:
+    """Config dispatch of the train CLI: ``dataset`` is ``KITTI``, or
+    ``VOC``/``PASCAL_VOC``, which is not ported yet."""
+    if dataset == "KITTI":
+        return config_for_net_at(net, image_width, image_height)
+    if dataset in ("VOC", "PASCAL_VOC"):
+        raise NotImplementedError(
+            "Pascal VOC arrives with eval and the demo (ROADMAP Queue 1 "
+            "item 9)")
+    raise ValueError("unknown dataset {!r}: KITTI or VOC".format(dataset))

@@ -111,6 +111,26 @@ def config_for_net_at(net: str, image_width: int = 0,
                                image_height or base.image_height)
 
 
+def scale_recipe_to_batch(cfg: ModelConfig, batch_size: int,
+                          warmup_frac: float = 0.1,
+                          total_steps: int = 0) -> ModelConfig:
+    """Rescale a config's training recipe, taken as tuned at
+    ``cfg.batch_size``, to another batch size: the learning rate and
+    ``loss_coef_conf_pos`` scale linearly (the conf loss makes the
+    positive-confidence weight ~1/batch), ``decay_steps`` inversely (the
+    decay fires at the same sample count), and ``lr_warmup_steps`` is
+    ``warmup_frac * total_steps`` when ``total_steps`` is given."""
+    r = batch_size / cfg.batch_size
+    return cfg.replace(
+        batch_size=batch_size,
+        learning_rate=cfg.learning_rate * r,
+        decay_steps=max(1, int(round(cfg.decay_steps / r))),
+        loss_coef_conf_pos=cfg.loss_coef_conf_pos * r,
+        lr_warmup_steps=(int(round(warmup_frac * total_steps))
+                         if total_steps else cfg.lr_warmup_steps),
+    )
+
+
 def tiny_test_config(net: str = "squeezeDet", image_width: int = 96,
                      image_height: int = 96,
                      batch_size: int = 2) -> ModelConfig:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,6 +51,36 @@ class Detector(nn.Module):
                                     device=device), persistent=False)
 
     # -- parameters ---------------------------------------------------------
+    @property
+    def tracer(self) -> L.NetTracer:
+        """The backbone's shape and accounting walk (``model_metrics.txt``)."""
+        return self.backbone.tracer
+
+    @torch.no_grad()
+    def load_pretrained(self, weights) -> None:
+        """Copy caffe-pickle entries ({layer: [kernel OIHW, bias]}) onto
+        the backbone's layers of the same name and shape.  Layers without
+        an entry, or with one of another shape, keep their random init
+        and are printed; entries that matched no layer are listed."""
+        from squeezedet_torch.checkpoint.importer import (TrackedWeights,
+                                                          warn_unconsumed)
+        weights = TrackedWeights(weights)
+        for name, _ in self.tracer.model_size_counter:
+            conv = self.backbone.get_submodule(name.replace("/", "."))
+            if name not in weights:
+                print("Cannot find {} in the pretrained model, use randomly "
+                      "initialized parameter".format(name))
+                continue
+            kernel, bias = (np.asarray(b) for b in weights[name][:2])
+            if kernel.shape != tuple(conv.weight.shape) or \
+                    bias.shape != tuple(conv.bias.shape):
+                print("Shape of the pretrained parameter of {} does not "
+                      "match, use randomly initialized parameter".format(name))
+                continue
+            conv.weight.copy_(torch.from_numpy(kernel.astype(np.float32)))
+            conv.bias.copy_(torch.from_numpy(bias.astype(np.float32)))
+        warn_unconsumed(weights)
+
     def trainable_mask(self) -> Dict[str, bool]:
         """Backbone state_dict name -> whether it trains (conv1 is frozen,
         as ``requires_grad=False``; the rest trains)."""
@@ -106,6 +137,15 @@ class Detector(nn.Module):
             epsilon=cfg.epsilon, weight_decay_term=wd)
 
     # -- postprocess ---------------------------------------------------------
+    def filter_prediction(self, boxes, probs, cls_idx):
+        """Host top-N + per-class NMS of one image's numpy predictions."""
+        from squeezedet_torch.ops.nms import filter_prediction_np
+        cfg = self.cfg
+        return filter_prediction_np(
+            np.asarray(boxes), np.asarray(probs), np.asarray(cls_idx),
+            classes=cfg.classes, top_n_detection=cfg.top_n_detection,
+            prob_thresh=cfg.prob_thresh, nms_thresh=cfg.nms_thresh)
+
     def postprocess_device(self, interp: Interpretation):
         """On-device top-K + per-class NMS with this model's thresholds."""
         cfg = self.cfg

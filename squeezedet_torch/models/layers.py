@@ -44,29 +44,45 @@ def _out_size(size: int, k: int, s: int, padding: str) -> int:
 @dataclass
 class NetTracer:
     """Walks static shapes through the net at construction and keeps the
-    reference's per-layer parameter count."""
+    reference's per-layer accounting (parameters, activations, FLOPs),
+    which ``utils/metrics.write_model_metrics`` writes out."""
 
     height: int
     width: int
     channels: int
     model_size_counter: List[Tuple[str, int]] = field(default_factory=list)
+    flop_counter: List[Tuple[str, int]] = field(default_factory=list)
+    activation_counter: List[Tuple[str, int]] = field(default_factory=list)
 
     @classmethod
     def for_config(cls, cfg) -> "NetTracer":
-        return cls(cfg.image_height, cfg.image_width, 3)
+        t = cls(cfg.image_height, cfg.image_width, 3)
+        # the activation count starts with the input, as the reference's
+        t.activation_counter.append(
+            ("input", cfg.image_width * cfg.image_height * 3))
+        return t
 
     def conv(self, name: str, filters: int, size: int, stride: int,
-             padding: str) -> None:
+             padding: str, relu: bool = True) -> None:
         in_ch = self.channels
         self.height = _out_size(self.height, size, stride, padding)
         self.width = _out_size(self.width, size, stride, padding)
         self.channels = filters
         self.model_size_counter.append(
             (name, (1 + size * size * in_ch) * filters))
+        flops = (1 + 2 * in_ch * size * size) * filters * self.height \
+            * self.width
+        if relu:
+            flops += 2 * filters * self.height * self.width
+        self.flop_counter.append((name, flops))
+        self.activation_counter.append(
+            (name, self.height * self.width * self.channels))
 
     def pool(self, name: str, size: int, stride: int, padding: str) -> None:
         self.height = _out_size(self.height, size, stride, padding)
         self.width = _out_size(self.width, size, stride, padding)
+        self.activation_counter.append(
+            (name, self.height * self.width * self.channels))
 
     def snapshot(self) -> Tuple[int, int, int]:
         return self.height, self.width, self.channels
@@ -91,7 +107,8 @@ class Conv(nn.Module):
 def init_conv(generator: torch.Generator, tracer: NetTracer, name: str,
               filters: int, size: int, stride: int, *, device,
               padding: str = "SAME", freeze: bool = False,
-              xavier: bool = False, stddev: float = 0.001) -> Conv:
+              xavier: bool = False, relu: bool = True,
+              stddev: float = 0.001) -> Conv:
     """A randomly initialised conv layer; advances ``tracer``.
 
     Xavier is the uniform Glorot of ``tf.contrib.layers.
@@ -110,7 +127,7 @@ def init_conv(generator: torch.Generator, tracer: NetTracer, name: str,
         weight = torch.nn.init.trunc_normal_(
             torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
             generator=generator) * stddev
-    tracer.conv(name, filters, size, stride, padding)
+    tracer.conv(name, filters, size, stride, padding, relu)
     return Conv(weight.to(device), torch.zeros(filters, device=device),
                 freeze=freeze)
 
@@ -158,6 +175,11 @@ def set_filter_grad(mode) -> None:
         raise ValueError("filter-grad mode must be False, '1x1' or True, "
                          "got {!r}".format(mode))
     _FILTER_GRAD = mode
+
+
+def filter_grad_mode():
+    """The current routing mode: False, "1x1" or True."""
+    return _FILTER_GRAD
 
 
 def filter_grad_eligible(x: torch.Tensor, weight: torch.Tensor) -> bool:

@@ -52,7 +52,7 @@ class SqueezeDet(nn.Module):
                 self.tracer.pool(_POOL_AFTER[name], 3, 2, "SAME")
         self.conv12 = L.init_conv(generator, self.tracer, "conv12",
                                   cfg.head_channels, 3, 1, device=device,
-                                  xavier=False, stddev=0.0001)
+                                  xavier=False, relu=False, stddev=0.0001)
 
     def forward(self, images: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None

@@ -143,8 +143,9 @@ class MicroBatcher:
 def _reject_unported(args) -> None:
     """Options of the JAX server whose port is still to come."""
     if args.checkpoint:
-        raise SystemExit("--checkpoint is not ported yet: torch checkpoints "
-                         "arrive with the trainer (ROADMAP Queue 1 item 7)")
+        raise SystemExit("--checkpoint is not ported yet: serving a "
+                         "trainer checkpoint arrives with eval and the demo "
+                         "(ROADMAP Queue 1 item 9)")
     if args.artifact:
         raise SystemExit("--artifact is not ported yet: export arrives with "
                          "ROADMAP Queue 1 item 12")

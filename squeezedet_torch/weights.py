@@ -6,7 +6,10 @@ backbone ``state_dict`` names the same layers with dots and holds OIHW
 ``weight`` and ``bias`` tensors.  Both directions only transpose, so a
 round trip JAX -> torch -> JAX is bit-identical.  The optimizer state
 maps the same way: the optax chain's momentum ``trace`` tree and step
-``count`` to and from ``optim.Momentum.state_dict()``.
+``count`` to and from ``optim.Momentum.state_dict()``.  Two more views
+hold the train loop against the JAX package's: the caffe-pickle layout
+(``{layer: [kernel OIHW, bias]}``) that both packages' pretrained-weight
+paths consume, and a port checkpoint as a JAX ``TrainState`` tree.
 """
 
 from __future__ import annotations
@@ -102,3 +105,29 @@ def to_jax_opt_state(state: dict, params: Dict[str, torch.Tensor], like):
                 state["step"], np.asarray(part.count).dtype))
         parts.append(part)
     return tuple(parts)
+
+
+def pickle_from_jax_params(tree) -> Dict[str, list]:
+    """JAX params -> the caffe-pickle layout {layer: [kernel OIHW, bias]},
+    layer names as the JAX tree nests them ('fire2/squeeze1x1')."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        layer = "/".join(path[:-1])
+        blobs = out.setdefault(layer, [None, None])
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            blobs[0] = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        else:
+            blobs[1] = arr
+    return out
+
+
+def checkpoint_to_jax_tree(tree: dict, like_opt_state) -> dict:
+    """A port checkpoint tree ({"params", "opt_state", "step"}, as
+    ``CheckpointManager.restore`` returns it) -> the JAX package's
+    ``TrainState.as_tree()`` layout; ``like_opt_state`` is a state of the
+    JAX optimizer chain, whose structure the opt state takes."""
+    return {"params": to_jax_params(tree["params"]),
+            "opt_state": to_jax_opt_state(tree["opt_state"], tree["params"],
+                                          like_opt_state),
+            "step": np.asarray(int(tree["step"]), np.int64)}

@@ -172,16 +172,22 @@ def test_dense_target_step_equals_device_step(start):
         assert torch.equal(p, q), n
 
 
-def test_unported_paths_raise(start):
+def test_unported_paths_raise(start, tmp_path):
+    """What the port leaves out raises, naming its ROADMAP item: meshes
+    (13), rng_impl (14, stays out), the scanned dispatch (16) and
+    activation summaries (19)."""
     state = _port_state(start)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step_device(state, device_dataset=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         make_train_step_device(state, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         make_train_step_device_scan(state, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train(state)
+    for kw, item in ((dict(mesh=object()), "item 13"),
+                     (dict(rng_impl="rbg"), "item 14"),
+                     (dict(steps_per_dispatch=2), "item 16"),
+                     (dict(activation_summary=True), "item 19")):
+        with pytest.raises(NotImplementedError, match=item):
+            train(state.det, None, train_dir=str(tmp_path), max_steps=1,
+                  **kw)
 
 
 def test_dropout_keep_rate_scale_and_determinism():
