@@ -36,13 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    B=20 at 1248x384 in bf16 with ``--device_assign --uint8_ingest
    --device_augment --pallas_grads``, 30 steps with a checkpoint every 10
    (two kept), then a resume to step 40, then 10 ``--device_dataset``
-   steps in a fresh directory.  Checked: the retained checkpoints and
+   steps in a fresh directory, then 16 canvas-feed steps with
+   ``--image_cache_mb`` (the decode out of the steady state).  Checked: the retained checkpoints and
    sampler files, that the resume starts at step 30 and draws the batches
    of a straight run's steps 30-39, that the logged loss is finite and
    falls, and that K1 launches once per forward and K2 10 times per step.
    Prints ms/step, img/s and peak memory (smoke readings, not a
    benchmark), the host's PNG decode time per frame for each row filter,
-   the canvas feed's ms per batch with nothing training, and whether the
+   the canvas feed's ms per batch with nothing training, the upload of
+   one canvas batch from pageable and from pinned memory, and whether the
    summary writer was enabled.
 
 Each path is driven with the kernels' launch counts set to 0 just before
@@ -138,9 +140,13 @@ LOOP_ARGV = ["--device", "cuda", "--image_width", "1248", "--image_height",
 LOOP_EVERY, LOOP_KEEP = 10, 2  # --checkpoint_step / --summary_step, kept
 LOOP_STEPS, LOOP_RESUME_TO, LOOP_DATASET_STEPS = 30, 40, 10
 LOOP_TIMED_FROM = 2  # steps of each run left out of its ms/step
+# a last canvas-feed run with --image_cache_mb, timed once the 48 frames
+# are cached: the loop with the decode taken out of the steady state
+LOOP_CACHED_STEPS, LOOP_CACHED_TIMED_FROM = 16, 6
 # the canvas feed timed alone: batches that drain the prefilled queue,
 # then batches timed
 LOADER_WARMUP, LOADER_TIMED = 6, 10
+UPLOAD_REPS = 5  # copies of one canvas batch to the card, each way timed
 LOOP_CLASSES = ("Car", "Pedestrian", "Cyclist")
 
 
@@ -950,14 +956,35 @@ def loader_ms(root, card):
             loader.get()
         t0 = time.perf_counter()
         for _ in range(LOADER_TIMED):
-            loader.get()
+            canvas = loader.get()[0]
         ms = (time.perf_counter() - t0) * 1e3 / LOADER_TIMED
     finally:
         loader.stop()
     log("[loop] the canvas feed alone (PrefetchLoader, {} threads, B={}, "
         "nothing training): {:.3f} ms/batch over {} batches, on the host of "
         "{}".format(cfg.num_thread, cfg.batch_size, ms, LOADER_TIMED, card))
-    return ms
+    return ms, upload_ms(canvas, card)
+
+
+def upload_ms(canvas, card):
+    """The host-to-card copy of one canvas batch, from pageable memory (as
+    the train loop copies it) and from pinned memory."""
+    import torch
+    src = torch.from_numpy(canvas)
+    out = {}
+    for name, host in (("pageable", src), ("pinned", src.pin_memory())):
+        host.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(UPLOAD_REPS):
+            host.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / UPLOAD_REPS
+    log("[loop] upload of one canvas batch ({:.1f} MB) to the card: "
+        "pageable {:.3f} ms, pinned {:.3f} ms (mean of {}), on {}".format(
+            canvas.nbytes / 1e6, out["pageable"], out["pinned"], UPLOAD_REPS,
+            card))
+    return out
 
 
 def phase_train_loop(card):
@@ -986,16 +1013,28 @@ def phase_train_loop(card):
     log("[loop] fixture: {} PNGs of {}x{} in {:.1f} s".format(
         LOOP_IMAGES, LOOP_FRAME[1], LOOP_FRAME[0], time.perf_counter() - t0))
     decode_ms = png_decode_ms(root, indices, card)
-    feed_ms = loader_ms(root, card)
+    feed_ms, upload = loader_ms(root, card)
     probe = SummaryWriter(os.path.join(work, "probe"))
     writer_on = probe.enabled
     probe.close()
 
     # the step functions record when each step is called, and every
     # BatchPlan drawn is kept, to hold the resumed stream to a straight one
-    calls, plans = [], []
+    calls, plans, spans = [], [], {"images": [], "save": []}
     real_make, real_draw = trainer.make_train_step_device, \
         Imdb.draw_batch_plan
+    real_spans = {"images": trainer.viz_prediction_images,
+                  "save": trainer._save_checkpoint}
+
+    def timed_span(name):
+        """The summary steps' detection images and the checkpoint saves,
+        timed on the host clock (both return after their device reads)."""
+        def fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_spans[name](*args, **kwargs)
+            spans[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return fn
 
     def timed_make(*args, **kwargs):
         fn = real_make(*args, **kwargs)
@@ -1010,9 +1049,12 @@ def phase_train_loop(card):
         plans.append(plan)
         return plan
 
-    def run(name, train_dir, max_steps, *extra):
+    def run(name, train_dir, max_steps, *extra,
+            timed_from=LOOP_TIMED_FROM):
         calls.clear()
         plans.clear()
+        for v in spans.values():
+            v.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launches = ff.LAUNCHES, fg.LAUNCHES
@@ -1034,19 +1076,29 @@ def phase_train_loop(card):
         k1, k2 = ff.LAUNCHES - launches[0], fg.LAUNCHES - launches[1]
         # the interval between step calls: each step's pageable upload
         # waits for the step before it, so this is the loop's rate
-        timed = calls[LOOP_TIMED_FROM:]
+        timed = calls[timed_from:]
         ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
+        gaps = np.diff(timed) * 1e3
+        median = float(np.median(gaps))
+        # the intervals after the steps whose tail ran summaries or saves
+        slow = {first + timed_from + i: round(float(g), 1)
+                for i, g in enumerate(gaps) if g > 2 * median}
         batch = state.det.cfg.batch_size
         log("[loop] smoke reading, not a benchmark: {} (train CLI, B={} "
-            "{}x{} {}{}): steps {}..{}, {:.3f} ms/step, {:.1f} img/s over "
-            "the last {} step intervals, peak {:.2f} GiB; logged loss {}; K1 {} "
-            "launches for {} forwards, K2 {} for {} steps; summary writer "
-            "enabled: {}; on {}".format(
+            "{}x{} {}{}): steps {}..{}, {:.3f} ms/step (median interval "
+            "{:.3f}; intervals over twice that, by the step before them: "
+            "{}), {:.1f} img/s over the last {} step intervals, peak "
+            "{:.2f} GiB; host ms per detection-image call {} and per "
+            "checkpoint save {}; logged loss {}; K1 {} launches for {} "
+            "forwards, K2 {} for {} steps; summary writer enabled: {}; on "
+            "{}".format(
                 name, batch, state.det.cfg.image_width,
                 state.det.cfg.image_height, state.det.cfg.compute_dtype,
                 "".join(" " + e for e in extra), first, max_steps - 1, ms,
-                batch * 1e3 / ms, len(timed) - 1,
-                torch.cuda.max_memory_allocated() / 2**30,
+                median, json.dumps(slow), batch * 1e3 / ms,
+                len(timed) - 1, torch.cuda.max_memory_allocated() / 2**30,
+                [round(v, 1) for v in spans["images"]],
+                [round(v, 1) for v in spans["save"]],
                 json.dumps(logged), k1, len(calls) + viz, k2, len(calls),
                 writer_on, card))
         if state.step != max_steps:
@@ -1065,6 +1117,8 @@ def phase_train_loop(card):
 
     trainer.make_train_step_device = timed_make
     Imdb.draw_batch_plan = recording_draw
+    trainer.viz_prediction_images = timed_span("images")
+    trainer._save_checkpoint = timed_span("save")
     try:
         straight_dir = os.path.join(work, "train")
         _, _, logged, kept, _ = run("run", straight_dir, LOOP_STEPS)
@@ -1117,15 +1171,22 @@ def phase_train_loop(card):
                 not in out:
             raise AssertionError("--device_dataset did not upload the "
                                  "split")
+
+        run("image_cache", os.path.join(work, "cached"), LOOP_CACHED_STEPS,
+            "--image_cache_mb", "256", timed_from=LOOP_CACHED_TIMED_FROM)
+        steps += LOOP_CACHED_STEPS
     finally:
         trainer.make_train_step_device = real_make
         Imdb.draw_batch_plan = real_draw
+        trainer.viz_prediction_images = real_spans["images"]
+        trainer._save_checkpoint = real_spans["save"]
         shutil.rmtree(work, ignore_errors=True)
     viz = sum(1 for s in list(range(LOOP_RESUME_TO)) +
-              list(range(LOOP_DATASET_STEPS))
+              list(range(LOOP_DATASET_STEPS)) + list(range(LOOP_CACHED_STEPS))
               if writer_on and s % LOOP_EVERY == 0)
     return {"steps": steps, "forwards": steps + viz,
-            "decode_ms": decode_ms, "feed_ms": feed_ms, "writer": writer_on}
+            "decode_ms": decode_ms, "feed_ms": feed_ms, "upload_ms": upload,
+            "writer": writer_on}
 
 
 def main():

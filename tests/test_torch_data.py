@@ -74,9 +74,14 @@ def test_batch_plans_equal_over_three_epochs(kitti_root):
 
 
 @pytest.mark.parametrize("reader", [
-    "read_batch_canvas", "read_batch_plan_rows", "raw_uint8", "raw_f32"])
+    "read_batch_canvas", "read_batch_plan_rows", "raw_uint8", "raw_f32",
+    "read_batch_canvas_cached"])
 def test_readers_equal_jax(kitti_root, reader):
-    port, ref = _pair(kitti_root, 4)
+    """Every training reader equals JAX's; with ``image_cache_mb`` the
+    decoded frames are kept, read-only, and the batches do not change."""
+    cached = reader.endswith("_cached")
+    port, ref = _pair(kitti_root, 4, image_cache_mb=int(cached))
+    reader = reader.replace("_cached", "")
     for _ in range(4):
         if reader.startswith("raw"):
             kw = dict(max_gt=8, uint8_images=reader == "raw_uint8")
@@ -86,6 +91,9 @@ def test_readers_equal_jax(kitti_root, reader):
             got = getattr(port, reader)(max_gt=8)
             want = getattr(ref, reader)(max_gt=8)
         _assert_arrays_equal(got, want)
+    frames = list(port._image_cache.values())
+    assert bool(frames) == cached
+    assert all(not f.flags.writeable for f in frames)
 
 
 def test_read_batch_and_dense_targets_equal_jax(kitti_root):
