@@ -1,6 +1,6 @@
 """Data layer: the on-device input pipeline (``device_pipeline``), the
 PNG codec (``png``), the image databases and batch readers (``imdb``,
-``kitti``) and the dense-target builder (``targets``).
+``kitti``) and the dense training targets (``targets``).
 
 Nothing is imported here, so ``import squeezedet_torch.data.png`` loads
 no model code; :func:`imdb_for_dataset` imports its dataset class.
