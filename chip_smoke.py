@@ -32,20 +32,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the on-device augment at B=20 and B=128 in each mode (a smoke
    reading of ms/step, not a benchmark), whose loss must fall;
 7. train loop: ``squeezedet_torch.train.main``, the train CLI, on a
-   fixture of 48 KITTI-shaped 1242x375 PNGs written by ``data/png.py``:
-   B=20 at 1248x384 in bf16 with ``--device_assign --uint8_ingest
-   --device_augment --pallas_grads``, 30 steps with a checkpoint every 10
-   (two kept), then a resume to step 40, then 10 ``--device_dataset``
-   steps in a fresh directory, then 16 canvas-feed steps with
-   ``--image_cache_mb`` (the decode out of the steady state).  Checked: the retained checkpoints and
-   sampler files, that the resume starts at step 30 and draws the batches
-   of a straight run's steps 30-39, that the logged loss is finite and
-   falls, and that K1 launches once per forward and K2 10 times per step.
-   Prints ms/step, img/s and peak memory (smoke readings, not a
-   benchmark), the host's PNG decode time per frame for each row filter,
-   the canvas feed's ms per batch with nothing training, the upload of
-   one canvas batch from pageable and from pinned memory, and whether the
-   summary writer was enabled.
+   fixture of 48 KITTI-shaped 1242x375 PNGs written by ``data/synth.py``
+   (libpng's adaptive row filters): B=20 at 1248x384 in bf16 with
+   ``--device_assign --uint8_ingest --device_augment --pallas_grads``, 30
+   steps with a checkpoint every 10 (two kept), then a resume to step 40,
+   then 10 ``--device_dataset`` steps in a fresh directory.  Checked: the
+   retained checkpoints and sampler files, that the resume starts at step
+   30 and draws the batches of a straight run's steps 30-39, that the
+   logged loss is finite and falls, and that K1 launches once per
+   forward and K2 10 times per step.  Prints ms/step, img/s and peak
+   memory (smoke readings, not a benchmark), the host's decode time per
+   frame (by the data layer's decoder and by ``data/png.py``) and whether
+   the summary writer was enabled.  ``python -m
+   squeezedet_torch.profile_train_loop`` breaks the loop's host time down.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -140,14 +139,7 @@ LOOP_ARGV = ["--device", "cuda", "--image_width", "1248", "--image_height",
 LOOP_EVERY, LOOP_KEEP = 10, 2  # --checkpoint_step / --summary_step, kept
 LOOP_STEPS, LOOP_RESUME_TO, LOOP_DATASET_STEPS = 30, 40, 10
 LOOP_TIMED_FROM = 2  # steps of each run left out of its ms/step
-# a last canvas-feed run with --image_cache_mb, timed once the 48 frames
-# are cached: the loop with the decode taken out of the steady state
-LOOP_CACHED_STEPS, LOOP_CACHED_TIMED_FROM = 16, 6
-# the canvas feed timed alone: batches that drain the prefilled queue,
-# then batches timed
-LOADER_WARMUP, LOADER_TIMED = 6, 10
-UPLOAD_REPS = 5  # copies of one canvas batch to the card, each way timed
-LOOP_CLASSES = ("Car", "Pedestrian", "Cyclist")
+LOOP_DECODE_SAMPLE = 4  # frames data/png.py decodes beside read_frame
 
 
 def log(*a):
@@ -849,148 +841,44 @@ def phase_train_run(card, weights):
     return steps, k2
 
 
-class Tee:
-    """A stdout stand-in that prints and keeps what it is given."""
-
-    def __init__(self, stream):
-        import io
-        self.stream, self.kept = stream, io.StringIO()
-
-    def write(self, text):
-        self.kept.write(text)
-        return self.stream.write(text)
-
-    def flush(self):
-        self.stream.flush()
-
-
-def write_loop_fixture(root, n, frame, seed=0):
-    """A KITTI tree of ``n`` PNG frames ([H, W] = ``frame``), each dark
-    noise with 1-3 filled class-coloured boxes and their label lines, as
-    ``tests/synth_kitti.py`` draws them, scaled to the frame height."""
+def png_decode_ms(root, indices, card):
+    """The host's decode time per fixture frame, by the data layer's
+    ``read_frame`` (OpenCV where it imports) and by ``data/png.py``, which
+    must give the same pixels; and the frames' row-filter mix."""
     import numpy as np
 
     from squeezedet_torch.data import png
-    rng = np.random.RandomState(seed)
-    height, width = frame
-    s = max(1, height // 96)
-    img_dir = os.path.join(root, "training", "image_2")
-    lbl_dir = os.path.join(root, "training", "label_2")
-    for d in (img_dir, lbl_dir, os.path.join(root, "ImageSets")):
-        os.makedirs(d, exist_ok=True)
-    base = {"Car": (200, 60, 40), "Pedestrian": (40, 200, 60),
-            "Cyclist": (40, 60, 200)}  # BGR
-    indices = []
-    for i in range(n):
-        idx = "{:06d}".format(i)
-        indices.append(idx)
-        im = rng.randint(0, 60, (height, width, 3)).astype(np.uint8)
-        lines = []
-        for _ in range(rng.randint(1, 4)):
-            cls = LOOP_CLASSES[rng.randint(len(LOOP_CLASSES))]
-            hmax = min(80 * s, height - 4)
-            if cls == "Car":
-                h = rng.randint(42 * s, min(60 * s, hmax))
-                w = rng.randint(70 * s, 95 * s)
-            elif cls == "Pedestrian":
-                h = rng.randint(60 * s, hmax + 1)
-                w = rng.randint(25 * s, 40 * s)
-            else:
-                h = rng.randint(45 * s, min(70 * s, hmax))
-                w = h + rng.randint(-4 * s, 4 * s + 1)
-            x1 = rng.randint(0, width - w - 1)
-            y1 = rng.randint(0, height - h - 1)
-            im[y1:y1 + h + 1, x1:x1 + w + 1] = [
-                np.clip(c + rng.randint(-30, 30), 0, 255) for c in base[cls]]
-            lines.append("{} 0.00 0 0.0 {:.2f} {:.2f} {:.2f} {:.2f} 1.5 1.6 "
-                         "3.7 0.0 1.7 10.0 0.0".format(cls, x1, y1, x1 + w,
-                                                       y1 + h))
-        png.write_png(os.path.join(img_dir, idx + ".png"), im, level=1)
-        with open(os.path.join(lbl_dir, idx + ".txt"), "w") as f:
-            f.write("\n".join(lines) + "\n")
-    with open(os.path.join(root, "ImageSets", "train.txt"), "w") as f:
-        f.write("\n".join(indices) + "\n")
-    return indices
-
-
-def png_decode_ms(root, indices, card):
-    """The host's decode time per frame: the fixture's filter-0 files,
-    then one frame re-encoded with each other row filter."""
-    from squeezedet_torch.data import png
+    from squeezedet_torch.data.imdb import _opencv, read_frame
     paths = [os.path.join(root, "training", "image_2", i + ".png")
              for i in indices]
+    mix = np.bincount(np.concatenate([png.row_filters(p) for p in paths]),
+                      minlength=5)
     t0 = time.perf_counter()
-    frames = [png.imread_png(p) for p in paths]
-    ms = {"none": (time.perf_counter() - t0) * 1e3 / len(paths)}
-    for filt, name in ((1, "sub"), (2, "up"), (3, "avg"), (4, "paeth")):
-        path = os.path.join(root, name + ".png")
-        png.write_png(path, frames[0], level=1, filter_type=filt)
-        t0 = time.perf_counter()
-        got = png.imread_png(path)
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        if (got != frames[0]).any():
-            raise AssertionError("the {} frame decodes to other "
-                                 "pixels".format(name))
-    log("[loop] PNG decode of a {}x{} frame on the host (data/png.py), "
-        "ms/image by row filter: {} (filter 0: mean of {} files), on the "
-        "host of {}".format(frames[0].shape[1], frames[0].shape[0],
-                            json.dumps({k: round(v, 3) for k, v in
-                                        ms.items()}), len(paths), card))
+    frames = [read_frame(p) for p in paths]
+    ms = {"read_frame": (time.perf_counter() - t0) * 1e3 / len(paths)}
+    sample = paths[:LOOP_DECODE_SAMPLE]  # slow on Avg and Paeth rows
+    t0 = time.perf_counter()
+    for path, want in zip(sample, frames):
+        if (png.imread_png(path) != want).any():
+            raise AssertionError("{}: data/png.py and read_frame decode "
+                                 "other pixels".format(path))
+    ms["png.py"] = (time.perf_counter() - t0) * 1e3 / len(sample)
+    log("[loop] PNG decode of a {}x{} frame on the host: read_frame ({}) "
+        "{:.3f} ms/image over {} frames, data/png.py {:.3f} ms/image over "
+        "{}; the frames' rows by filter none/Sub/Up/Avg/Paeth: {}; on the "
+        "host of {}".format(
+            frames[0].shape[1], frames[0].shape[0],
+            "data/png.py" if _opencv() is None else "OpenCV", ms["read_frame"],
+            len(paths), ms["png.py"], len(sample), mix.tolist(), card))
     return ms
-
-
-def loader_ms(root, card):
-    """The canvas feed alone: ms per batch that the train loop's prefetch
-    loader delivers with nothing training, after its queue's first fill."""
-    import numpy as np
-
-    from squeezedet_torch import train as cli
-    from squeezedet_torch.data.kitti import Kitti
-    from squeezedet_torch.loader import PrefetchLoader
-    cfg = cli.config_from_args(cli.build_arg_parser().parse_args(LOOP_ARGV))
-    db = Kitti("train", root, cfg, rng=np.random.RandomState(0))
-    loader = PrefetchLoader(db, device_targets=True, uint8_images=True,
-                            device_augment=True, max_gt=MAX_GT).start()
-    try:
-        for _ in range(LOADER_WARMUP):
-            loader.get()
-        t0 = time.perf_counter()
-        for _ in range(LOADER_TIMED):
-            canvas = loader.get()[0]
-        ms = (time.perf_counter() - t0) * 1e3 / LOADER_TIMED
-    finally:
-        loader.stop()
-    log("[loop] the canvas feed alone (PrefetchLoader, {} threads, B={}, "
-        "nothing training): {:.3f} ms/batch over {} batches, on the host of "
-        "{}".format(cfg.num_thread, cfg.batch_size, ms, LOADER_TIMED, card))
-    return ms, upload_ms(canvas, card)
-
-
-def upload_ms(canvas, card):
-    """The host-to-card copy of one canvas batch, from pageable memory (as
-    the train loop copies it) and from pinned memory."""
-    import torch
-    src = torch.from_numpy(canvas)
-    out = {}
-    for name, host in (("pageable", src), ("pinned", src.pin_memory())):
-        host.to("cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(UPLOAD_REPS):
-            host.to("cuda", non_blocking=True)
-        torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t0) * 1e3 / UPLOAD_REPS
-    log("[loop] upload of one canvas batch ({:.1f} MB) to the card: "
-        "pageable {:.3f} ms, pinned {:.3f} ms (mean of {}), on {}".format(
-            canvas.nbytes / 1e6, out["pageable"], out["pinned"], UPLOAD_REPS,
-            card))
-    return out
 
 
 def phase_train_loop(card):
     """The train CLI on the card: a 30-step run with checkpoints, a
     resume to step 40, and a --device_dataset run.  Returns the forwards
     and steps it ran, which the caller holds the launch counts to."""
+    import contextlib
+    import io
     import re
     import shutil
 
@@ -999,8 +887,9 @@ def phase_train_loop(card):
 
     from squeezedet_torch import train as cli
     from squeezedet_torch import trainer
-    from squeezedet_torch.data.imdb import Imdb
+    from squeezedet_torch.data.imdb import Imdb, _opencv
     from squeezedet_torch.data.kitti import Kitti
+    from squeezedet_torch.data.synth import write_kitti_fixture
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.summary import SummaryWriter
@@ -1009,32 +898,21 @@ def phase_train_loop(card):
     shutil.rmtree(work, ignore_errors=True)
     root = os.path.join(work, "kitti")
     t0 = time.perf_counter()
-    indices = write_loop_fixture(root, LOOP_IMAGES, LOOP_FRAME)
+    indices = write_kitti_fixture(root, LOOP_IMAGES, LOOP_FRAME)
     log("[loop] fixture: {} PNGs of {}x{} in {:.1f} s".format(
         LOOP_IMAGES, LOOP_FRAME[1], LOOP_FRAME[0], time.perf_counter() - t0))
     decode_ms = png_decode_ms(root, indices, card)
-    feed_ms, upload = loader_ms(root, card)
     probe = SummaryWriter(os.path.join(work, "probe"))
     writer_on = probe.enabled
     probe.close()
+    # the detection images of summary steps (one forward each) need cv2
+    images_on = writer_on and _opencv() is not None
 
     # the step functions record when each step is called, and every
     # BatchPlan drawn is kept, to hold the resumed stream to a straight one
-    calls, plans, spans = [], [], {"images": [], "save": []}
+    calls, plans = [], []
     real_make, real_draw = trainer.make_train_step_device, \
         Imdb.draw_batch_plan
-    real_spans = {"images": trainer.viz_prediction_images,
-                  "save": trainer._save_checkpoint}
-
-    def timed_span(name):
-        """The summary steps' detection images and the checkpoint saves,
-        timed on the host clock (both return after their device reads)."""
-        def fn(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = real_spans[name](*args, **kwargs)
-            spans[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return fn
 
     def timed_make(*args, **kwargs):
         fn = real_make(*args, **kwargs)
@@ -1049,58 +927,47 @@ def phase_train_loop(card):
         plans.append(plan)
         return plan
 
-    def run(name, train_dir, max_steps, *extra,
-            timed_from=LOOP_TIMED_FROM):
+    def run(name, train_dir, max_steps, *extra):
         calls.clear()
         plans.clear()
-        for v in spans.values():
-            v.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launches = ff.LAUNCHES, fg.LAUNCHES
-        tee = Tee(sys.stdout)
-        sys.stdout = tee
+        buf = io.StringIO()
         try:
-            state = cli.main(LOOP_ARGV + [
-                "--data_path", root, "--train_dir", train_dir,
-                "--max_steps", str(max_steps)] + list(extra))
+            with contextlib.redirect_stdout(buf):
+                state = cli.main(LOOP_ARGV + [
+                    "--data_path", root, "--train_dir", train_dir,
+                    "--max_steps", str(max_steps)] + list(extra))
         finally:
-            sys.stdout = tee.stream
+            log(buf.getvalue().rstrip())
         torch.cuda.synchronize()
-        out = tee.kept.getvalue()
+        out = buf.getvalue()
         logged = {int(s): float(v) for s, v in re.findall(
             r"step (\d+), loss = (\S+) \(", out)}
         first = max_steps - len(calls)
         viz = sum(1 for s in range(first, max_steps)
-                  if writer_on and s % LOOP_EVERY == 0)
+                  if images_on and s % LOOP_EVERY == 0)
         k1, k2 = ff.LAUNCHES - launches[0], fg.LAUNCHES - launches[1]
-        # the interval between step calls: each step's pageable upload
-        # waits for the step before it, so this is the loop's rate
-        timed = calls[timed_from:]
-        ms = (timed[-1] - timed[0]) * 1e3 / (len(timed) - 1)
+        # the interval between step calls: each step's upload waits for
+        # the step before it, so this is the loop's rate
+        timed = np.asarray(calls[LOOP_TIMED_FROM:])
         gaps = np.diff(timed) * 1e3
-        median = float(np.median(gaps))
-        # the intervals after the steps whose tail ran summaries or saves
-        slow = {first + timed_from + i: round(float(g), 1)
-                for i, g in enumerate(gaps) if g > 2 * median}
         batch = state.det.cfg.batch_size
         log("[loop] smoke reading, not a benchmark: {} (train CLI, B={} "
             "{}x{} {}{}): steps {}..{}, {:.3f} ms/step (median interval "
-            "{:.3f}; intervals over twice that, by the step before them: "
-            "{}), {:.1f} img/s over the last {} step intervals, peak "
-            "{:.2f} GiB; host ms per detection-image call {} and per "
-            "checkpoint save {}; logged loss {}; K1 {} launches for {} "
-            "forwards, K2 {} for {} steps; summary writer enabled: {}; on "
-            "{}".format(
+            "{:.3f}), {:.1f} img/s over the last {} step intervals, peak "
+            "{:.2f} GiB; logged loss {}; K1 {} launches for {} forwards, K2 "
+            "{} for {} steps; summary writer enabled: {}, detection images: "
+            "{}; on {}".format(
                 name, batch, state.det.cfg.image_width,
                 state.det.cfg.image_height, state.det.cfg.compute_dtype,
-                "".join(" " + e for e in extra), first, max_steps - 1, ms,
-                median, json.dumps(slow), batch * 1e3 / ms,
-                len(timed) - 1, torch.cuda.max_memory_allocated() / 2**30,
-                [round(v, 1) for v in spans["images"]],
-                [round(v, 1) for v in spans["save"]],
+                "".join(" " + e for e in extra), first, max_steps - 1,
+                gaps.mean(), float(np.median(gaps)),
+                batch * 1e3 / gaps.mean(), len(gaps),
+                torch.cuda.max_memory_allocated() / 2**30,
                 json.dumps(logged), k1, len(calls) + viz, k2, len(calls),
-                writer_on, card))
+                writer_on, images_on, card))
         if state.step != max_steps:
             raise AssertionError("{} ended at step {}".format(name,
                                                               state.step))
@@ -1113,40 +980,39 @@ def phase_train_loop(card):
                 "steps".format(name, k1, len(calls) + viz, k2, len(calls)))
         kept = sorted(n for n in os.listdir(train_dir)
                       if n.startswith(("model.ckpt", "sampler.ckpt")))
-        return state, out, logged, kept, sorted(plans, key=lambda p: p.seq)
+        return (out, logged, kept, len(calls) + viz,
+                sorted(plans, key=lambda p: p.seq))
+
+    def names(steps):
+        return sorted(["model.ckpt-{}".format(s) for s in steps] +
+                      ["sampler.ckpt-{}.npz".format(s) for s in steps])
+
+    def newest(first, stop):
+        return [s for s in range(first, stop)
+                if s % LOOP_EVERY == 0 or s == stop - 1][-LOOP_KEEP:]
 
     trainer.make_train_step_device = timed_make
     Imdb.draw_batch_plan = recording_draw
-    trainer.viz_prediction_images = timed_span("images")
-    trainer._save_checkpoint = timed_span("save")
     try:
         straight_dir = os.path.join(work, "train")
-        _, _, logged, kept, _ = run("run", straight_dir, LOOP_STEPS)
+        _, logged, kept, forwards, _ = run("run", straight_dir, LOOP_STEPS)
         steps = LOOP_STEPS
         if logged[max(logged)] >= logged[0]:
             raise AssertionError("loss did not fall: {}".format(logged))
-        last = [s for s in range(LOOP_STEPS) if s % LOOP_EVERY == 0 or
-                s == LOOP_STEPS - 1][-LOOP_KEEP:]
+        if kept != names(newest(0, LOOP_STEPS)):
+            raise AssertionError("kept {}, expected {}".format(
+                kept, names(newest(0, LOOP_STEPS))))
 
-        def names(steps):
-            return sorted(["model.ckpt-{}".format(s) for s in steps] +
-                          ["sampler.ckpt-{}.npz".format(s) for s in steps])
-        if kept != names(last):
-            raise AssertionError("kept {}, expected {}".format(kept,
-                                                               names(last)))
-
-        _, out, logged, kept, resumed = run("resume", straight_dir,
+        out, logged, kept, n, resumed = run("resume", straight_dir,
                                             LOOP_RESUME_TO)
-        steps += LOOP_RESUME_TO - LOOP_STEPS
+        steps, forwards = steps + LOOP_RESUME_TO - LOOP_STEPS, forwards + n
         if "Resumed from step {}".format(LOOP_STEPS) not in out or \
                 min(logged) != LOOP_STEPS:
             raise AssertionError("the resume did not start at step "
                                  "{}".format(LOOP_STEPS))
-        last = [s for s in range(LOOP_STEPS, LOOP_RESUME_TO)
-                if s % LOOP_EVERY == 0 or s == LOOP_RESUME_TO - 1][-LOOP_KEEP:]
-        if kept != names(last):
-            raise AssertionError("kept {}, expected {}".format(kept,
-                                                               names(last)))
+        if kept != names(newest(LOOP_STEPS, LOOP_RESUME_TO)):
+            raise AssertionError("kept {}, expected {}".format(
+                kept, names(newest(LOOP_STEPS, LOOP_RESUME_TO))))
         cfg = cli.config_from_args(cli.build_arg_parser().parse_args(
             LOOP_ARGV))
         ref = Kitti("train", root, cfg, rng=np.random.RandomState(0))
@@ -1164,28 +1030,18 @@ def phase_train_loop(card):
             "straight run's steps {}..{}".format(LOOP_STEPS,
                                                  LOOP_RESUME_TO - 1))
 
-        _, out, _, _, _ = run("device_dataset", os.path.join(work, "dataset"),
+        out, _, _, n, _ = run("device_dataset", os.path.join(work, "dataset"),
                               LOOP_DATASET_STEPS, "--device_dataset")
-        steps += LOOP_DATASET_STEPS
+        steps, forwards = steps + LOOP_DATASET_STEPS, forwards + n
         if "Device-resident dataset: {} images".format(LOOP_IMAGES) \
                 not in out:
             raise AssertionError("--device_dataset did not upload the "
                                  "split")
-
-        run("image_cache", os.path.join(work, "cached"), LOOP_CACHED_STEPS,
-            "--image_cache_mb", "256", timed_from=LOOP_CACHED_TIMED_FROM)
-        steps += LOOP_CACHED_STEPS
     finally:
         trainer.make_train_step_device = real_make
         Imdb.draw_batch_plan = real_draw
-        trainer.viz_prediction_images = real_spans["images"]
-        trainer._save_checkpoint = real_spans["save"]
         shutil.rmtree(work, ignore_errors=True)
-    viz = sum(1 for s in list(range(LOOP_RESUME_TO)) +
-              list(range(LOOP_DATASET_STEPS)) + list(range(LOOP_CACHED_STEPS))
-              if writer_on and s % LOOP_EVERY == 0)
-    return {"steps": steps, "forwards": steps + viz,
-            "decode_ms": decode_ms, "feed_ms": feed_ms, "upload_ms": upload,
+    return {"steps": steps, "forwards": forwards, "decode_ms": decode_ms,
             "writer": writer_on}
 
 

@@ -12,11 +12,13 @@ order, so the two packages give the same batches for the same seed:
 * :meth:`Imdb.sampler_state` / :meth:`Imdb.set_sampler_state` snapshot
   and restore the permutation, the cursor and the MT19937 state.
 
-Images are PNG files (KITTI's format), decoded by the port's own codec
-(``data/png.py``); only the host-resize readers (:meth:`Imdb.read_batch`,
-:meth:`Imdb.read_batch_raw_targets`) import cv2, for ``cv2.resize``.
-The canvas readers of ``--device_augment`` and ``--device_dataset``
-need neither cv2 nor PIL.
+Images are PNG files (KITTI's format).  :func:`read_frame` decodes them
+with OpenCV where it imports, as the JAX package does, and with the
+port's own codec (``data/png.py``) where it does not; headers are always
+read by ``data/png.py``.  Only the host-resize readers
+(:meth:`Imdb.read_batch`, :meth:`Imdb.read_batch_raw_targets`) need
+cv2, for ``cv2.resize``: the canvas readers of ``--device_augment`` and
+``--device_dataset`` train without cv2 and PIL.
 
 Not ported here, each raising ``NotImplementedError``: host and data
 sharding over several devices (ROADMAP Queue 1 item 13), the eval
@@ -25,6 +27,7 @@ readers (item 9) and the C++ native loader (item 17).
 
 from __future__ import annotations
 
+import functools
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -53,6 +56,33 @@ class BatchPlan:
     batch_idx: List[str]
     augment: Optional[List[Tuple[Tuple[int, int], bool]]]
     state: Dict[str, np.ndarray]
+
+
+@functools.lru_cache(maxsize=None)
+def _opencv():
+    """The cv2 module where it imports, else None (looked up once)."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def read_frame(path: str) -> np.ndarray:
+    """Decode an image file to BGR uint8 [H, W, 3], as ``cv2.imread``.
+
+    OpenCV decodes where it imports: libpng in C, without the GIL, so the
+    loader's threads decode in parallel.  Elsewhere ``png.imread_png``
+    decodes (PNG only), which is much slower on rows written with the
+    Avg and Paeth filters (see ``data/png.py``).  PNG is lossless, so
+    both give the same pixels."""
+    cv2 = _opencv()
+    if cv2 is None:
+        return png.imread_png(path)
+    im = cv2.imread(path)
+    if im is None:
+        raise ValueError("{}: OpenCV cannot read it".format(path))
+    return im
 
 
 def _multi_device(what: str):
@@ -107,13 +137,13 @@ class Imdb:
         path = self._image_path_at(idx)
         budget = int(getattr(self.mc, "image_cache_mb", 0)) << 20
         if budget <= 0:
-            return png.imread_png(path)
+            return read_frame(path)
         with self._image_cache_lock:
             im = self._image_cache.get(idx)
             if im is not None:
                 self._image_cache.move_to_end(idx)
                 return im
-        im = png.imread_png(path)
+        im = read_frame(path)
         im.setflags(write=False)
         with self._image_cache_lock:
             if idx not in self._image_cache:

@@ -2,9 +2,10 @@
 ``cv2.imread(path, cv2.IMREAD_COLOR)`` for PNG files, of PIL's header
 read, and of ``cv2.imwrite`` for fixtures.
 
-The data layer's on-device paths (``--device_augment``,
-``--device_dataset``) need only a decode and a header read, so this
-module is all the image IO they use, and they train where neither
+The data layer decodes frames with OpenCV where it imports and with
+:func:`imread_png` where it does not (``data/imdb.py`` ``read_frame``),
+and reads every header with :func:`read_png_size`: its on-device paths
+(``--device_augment``, ``--device_dataset``) thus train where neither
 OpenCV nor PIL is installed.
 
 Decoded: non-interlaced PNGs of bit depth 8 in colour type gray (0), RGB
@@ -17,16 +18,16 @@ bit.  Anything else (palette, 16-bit, interlaced, a bad CRC) raises
 Sub and Up rows are vectorised (Sub is a running sum in uint8 along the
 row).  Avg and Paeth depend on the reconstructed left neighbour, so they
 loop along the row in Python, one byte at a time: a file written with
-adaptive filters (as cv2 writes) decodes far slower than one written by
-:func:`write_png` with its default filter 0.  :func:`encode_png` writes
-any one filter for every row, for fixtures and for image summaries.
+adaptive filters (as libpng and cv2 write) decodes far slower than one
+written with filter 0 only.  :func:`encode_png` writes any one filter
+for every row, or chooses each row's filter as libpng does.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -166,6 +167,17 @@ def imread_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(pixels[:, :, 2::-1])
 
 
+def row_filters(path: str) -> np.ndarray:
+    """The row filter (0 none, 1 Sub, 2 Up, 3 Avg, 4 Paeth) of each row
+    of a PNG that :func:`imread_png` decodes: [height] uint8."""
+    with open(path, "rb") as f:
+        chunks = list(_chunks(f.read(), path))
+    width, height, _, colour, _, _, _ = _header(chunks[0][1], path)
+    raw = zlib.decompress(b"".join(p for k, p in chunks if k == b"IDAT"))
+    stride = width * _CHANNELS[colour] + 1
+    return np.frombuffer(raw, np.uint8).reshape(height, stride)[:, 0].copy()
+
+
 def _chunk(kind: bytes, payload: bytes) -> bytes:
     return (struct.pack(">I", len(payload)) + kind + payload
             + struct.pack(">I", zlib.crc32(kind + payload)))
@@ -200,19 +212,37 @@ def _filter_rows(rows: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
+def _adaptive_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each row filtered by the filter whose residuals, read as signed
+    bytes, have the least sum of magnitudes (libpng's adaptive choice);
+    [H, stride + 1] with the filter byte first."""
+    filtered = np.stack([_filter_rows(rows, bpp, f) for f in range(5)])
+    cost = np.abs(filtered.view(np.int8).astype(np.int32)).sum(axis=2)
+    best = np.argmin(cost, axis=0)  # [H]; ties go to the lower filter
+    out = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+    out[:, 0] = best
+    out[:, 1:] = filtered[best, np.arange(rows.shape[0])]
+    return out
+
+
 def encode_png(bgr_u8: np.ndarray, level: int = 6,
-               filter_type: int = 0) -> bytes:
+               filter_type: Optional[int] = 0) -> bytes:
     """BGR uint8 [H, W, 3] -> the bytes of an 8-bit RGB PNG whose rows all
-    use ``filter_type`` (0 none, 1 Sub, 2 Up, 3 Avg, 4 Paeth)."""
+    use ``filter_type`` (0 none, 1 Sub, 2 Up, 3 Avg, 4 Paeth), or, with
+    ``filter_type=None``, each row the filter libpng's adaptive choice
+    would give it."""
     im = np.asarray(bgr_u8)
     if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
         raise ValueError("encode_png takes BGR uint8 [H, W, 3], got {} "
                          "{}".format(im.dtype, im.shape))
     height, width, _ = im.shape
-    rows = np.empty((height, width * 3 + 1), np.uint8)
-    rows[:, 0] = filter_type
-    rows[:, 1:] = _filter_rows(im[:, :, ::-1].reshape(height, width * 3), 3,
-                               filter_type)
+    samples = im[:, :, ::-1].reshape(height, width * 3)
+    if filter_type is None:
+        rows = _adaptive_rows(samples, 3)
+    else:
+        rows = np.empty((height, width * 3 + 1), np.uint8)
+        rows[:, 0] = filter_type
+        rows[:, 1:] = _filter_rows(samples, 3, filter_type)
     header = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
@@ -220,7 +250,7 @@ def encode_png(bgr_u8: np.ndarray, level: int = 6,
 
 
 def write_png(path: str, bgr_u8: np.ndarray, level: int = 6,
-              filter_type: int = 0) -> None:
+              filter_type: Optional[int] = 0) -> None:
     """Write BGR uint8 [H, W, 3] as an 8-bit RGB PNG (:func:`encode_png`)."""
     data = encode_png(bgr_u8, level, filter_type)
     with open(path, "wb") as f:

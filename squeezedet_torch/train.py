@@ -40,7 +40,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument('--pretrained_model_path', default='',
                    help='Path to the pretrained model (caffe pickle).')
     p.add_argument('--summary_step', type=int, default=10,
-                   help='Number of steps to save summary.')
+                   help='Number of steps to save summary (0 = none).')
     p.add_argument('--checkpoint_step', type=int, default=1000,
                    help='Number of steps to save checkpoint.')
     p.add_argument('--max_to_keep', type=int, default=5,

@@ -166,7 +166,7 @@ def _dispatch_cadences(covered, lb, *, start_time, cfg, log_every,
     """
     last = covered[-1]
     do_log = any(s % log_every == 0 for s in covered)
-    do_summary = summary_writer is not None and any(
+    do_summary = summary_writer is not None and summary_step > 0 and any(
         s % summary_step == 0 for s in covered)
     checkpoint_due = any(s % checkpoint_step == 0 for s in covered) \
         or last + 1 == max_steps
@@ -343,11 +343,11 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     if writer_on and viz_step:
         try:
             import cv2  # noqa: F401
-        except ImportError as e:
-            raise ImportError(
-                "the detection images of summary steps draw with OpenCV "
-                "(cv2), which is not installed: install it, or pass "
-                "viz_step=0") from e
+        except ImportError:
+            print("WARNING: the detection images of summary steps draw "
+                  "with OpenCV (cv2), which is not installed; training "
+                  "writes the other summaries without them.")
+            viz_step = 0
     os.makedirs(train_dir, exist_ok=True)
     dev = det.anchors.device
 

@@ -3,7 +3,9 @@ same KITTI fixture and the same ``RandomState`` seed give equal batch
 plans over three epochs and equal arrays from every training reader; a
 sampler-state snapshot continues the identical stream; the prefetch
 loader's stream equals direct draws and resumes from ``consumed_state``;
-and the on-device input paths import neither cv2, PIL nor jax."""
+the data layer decodes with OpenCV where it imports and with the port's
+own PNG codec where it does not, to the same arrays; and the on-device
+input paths, the train CLI included, run without cv2, PIL and jax."""
 
 import os
 import subprocess
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 
 import squeezedet_torch as st
-from squeezedet_torch.data import imdb_for_dataset
+from squeezedet_torch.data import imdb as imdb_mod
+from squeezedet_torch.data import imdb_for_dataset, png
 from squeezedet_torch.data.kitti import Kitti
 from squeezedet_torch.data.targets import batch_to_dense_targets
 from squeezedet_torch.loader import PrefetchLoader
@@ -75,13 +78,18 @@ def test_batch_plans_equal_over_three_epochs(kitti_root):
 
 @pytest.mark.parametrize("reader", [
     "read_batch_canvas", "read_batch_plan_rows", "raw_uint8", "raw_f32",
-    "read_batch_canvas_cached"])
-def test_readers_equal_jax(kitti_root, reader):
-    """Every training reader equals JAX's; with ``image_cache_mb`` the
-    decoded frames are kept, read-only, and the batches do not change."""
+    "read_batch_canvas_cached", "read_batch_canvas_png",
+    "read_batch_plan_rows_png"])
+def test_readers_equal_jax(kitti_root, reader, monkeypatch):
+    """Every training reader equals JAX's, decoding with OpenCV (as the
+    data layer does where cv2 imports) and, the ``_png`` cases, with the
+    port's own codec; with ``image_cache_mb`` the decoded frames are
+    kept, read-only, and the batches do not change."""
     cached = reader.endswith("_cached")
+    if reader.endswith("_png"):
+        monkeypatch.setattr(imdb_mod, "_opencv", lambda: None)
     port, ref = _pair(kitti_root, 4, image_cache_mb=int(cached))
-    reader = reader.replace("_cached", "")
+    reader = reader.replace("_cached", "").replace("_png", "")
     for _ in range(4):
         if reader.startswith("raw"):
             kw = dict(max_gt=8, uint8_images=reader == "raw_uint8")
@@ -94,6 +102,47 @@ def test_readers_equal_jax(kitti_root, reader):
     frames = list(port._image_cache.values())
     assert bool(frames) == cached
     assert all(not f.flags.writeable for f in frames)
+
+
+def test_read_frame_uses_opencv_where_it_imports(kitti_root, tmp_path,
+                                                monkeypatch):
+    """``read_frame`` decodes with cv2 here and names a file it cannot
+    read; without cv2 it decodes with ``png.imread_png``, to the same
+    pixels."""
+    import cv2
+    path = os.path.join(kitti_root, "training", "image_2", "000000.png")
+    assert imdb_mod._opencv() is cv2
+    by_cv2 = imdb_mod.read_frame(path)
+    np.testing.assert_array_equal(by_cv2, cv2.imread(path))
+    missing = str(tmp_path / "missing.png")
+    with pytest.raises(ValueError, match="missing.png"):
+        imdb_mod.read_frame(missing)
+
+    decoded, real = [], png.imread_png
+
+    def imread_png(p):
+        decoded.append(p)
+        return real(p)
+    monkeypatch.setattr(imdb_mod, "_opencv", lambda: None)
+    monkeypatch.setattr(imdb_mod.png, "imread_png", imread_png)
+    np.testing.assert_array_equal(imdb_mod.read_frame(path), by_cv2)
+    assert decoded == [path]
+
+
+def test_synth_fixture_reads_as_kitti(tmp_path):
+    """``data/synth.py``'s tree (libpng's adaptive row filters) reads
+    through the port's Kitti as through JAX's, with 1-3 boxes a frame."""
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    root = str(tmp_path / "synth")
+    indices = write_kitti_fixture(root, 3, (96, 160), seed=2)
+    assert indices == ["000000", "000001", "000002"]
+    path = os.path.join(root, "training", "image_2", "000000.png")
+    assert len(set(png.row_filters(path).tolist())) >= 2
+    port, ref = _pair(root, 6)
+    assert all(1 <= len(port._rois[i]) <= 3 for i in indices)
+    for _ in range(2):
+        _assert_arrays_equal(port.read_batch_canvas(max_gt=8),
+                             ref.read_batch_canvas(max_gt=8))
 
 
 def test_read_batch_and_dense_targets_equal_jax(kitti_root):
@@ -209,12 +258,14 @@ def test_unported_parts_name_their_roadmap_item(kitti_root):
 
 
 _NO_CV2_TRAIN = r"""
-import sys
+import contextlib, io, os, sys
 for name in ("cv2", "PIL", "jax", "jaxlib", "squeezedet_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 import numpy as np, torch
 import squeezedet_torch as st
+from squeezedet_torch import train as cli
 from squeezedet_torch.data.kitti import Kitti
+from squeezedet_torch.summary import SummaryWriter
 from squeezedet_torch.trainer import train
 
 root, out = sys.argv[1], sys.argv[2]
@@ -228,18 +279,24 @@ for tag in ("device_augment", "device_dataset"):
                   uint8_ingest=True, max_gt=8, **{tag: True})
     assert state.step == 2
 
-
-class Writer:
-    def scalar(self, *a): pass
-
-
-try:
-    train(det, db, train_dir=out + "/viz", max_steps=1, device_assign=True,
-          summary_writer=Writer(), viz_step=1)
-except ImportError as e:
-    assert "cv2" in str(e), e
-else:
-    raise AssertionError("detection images ran without cv2")
+# the train CLI with tensorboard's writer on: the detection images are
+# left out with one warning naming cv2, the other summaries are written
+probe = SummaryWriter(out + "/probe")
+assert probe.enabled
+probe.close()
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    state = cli.main(["--device", "cpu", "--data_path", root, "--train_dir",
+                      out + "/cli", "--image_width", "96", "--image_height",
+                      "96", "--batch_size", "2", "--max_steps", "2",
+                      "--summary_step", "1", "--histogram_step", "1",
+                      "--device_assign", "--uint8_ingest",
+                      "--device_augment"])
+assert state.step == 2
+warned = [l for l in log.getvalue().splitlines() if l.startswith("WARNING")]
+assert len(warned) == 1 and "cv2" in warned[0], warned
+assert any(n.startswith("events.out.tfevents")
+           for n in os.listdir(out + "/cli"))
 bad = [m for m in sys.modules if sys.modules[m] is not None and
        m.split(".")[0] in ("cv2", "PIL", "jax", "jaxlib", "squeezedet_tpu")]
 assert not bad, bad
@@ -249,8 +306,8 @@ print("ok")
 
 def test_device_input_paths_import_no_cv2_pil_or_jax(kitti_root, tmp_path):
     """--device_augment and --device_dataset train with cv2, PIL and jax
-    unimportable; with a summary writer asking for detection images the
-    loop refuses at its start, naming cv2."""
+    unimportable, and so does the train CLI with its summary writer on,
+    leaving out the detection images with one warning naming cv2."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_CV2_TRAIN, kitti_root, str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=300)

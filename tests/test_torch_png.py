@@ -3,8 +3,6 @@
 and every row filter; ``read_png_size`` equals PIL's header read;
 ``write_png`` round-trips through ``cv2.imread``."""
 
-import zlib
-
 import cv2
 import numpy as np
 import pytest
@@ -35,12 +33,7 @@ def _image(shape, seed):
 
 
 def _row_filters(path):
-    with open(path, "rb") as f:
-        chunks = list(png._chunks(f.read(), path))
-    w, h, _, colour, _, _, _ = png._header(chunks[0][1], path)
-    raw = zlib.decompress(b"".join(p for k, p in chunks if k == b"IDAT"))
-    stride = w * png._CHANNELS[colour] + 1
-    return set(np.frombuffer(raw, np.uint8).reshape(h, stride)[:, 0])
+    return set(png.row_filters(path).tolist())
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4], ids=["gray", "rgb", "rgba"])
@@ -66,6 +59,20 @@ def test_adaptive_files_use_every_filter(tmp_path):
                            cv2.IMWRITE_PNG_ALL_FILTERS])
     assert len(_row_filters(path)) >= 3
     np.testing.assert_array_equal(png.imread_png(path), cv2.imread(path))
+
+
+def test_adaptive_write_chooses_libpngs_filters(tmp_path):
+    """``filter_type=None`` gives each row the filter libpng's adaptive
+    choice gives it (cv2 with ALL_FILTERS), and decodes to the image."""
+    im = _image((375, 1242, 3), 6)
+    ours, theirs = str(tmp_path / "ours.png"), str(tmp_path / "cv2.png")
+    png.write_png(ours, im, filter_type=None)
+    cv2.imwrite(theirs, im, [cv2.IMWRITE_PNG_FILTER,
+                             cv2.IMWRITE_PNG_ALL_FILTERS])
+    np.testing.assert_array_equal(png.row_filters(ours),
+                                  png.row_filters(theirs))
+    assert len(_row_filters(ours)) >= 3
+    np.testing.assert_array_equal(cv2.imread(ours), im)
 
 
 def test_write_png_round_trips(tmp_path):

@@ -133,13 +133,13 @@ def test_train_matches_jax(kitti_root, start, tmp_path, mode):
         assert np.asarray(a).dtype == np.asarray(b).dtype
 
 
-def _port_run(root, train_dir, max_steps, seed=3, **kw):
+def _port_run(root, train_dir, max_steps, seed=3, summary_step=1000, **kw):
     cfg = st.tiny_test_config().replace(data_augmentation=True, drift_x=20,
                                         drift_y=12, num_thread=3)
     det = st.get_model("squeezeDet", cfg, device="cpu")
     db = Kitti("train", root, cfg, rng=np.random.RandomState(seed))
     return train(det, db, train_dir=train_dir, max_steps=max_steps,
-                 checkpoint_step=100, summary_step=1000, log_every=1,
+                 checkpoint_step=100, summary_step=summary_step, log_every=1,
                  device_assign=True, max_gt=8, seed=11, **kw)
 
 
@@ -223,6 +223,18 @@ def test_histograms_and_detection_images(kitti_root, tmp_path):
     (step, ims), = w.images["sample_detection_results"][:1]
     assert step == 0 and ims.dtype == np.uint8 and ims.shape[1:] == (96, 96,
                                                                      3)
+
+
+def test_summary_step_zero_writes_no_summaries(kitti_root, tmp_path):
+    """--summary_step 0 turns the summaries off (the JAX loop divides by
+    it); histograms keep their own cadence."""
+    w = RecordingWriter()
+    state = _port_run(kitti_root, str(tmp_path / "z"), 2,
+                      device_augment=True, summary_writer=w, viz_step=0,
+                      summary_step=0, histogram_step=1)
+    assert state.step == 2
+    assert not w.scalars and not w.images
+    assert "params/conv12/kernel" in w.histograms
 
 
 def _cfg_fields(cfg):
