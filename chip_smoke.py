@@ -44,7 +44,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory (smoke readings, not a benchmark), the host's decode time per
    frame (by the data layer's decoder and by ``data/png.py``) and whether
    the summary writer was enabled.  ``python -m
-   squeezedet_torch.profile_train_loop`` breaks the loop's host time down.
+   squeezedet_torch.profile_train_loop`` breaks the loop's host time down;
+8. eval and demo: one port checkpoint of seeded weights (the head
+   rescaled as in phase 5) and 24 KITTI-shaped 1242x375 PNGs with 5-8
+   boxes each.  The ground truth scored as detections gives AP 1.0 with
+   the native C++ evaluator, which must be the scorer that ran, and the
+   C++ and Python scorers agree on jittered GT and on the model's
+   detections.  ``squeezedet_torch.eval.main --run_once`` at 1248x384 in
+   three modes: f32 B=1 with the host postprocess (the reference
+   protocol), f32 B=8 with the device postprocess, which must give the
+   same detections and APs, and bf16 B=8 ``--device_dataset``, which
+   must score every image with finite APs; the f32 B=1 run's first two
+   raw forwards match the CPU's.  Then ``squeezedet_torch.demo.main`` in
+   image mode on 4 frames and in video mode on 6 MJPG frames of
+   1920x1080 (cropped to 375x1242).  K1 launches once per eval batch and
+   demo frame, K2 never.  Prints each eval mode's time per image and
+   mAP, and the demo's per-frame times; then, with launches no longer
+   counted, K1 timed at the eval and demo shapes and the f32 B=1 eval
+   forward's host time against its device time.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -140,6 +157,23 @@ LOOP_EVERY, LOOP_KEEP = 10, 2  # --checkpoint_step / --summary_step, kept
 LOOP_STEPS, LOOP_RESUME_TO, LOOP_DATASET_STEPS = 30, 40, 10
 LOOP_TIMED_FROM = 2  # steps of each run left out of its ms/step
 LOOP_DECODE_SAMPLE = 4  # frames data/png.py decodes beside read_frame
+# phase 8: the eval split (5-8 boxes a frame, so that each class has the
+# 41 GT the KITTI protocol needs for an AP of 1), the checkpoint's step,
+# and the eval CLI's modes at 1248x384
+EVAL_IMAGES, EVAL_BOXES, EVAL_STEP, FULL_AP_GT = 24, (5, 9), 1, 41
+EVAL_MODES = (("f32 B=1 host postprocess", ["--eval_batch_size", "1"]),
+              ("f32 B=8 device postprocess", ["--eval_batch_size", "8"]),
+              ("bf16 B=8 --device_dataset",
+               ["--eval_batch_size", "8", "--compute_dtype", "bfloat16",
+                "--device_dataset"]))
+# the two f32 modes' detections, as tests/test_eval_dp.py holds the JAX
+# package's eval modes to each other; the scorers as
+# tests/test_torch_kitti_eval.py holds them
+EVAL_BOX_RTOL, EVAL_BOX_ATOL = 1e-4, 1e-3
+SCORER_AP_RTOL, SCORER_ROW_ATOL = 1e-5, 1e-6
+# the demo: fixture frames in image mode; in video mode MJPG frames of
+# 1920x1080 whose [500:-205, 239:-439] crop is a 375x1242 fixture frame
+DEMO_IMAGES, DEMO_VIDEO_FRAMES, VIDEO_FRAME = 4, 6, (1080, 1920)
 
 
 def log(*a):
@@ -182,13 +216,15 @@ def bound(nbytes, flops, peak):
                                        else "operations")
 
 
-def k1_bound(b, h, w):
-    """bf16 K1: read the images once, write the pooled output once; 27
-    multiply-adds for each of the 64 channels of each conv output."""
+def k1_bound(b, h, w, f32=False):
+    """K1 (bf16 on the tensor cores, or f32 on the CUDA cores): read the
+    images once, write the pooled output once; 27 multiply-adds for each
+    of the 64 channels of each conv output."""
     from squeezedet_torch.ops import fused_frontend as ff
     hc, wc, hp, wp = ff.geometry(h, w)[:4]
-    return bound(2 * b * h * w * 3 + 2 * b * hp * wp * 64,
-                 2 * 27 * 64 * b * hc * wc, BF16_FLOPS)
+    size, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
+    return bound(size * (b * h * w * 3 + b * hp * wp * 64),
+                 2 * 27 * 64 * b * hc * wc, peak)
 
 
 def k2_bound(b, kh, c, o, h, w):
@@ -1045,6 +1081,365 @@ def phase_train_loop(card):
             "writer": writer_on}
 
 
+def _logged(fn, *args):
+    """Run ``fn(*args)`` with its standard output captured; log it and
+    return (result, output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args)
+    finally:
+        log(buf.getvalue().rstrip())
+    return result, buf.getvalue()
+
+
+def _gt_detections(db, jitter=0.0, seed=0):
+    """The split's GT boxes as all_boxes rows: score 1 and exact corners;
+    or, with seeded noise of ``jitter`` times each box's size, seeded
+    scores, a sixth of the boxes missed and one background box an image,
+    so that the precision/recall curve is not flat."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    boxes = [[[] for _ in db.image_idx] for _ in range(db.num_classes)]
+    for i, idx in enumerate(db.image_idx):
+        for cx, cy, w, h, c in db._rois[idx]:
+            if jitter and rs.rand() < 1 / 6:
+                continue
+            j = rs.randn(4) * jitter * np.array([w, h, w, h])
+            score = float(rs.uniform(0.05, 0.99)) if jitter else 1.0
+            boxes[int(c)][i].append([cx - w / 2 + j[0], cy - h / 2 + j[1],
+                                     cx + w / 2 - 1 + j[2],
+                                     cy + h / 2 - 1 + j[3], score])
+        if jitter:
+            x, y = rs.uniform(0, 900), rs.uniform(0, 200)
+            boxes[rs.randint(db.num_classes)][i].append(
+                [x, y, x + 150.0, y + 120.0, float(rs.uniform(0.05, 0.99))])
+    return boxes
+
+
+def compare_scorers(root, data_dir, work, name):
+    """Score the det files of ``data_dir`` with the native evaluator and
+    with data/kitti_ap.py; their stats files must agree."""
+    import shutil
+
+    import numpy as np
+
+    from squeezedet_torch import native
+    from squeezedet_torch.data import kitti_ap
+    binary = native.build_kitti_eval()
+    image_set = os.path.join(root, "ImageSets", "val.txt")
+    res = {}
+    for scorer in ("native", "python"):
+        res[scorer] = os.path.join(work, "{}_{}".format(name, scorer))
+        shutil.copytree(data_dir, os.path.join(res[scorer], "data"))
+    subprocess.run([binary, os.path.join(root, "training"), image_set,
+                    res["native"], str(EVAL_IMAGES)], check=True,
+                   capture_output=True, timeout=120)
+    kitti_ap.evaluate(res["python"], image_set,
+                      os.path.join(root, "training", "label_2"), EVAL_IMAGES)
+    aps = {}
+    for cls in kitti_ap.CLASS_NAMES:
+        path = {s: os.path.join(r, "stats_{}_ap.txt".format(cls))
+                for s, r in res.items()}
+        if os.path.exists(path["native"]) != os.path.exists(path["python"]):
+            raise AssertionError("{}: only one scorer wrote {}".format(
+                name, path["native"]))
+        if not os.path.exists(path["native"]):
+            continue
+        got = [[float(line.split("=")[1]) for line in open(p)]
+               for p in (path["native"], path["python"])]
+        np.testing.assert_allclose(got[0], got[1], rtol=SCORER_AP_RTOL,
+                                   err_msg="{} {}".format(name, cls))
+        for rel in ("stats_{}_detection.txt".format(cls),
+                    os.path.join("plot", "{}_detection.txt".format(cls))):
+            np.testing.assert_allclose(
+                np.loadtxt(os.path.join(res["native"], rel)),
+                np.loadtxt(os.path.join(res["python"], rel)),
+                atol=SCORER_ROW_ATOL, err_msg="{} {}".format(name, rel))
+        aps[cls] = got[0]
+    if not aps:
+        raise AssertionError("{}: no stats file to compare".format(name))
+    log("[eval] {}: the native and Python scorers agree: APs {}".format(
+        name, json.dumps(aps)))
+
+
+def _write_video(path, frames):
+    """An MJPG video of 1920x1080 frames, each holding a fixture frame
+    where the demo's crop [500:-205, 239:-439] takes it."""
+    import cv2
+    import numpy as np
+    h, w = VIDEO_FRAME
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (w, h))
+    if not writer.isOpened():
+        raise AssertionError("cv2 cannot write an MJPG video")
+    rs = np.random.RandomState(0)
+    for frame in frames:
+        big = rs.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        big[500:h - 205, 239:w - 439] = frame
+        writer.write(big)
+    writer.release()
+
+
+def phase_eval_demo(card):
+    """Phase 8: the eval CLI and the demo on the card from one port
+    checkpoint.  Returns the forwards it ran on the card."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import demo
+    from squeezedet_torch import eval as eval_cli
+    from squeezedet_torch.checkpoint.manager import CheckpointManager
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data.imdb import read_frame
+    from squeezedet_torch.data.kitti import NATIVE, Kitti
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    from squeezedet_torch.models import Detector, get_model
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # f32 convs in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = os.path.join(HERE, ".chipscratch", "eval_demo")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    indices = write_kitti_fixture(root, EVAL_IMAGES, LOOP_FRAME, seed=1,
+                                  image_set="val", boxes=EVAL_BOXES)
+    cfg = kitti_squeezedet_config()
+    # seeded weights with the head rescaled as in the serving phase, made
+    # on the CPU (no launch), saved as a port checkpoint
+    cpu = get_model("squeezeDet", cfg, device="cpu")
+    with torch.no_grad():
+        u8 = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (1, cfg.image_height, cfg.image_width, 3), np.uint8))
+        spread = cpu.predict_raw(u8).pred_box_delta.std().item()
+        cpu.backbone.conv12.weight.mul_(HEAD_SPREAD / spread)
+    ckpt_dir = os.path.join(work, "train")
+    CheckpointManager(ckpt_dir).save(EVAL_STEP,
+                                     {"params": cpu.backbone.state_dict()})
+    log("[eval] fixture: {} PNGs of {}x{} and a checkpoint in {:.1f} "
+        "s".format(EVAL_IMAGES, LOOP_FRAME[1], LOOP_FRAME[0],
+                   time.perf_counter() - t_phase))
+
+    # (a) the scorer: the ground truth as detections scores AP 1 with the
+    # native evaluator; the two scorers agree on jittered detections
+    db = Kitti("val", root, cfg)
+    gt = _gt_detections(db)
+    n_gt = [sum(len(rows) for rows in per_class) for per_class in gt]
+    if min(n_gt) < FULL_AP_GT:
+        raise AssertionError("GT per class {}: fewer than {}".format(
+            n_gt, FULL_AP_GT))
+    t0 = time.perf_counter()
+    (aps, _), _ = _logged(db.evaluate_detections,
+                          os.path.join(work, "gt_eval"), 0, gt)
+    if db.scorer_used != NATIVE or aps != [1.0] * 9:
+        raise AssertionError("GT as detections: scorer {}, APs {}".format(
+            db.scorer_used, aps))
+    log("[eval] GT as detections ({} per class): the {} scorer gives AP 1.0 "
+        "at all 9 class x difficulty points in {:.3f} s, its build "
+        "included".format(n_gt, db.scorer_used, time.perf_counter() - t0))
+    jittered = os.path.join(work, "jittered", "data")
+    db.write_detection_files(jittered, _gt_detections(db, 0.08, seed=1))
+    compare_scorers(root, jittered, work, "jittered GT")
+
+    # (b) the eval CLI on the card, once per mode; each run's detections
+    # and APs are recorded, and the f32 B=1 run's first two raw forwards
+    real_detect_all, real_eval = eval_cli.detect_all, eval_cli.eval_checkpoint
+    real_forward = Detector.forward
+    runs, raw = {}, []
+
+    def recording_detect_all(*a, **k):
+        runs[mode]["detect"] = real_detect_all(*a, **k)
+        return runs[mode]["detect"]
+
+    def recording_eval(*a, **k):
+        runs[mode]["aps"] = real_eval(*a, **k)
+        return runs[mode]["aps"]
+
+    def recording_forward(self, images, **k):
+        out = real_forward(self, images, **k)
+        if mode == EVAL_MODES[0][0] and len(raw) < 2:
+            raw.append((images.detach().cpu(), out.detach().cpu()))
+        return out
+
+    eval_cli.detect_all, eval_cli.eval_checkpoint = (recording_detect_all,
+                                                     recording_eval)
+    Detector.forward = recording_forward
+    try:
+        for mode, extra in EVAL_MODES:
+            runs[mode] = {"dir": os.path.join(work, "eval_{}".format(
+                len(runs)))}
+            t0 = time.perf_counter()
+            _logged(eval_cli.main, [
+                "--device", "cuda", "--data_path", root, "--image_set",
+                "val", "--checkpoint_path", ckpt_dir, "--eval_dir",
+                runs[mode]["dir"], "--run_once"] + extra)
+            runs[mode]["s"] = time.perf_counter() - t0
+    finally:
+        eval_cli.detect_all, eval_cli.eval_checkpoint = (real_detect_all,
+                                                         real_eval)
+        Detector.forward = real_forward
+
+    forwards = 0
+    for mode, _ in EVAL_MODES:
+        all_boxes, n_det, timers = runs[mode]["detect"]
+        aps, names, mAP = runs[mode]["aps"]
+        forwards += timers["im_detect"].calls
+        data = os.path.join(runs[mode]["dir"], "detection_files_{}".format(
+            EVAL_STEP), "data")
+        if sorted(os.listdir(data)) != [i + ".txt" for i in indices] or \
+                len(aps) != 9 or not np.isfinite(aps).all():
+            raise AssertionError("{}: det files {}, APs {}".format(
+                mode, len(os.listdir(data)), aps))
+        per = {k: t.total_time * 1e3 / EVAL_IMAGES for k, t in timers.items()}
+        log("[eval] smoke reading, not a benchmark: {} at {}x{}: im_read "
+            "{:.3f}, im_detect {:.3f}, misc {:.3f} ms/image over {} images "
+            "in {} batches; {:.2f} detections/image; mAP {:.6f}; {:.1f} s "
+            "for the CLI run; on {}".format(
+                mode, cfg.image_width, cfg.image_height, per["im_read"],
+                per["im_detect"], per["misc"], EVAL_IMAGES,
+                timers["im_detect"].calls, n_det / EVAL_IMAGES, mAP,
+                runs[mode]["s"], card))
+
+    host, dev = (runs[m]["detect"][0] for m, _ in EVAL_MODES[:2])
+    for c in range(db.num_classes):
+        for i in range(EVAL_IMAGES):
+            a = np.asarray(sorted(map(tuple, host[c][i])))
+            b = np.asarray(sorted(map(tuple, dev[c][i])))
+            if a.shape != b.shape:
+                raise AssertionError("class {} image {}: {} detections on "
+                                     "the host path, {} on the device "
+                                     "path".format(c, i, len(a), len(b)))
+            if a.size:
+                np.testing.assert_allclose(b, a, rtol=EVAL_BOX_RTOL,
+                                           atol=EVAL_BOX_ATOL)
+    if runs[EVAL_MODES[0][0]]["aps"][0] != runs[EVAL_MODES[1][0]]["aps"][0]:
+        raise AssertionError("the f32 modes' APs differ")
+    log("[eval] the f32 host and device postprocess runs give the same "
+        "detections image by image and the same APs")
+    if len(raw) != 2:
+        raise AssertionError("{} raw forwards recorded".format(len(raw)))
+    with torch.inference_mode():
+        for images, preds in raw:
+            torch.testing.assert_close(preds, cpu(images), rtol=PRED_RTOL,
+                                       atol=PRED_ATOL)
+    log("[eval] the first two frames' raw predictions of the f32 B=1 run "
+        "match the CPU's")
+    compare_scorers(root, os.path.join(
+        runs[EVAL_MODES[0][0]]["dir"], "detection_files_{}".format(
+            EVAL_STEP), "data"), work, "model detections")
+
+    # (c) the demo, in image and video mode
+    demo_argv = ["--device", "cuda", "--checkpoint", ckpt_dir]
+    out_img = os.path.join(work, "demo_images")
+    _logged(demo.main, demo_argv + [
+        "--input_path", os.path.join(root, "training", "image_2",
+                                     "00000[0-{}].png".format(
+                                         DEMO_IMAGES - 1)),
+        "--out_dir", out_img])
+    if len(os.listdir(out_img)) != DEMO_IMAGES:
+        raise AssertionError("image demo wrote {}".format(
+            os.listdir(out_img)))
+    video = os.path.join(work, "drive.avi")
+    _write_video(video, [read_frame(os.path.join(
+        root, "training", "image_2", idx + ".png"))
+        for idx in indices[:DEMO_VIDEO_FRAMES]])
+    out_vid = os.path.join(work, "demo_video")
+    _, out = _logged(demo.main, demo_argv + [
+        "--mode", "video", "--input_path", video, "--out_dir", out_vid])
+    frames = sorted(os.listdir(out_vid))
+    times = np.asarray(re.findall(
+        r"Total time: (\S+), detection time: (\S+), filter time: (\S+)",
+        out), np.float64) * 1e3
+    if len(frames) != DEMO_VIDEO_FRAMES or len(times) != DEMO_VIDEO_FRAMES:
+        raise AssertionError("video demo: {} frames written, {} timed".format(
+            len(frames), len(times)))
+    shape = read_frame(os.path.join(out_vid, frames[0])).shape
+    if shape != LOOP_FRAME + (3,):
+        raise AssertionError("video demo frame {}".format(shape))
+    forwards += DEMO_IMAGES + DEMO_VIDEO_FRAMES
+    log("[demo] smoke reading, not a benchmark: video mode, {} cropped "
+        "{}x{} frames, f32: per frame total {}, detect {}, filter {} ms "
+        "(median {:.3f} / {:.3f} / {:.3f} over frames 2..); on {}".format(
+            DEMO_VIDEO_FRAMES, shape[1], shape[0],
+            *(json.dumps([round(float(t), 3) for t in col])
+              for col in times.T), *np.median(times[1:], axis=0), card))
+    shutil.rmtree(work, ignore_errors=True)
+    log("[eval] phase 8 took {:.1f} s".format(time.perf_counter() - t_phase))
+    return forwards, cpu.backbone.state_dict()
+
+
+def probe_eval_shapes(card, weights):
+    """After phase 8, outside its counted window: K1 at the shapes of the
+    eval and demo forwards beside its plain version and bound, and the
+    f32 B=1 eval forward's host time (forward, copy of the outputs to the
+    host) against its kernels' device time (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    with torch.inference_mode():
+        for b, h, w, dtype, what in (
+                (1, 384, 1248, torch.float32, "eval f32 B=1"),
+                (8, 384, 1248, torch.bfloat16, "eval bf16 B=8"),
+                (1, 375, 1242, torch.float32, "video demo f32")):
+            x, k, bias = k1_inputs(b, h, w, dtype, 5)
+            fns = {"kernel": lambda: ff.conv1_pool1(x, k, bias),
+                   "plain": lambda: ff.conv1_pool1_reference(x, k, bias)}
+            runs = {"kernel": [], "plain": []}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                runs[name].append(cuda_ms(fns[name], iters=20))
+            ms = {n: sum(v) / len(v) for n, v in runs.items()}
+            bound_ms, bound_by = k1_bound(b, h, w, dtype == torch.float32)
+            log("[eval] K1 at the {} shape, {}x{}x{} {}: kernel {:.4f} ms, "
+                "plain {:.4f} ms, bound {:.4f} ms ({}); on {}".format(
+                    what, b, h, w, str(dtype).replace("torch.", ""),
+                    ms["kernel"], ms["plain"], bound_ms, bound_by, card))
+
+    cfg = kitti_squeezedet_config()
+    det = get_model("squeezeDet", cfg, device="cuda")
+    det.backbone.load_state_dict(weights)
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        1, cfg.image_height, cfg.image_width, 3).astype(np.float32) * 40)
+    x = x.cuda()
+
+    def forward():  # eval's im_detect span at B=1 on the host path
+        interp = det.predict(x)
+        return [o.cpu() for o in (interp.det_boxes, interp.det_probs,
+                                  interp.det_class)]
+
+    iters = 20
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        forward()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            forward()
+        torch.cuda.synchronize()
+    device_ms = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e3 / iters
+    log("[eval] f32 B=1 eval forward and copy to the host at 1248x384: "
+        "{:.3f} ms on the host clock, {} of device time in kernels and "
+        "copies (torch.profiler): device busy {}; on {}".format(
+            wall, "{:.3f} ms".format(device_ms) if device_ms else
+            "not measured (no device events)",
+            "{:.1f} %".format(100 * device_ms / wall) if device_ms else
+            "not measured", card))
+
+
 def main():
     import_port()
     import torch
@@ -1099,12 +1494,25 @@ def main():
     log("[loop] path: {} steps, K1 launches {}, K2 launches {}".format(
         loop_run["steps"], loop["k1"], loop["k2"]))
 
+    # eval and demo from a checkpoint: counts from 0 just before them
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    forwards, eval_weights = phase_eval_demo(card)
+    evald = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    if evald["k1"] != forwards or evald["k2"] != 0:
+        raise AssertionError("eval and demo: K1 launches {k1} for {0} "
+                             "forwards, K2 launches {k2}".format(forwards,
+                                                                 **evald))
+    log("[eval] path: {} forwards (eval batches and demo frames), K1 "
+        "launches {}, K2 launches {}".format(forwards, evald["k1"],
+                                             evald["k2"]))
+    probe_eval_shapes(card, eval_weights)
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
-        "launches": serve["k1"] + train["k1"] + loop["k1"],
+        "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **k1,
     }, {

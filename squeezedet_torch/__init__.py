@@ -11,8 +11,11 @@ interpretation, top-K + per-class NMS).  Training: the single-device
 train step (``trainer.py``: on-device ingest and anchor matching, the
 forward with dropout, the loss, the backward with the weight gradients
 of eligible convs in a second hand-written kernel,
-``ops/filter_grad.py``, and the optimizer in ``optim.py``).  Every
-constructor and entry point takes an explicit ``device``.
+``ops/filter_grad.py``, and the optimizer in ``optim.py``).  The train
+CLI (``train.py``), the eval daemon with KITTI and VOC scoring
+(``eval.py``, ``data/kitti.py``, ``native/``), the demo (``demo.py``) and
+the HTTP server (``serve.py``) drive them.  Every constructor and entry
+point takes an explicit ``device``.
 """
 
 from squeezedet_torch.config import (  # noqa: F401

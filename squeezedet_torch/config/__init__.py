@@ -20,6 +20,10 @@ from squeezedet_torch.config.kitti import (  # noqa: F401
     scale_recipe_to_batch,
     tiny_test_config,
 )
+from squeezedet_torch.config.voc import (  # noqa: F401
+    config_for_dataset,
+    voc_config_for_net,
+)
 
 _CONFIG_FACTORIES = {"squeezeDet": kitti_squeezedet_config}
 
@@ -40,16 +44,3 @@ def config_for_net(net: str) -> ModelConfig:
         raise ValueError(
             "Selected neural net architecture not supported: {}".format(net))
     return _CONFIG_FACTORIES[net]()
-
-
-def config_for_dataset(dataset: str, net: str, image_width: int = 0,
-                       image_height: int = 0) -> ModelConfig:
-    """Config dispatch of the train CLI: ``dataset`` is ``KITTI``, or
-    ``VOC``/``PASCAL_VOC``, which is not ported yet."""
-    if dataset == "KITTI":
-        return config_for_net_at(net, image_width, image_height)
-    if dataset in ("VOC", "PASCAL_VOC"):
-        raise NotImplementedError(
-            "Pascal VOC arrives with eval and the demo (ROADMAP Queue 1 "
-            "item 9)")
-    raise ValueError("unknown dataset {!r}: KITTI or VOC".format(dataset))

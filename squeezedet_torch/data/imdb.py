@@ -12,22 +12,27 @@ order, so the two packages give the same batches for the same seed:
 * :meth:`Imdb.sampler_state` / :meth:`Imdb.set_sampler_state` snapshot
   and restore the permutation, the cursor and the MT19937 state.
 
-Images are PNG files (KITTI's format).  :func:`read_frame` decodes them
-with OpenCV where it imports, as the JAX package does, and with the
-port's own codec (``data/png.py``) where it does not; headers are always
-read by ``data/png.py``.  Only the host-resize readers
-(:meth:`Imdb.read_batch`, :meth:`Imdb.read_batch_raw_targets`) need
-cv2, for ``cv2.resize``: the canvas readers of ``--device_augment`` and
-``--device_dataset`` train without cv2 and PIL.
+KITTI's images are PNG files.  :func:`read_frame` decodes them with
+OpenCV where it imports, as the JAX package does, and with the port's
+own codec (``data/png.py``) where it does not; PNG headers are read by
+``data/png.py`` (other formats, such as VOC's JPEGs, by PIL).  Only the
+host-resize readers (:meth:`Imdb.read_batch`,
+:meth:`Imdb.read_batch_raw_targets`, and eval's
+:meth:`Imdb.read_image_batch`) need cv2, for ``cv2.resize``: the canvas
+readers of ``--device_augment`` and ``--device_dataset`` (eval's
+:meth:`Imdb.read_image_rows` among them) run without cv2 and PIL.
 
 Not ported here, each raising ``NotImplementedError``: host and data
-sharding over several devices (ROADMAP Queue 1 item 13), the eval
-readers (item 9) and the C++ native loader (item 17).
+sharding over several devices, with eval's shard-major batch plan
+(ROADMAP Queue 1 item 13), and the C++ native loader (item 17).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import random
+import shutil
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -91,12 +96,6 @@ def _multi_device(what: str):
         "Queue 1 item 13".format(what))
 
 
-def _eval_reader(what: str):
-    return NotImplementedError(
-        "{} is an eval reader: it arrives with eval and the demo (ROADMAP "
-        "Queue 1 item 9)".format(what))
-
-
 class Imdb:
     """Image database base class."""
 
@@ -156,10 +155,17 @@ class Imdb:
         return im
 
     def _image_size(self, idx: str) -> Tuple[int, int]:
-        """(width, height) from the image header without a full decode."""
+        """(width, height) from the image header without a full decode:
+        a PNG's by ``data/png.py``, any other format's by PIL."""
         size = self._size_cache.get(idx)
         if size is None:
-            size = png.read_png_size(self._image_path_at(idx))
+            path = self._image_path_at(idx)
+            if path.lower().endswith(".png"):
+                size = png.read_png_size(path)
+            else:
+                from PIL import Image
+                with Image.open(path) as im:
+                    size = im.size
             self._size_cache[idx] = size
         return size
 
@@ -248,6 +254,12 @@ class Imdb:
                 ("MT19937", np.asarray(state["rng_key"], np.uint32),
                  int(state["rng_pos"]), int(state["rng_has_gauss"]),
                  float(state["rng_cached_gaussian"])))
+
+    def reset_cursor(self) -> None:
+        """Rewind the sequential read cursor to the start of the image
+        list (eval's full-split scans), under the sampler lock."""
+        with self._lock:
+            self._cur_idx = 0
 
     def _next_batch_idx(self, shuffle: bool) -> List[str]:
         with self._lock:
@@ -396,13 +408,102 @@ class Imdb:
 
     # -- reading ------------------------------------------------------------
     def read_image_batch(self, shuffle: bool = True):
-        raise _eval_reader("read_image_batch")
+        """Images only, resized on the host (eval's reader).
+
+        Returns (images, scales): a list of [H, W, 3] f32 mean-subtracted
+        arrays at model resolution and the per-image (x_scale, y_scale).
+        Needs cv2 for ``cv2.resize``; :meth:`read_image_rows` (eval's
+        ``--device_dataset``) does not.
+        """
+        cv2 = _opencv()
+        if cv2 is None:
+            raise ImportError(
+                "read_image_batch resizes with OpenCV (cv2), which does not "
+                "import here; evaluate with --device_dataset, whose reader "
+                "(read_image_rows) resizes on the device and needs no cv2")
+        mc = self.mc
+        batch_idx = self._next_batch_idx(shuffle)
+        images, scales = [], []
+        for i in batch_idx:
+            im = self._imread(i).astype(np.float32)
+            im -= mc.bgr_means_array()
+            orig_h, orig_w, _ = [float(v) for v in im.shape]
+            im = cv2.resize(im, (mc.image_width, mc.image_height))
+            images.append(im)
+            scales.append((mc.image_width / orig_w, mc.image_height / orig_h))
+        return images, scales
 
     def read_image_rows(self, shuffle: bool = False):
-        raise _eval_reader("read_image_rows")
+        """:meth:`read_image_batch` minus the pixels, for device-resident
+        eval (``--device_dataset``): the split's canvases stay on the
+        device (:meth:`load_canvas_dataset`) and each poll sends only row
+        positions and extents.
+
+        Returns (pos [B] i32 rows into the canvas stack, aug [B, 5] f32
+        rows (0, 0, 0, orig_w, orig_h) for the on-device resize and
+        normalization, scales list of per-image (x_scale, y_scale)).
+        """
+        mc = self.mc
+        batch_idx = self._next_batch_idx(shuffle)
+        b = len(batch_idx)
+        pos = np.zeros((b,), np.int32)
+        aug = np.zeros((b, 5), np.float32)
+        scales = []
+        for bi, idx in enumerate(batch_idx):
+            pos[bi] = self.dataset_position(idx)
+            w, h = self._image_size(idx)
+            aug[bi] = (0.0, 0.0, 0.0, float(w), float(h))
+            scales.append((mc.image_width / w, mc.image_height / h))
+        return pos, aug, scales
 
     def eval_shard_batches(self, batch_size: int):
-        raise _eval_reader("eval_shard_batches")
+        raise _multi_device("eval_shard_batches")
+
+    def evaluate_detections(self, eval_dir, global_step, all_boxes):
+        raise NotImplementedError
+
+    def visualize_detections(self, image_dir, image_format, det_error_file,
+                             output_image_dir, num_det_per_type=10):
+        """The error-type gallery: up to ``num_det_per_type`` images of
+        each error type in ``det_error_file``, drawn with PIL (imported
+        here) into ``output_image_dir/<type>/``.  Returns the drawn
+        images, BGR."""
+        from PIL import Image, ImageDraw
+
+        with open(det_error_file) as f:
+            lines = f.readlines()
+        random.shuffle(lines)
+
+        dets_per_type: Dict[str, list] = {}
+        for line in lines:
+            obj = line.strip().split(' ')
+            dets_per_type.setdefault(obj[1], []).append({
+                'im_idx': obj[0],
+                'bbox': [float(obj[2]), float(obj[3]),
+                         float(obj[4]), float(obj[5])],
+                'class': obj[6],
+                'score': float(obj[7]),
+            })
+
+        out_ims = []
+        color = (200, 200, 0)
+        for error_type, dets in dets_per_type.items():
+            det_im_dir = os.path.join(output_image_dir, error_type)
+            if os.path.exists(det_im_dir):
+                shutil.rmtree(det_im_dir)
+            os.makedirs(det_im_dir)
+            for i in range(min(num_det_per_type, len(dets))):
+                det = dets[i]
+                im = Image.open(
+                    os.path.join(image_dir, det['im_idx'] + image_format))
+                draw = ImageDraw.Draw(im)
+                draw.rectangle(det['bbox'], outline=color)
+                draw.text((det['bbox'][0], det['bbox'][1]),
+                          '{:s} ({:.2f})'.format(det['class'], det['score']),
+                          fill=color)
+                im.save(os.path.join(det_im_dir, str(i) + image_format))
+                out_ims.append(np.array(im)[:, :, ::-1])  # RGB -> BGR
+        return out_ims
 
     def read_batch(self, shuffle: bool = True,
                    plan: Optional[BatchPlan] = None):

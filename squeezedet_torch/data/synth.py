@@ -24,10 +24,13 @@ _BGR = {"Car": (200, 60, 40), "Pedestrian": (40, 200, 60),
 
 def write_kitti_fixture(root: str, n: int, frame: Tuple[int, int],
                         seed: int = 0,
-                        filter_type: Optional[int] = None) -> List[str]:
+                        filter_type: Optional[int] = None,
+                        image_set: str = "train",
+                        boxes: Tuple[int, int] = (1, 4)) -> List[str]:
     """Write ``n`` frames of [H, W] = ``frame`` and their labels under
     ``root`` (``training/image_2``, ``training/label_2``,
-    ``ImageSets/train.txt``); returns the image indices."""
+    ``ImageSets/<image_set>.txt``), with ``boxes[0]`` to ``boxes[1] - 1``
+    boxes a frame; returns the image indices."""
     rng = np.random.RandomState(seed)
     height, width = frame
     s = max(1, height // 96)
@@ -41,7 +44,7 @@ def write_kitti_fixture(root: str, n: int, frame: Tuple[int, int],
         indices.append(idx)
         im = rng.randint(0, 60, (height, width, 3)).astype(np.uint8)
         lines = []
-        for _ in range(rng.randint(1, 4)):
+        for _ in range(rng.randint(*boxes)):
             cls = CLASSES[rng.randint(len(CLASSES))]
             hmax = min(80 * s, height - 4)
             if cls == "Car":
@@ -64,6 +67,7 @@ def write_kitti_fixture(root: str, n: int, frame: Tuple[int, int],
                       filter_type=filter_type)
         with open(os.path.join(lbl_dir, idx + ".txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
-    with open(os.path.join(root, "ImageSets", "train.txt"), "w") as f:
+    with open(os.path.join(root, "ImageSets", image_set + ".txt"),
+              "w") as f:
         f.write("\n".join(indices) + "\n")
     return indices

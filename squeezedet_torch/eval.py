@@ -1,0 +1,365 @@
+"""``squeezedet-torch-eval``: the checkpoint-polling eval daemon
+(counterpart of ``squeezedet_tpu/eval.py``, same flags plus
+``--device``).
+
+    python -m squeezedet_torch.eval --data_path <kitti-root> \\
+        --image_set val --checkpoint_path <train_dir> --eval_dir <dir> \\
+        [--run_once] [--eval_batch_size 8] [--device cpu]
+
+:func:`eval_checkpoint` detects every image of the split on ``--device``
+(``cuda`` by default, never falling back to the CPU), rescales the boxes
+to each image's resolution, writes KITTI det files, scores them and
+writes AP/mAP/timing summaries.  :func:`main` polls the checkpoint
+directory and scores each new step once.  Every forward runs the K1
+kernel (``ops/fused_frontend.py``) on the card.
+
+One device, so no mesh and no spatial partitioning: the JAX package
+takes those only with several devices (ROADMAP Queue 1 item 13).  Flags
+whose port is still to come raise, naming the ROADMAP item that brings
+each.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+# the split's uint8 canvas stack may take this much device memory
+DEVICE_DATASET_GIB = 12.0
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Evaluate SqueezeDet (PyTorch)")
+    p.add_argument('--dataset', default='KITTI', help='KITTI or VOC.')
+    p.add_argument('--data_path', default='', help='Root directory of data')
+    p.add_argument('--image_set', default='test')
+    p.add_argument('--year', default='2007', help='VOC challenge year.')
+    p.add_argument('--eval_dir', default='/tmp/squeezedet_torch/logs/eval')
+    p.add_argument('--checkpoint_path',
+                   default='/tmp/squeezedet_torch/logs/train',
+                   help='Training checkpoint directory, polled for '
+                        'model.ckpt-<step> directories.')
+    p.add_argument('--eval_interval_secs', type=int, default=60)
+    p.add_argument('--run_once', action='store_true')
+    p.add_argument('--net', default='squeezeDet')
+    p.add_argument('--device', default='cuda',
+                   help='torch device to evaluate on; never falls back.')
+    p.add_argument('--eval_batch_size', type=int, default=1)
+    p.add_argument('--compute_dtype', default='')
+    p.add_argument('--skip_analysis', action='store_true',
+                   help='Skip the detection error-type analysis pass.')
+    p.add_argument('--image_width', type=int, default=0,
+                   help='Override input width (0 = model default).')
+    p.add_argument('--image_height', type=int, default=0,
+                   help='Override input height (0 = model default).')
+    p.add_argument('--native_loader', action='store_true',
+                   help='The C++ batch loader (not ported yet).')
+    p.add_argument('--image_cache_mb', type=int, default=0,
+                   help='Decoded-image LRU budget in MiB (0 = off); '
+                        'repeated eval polls skip the image decode.')
+    p.add_argument('--compilation_cache', default='',
+                   help='XLA compilation cache (stays out of the port).')
+    p.add_argument('--plot_pr', action='store_true',
+                   help='Render recall/precision curve images from the '
+                        'scorer plot data (matplotlib).')
+    p.add_argument('--quantize', default='', choices=['', 'int8'],
+                   help='int8 eval (not ported yet).')
+    p.add_argument('--calib_batches', type=int, default=None,
+                   help='Calibration batches for --quantize (not ported '
+                        'yet).')
+    p.add_argument('--calib_percentile', type=float, default=None,
+                   help='Calibration percentile for --quantize (not '
+                        'ported yet).')
+    p.add_argument('--device_postprocess', action='store_true',
+                   help='Run top-K + per-class NMS on the device instead '
+                        'of the host-numpy filter_prediction (the same '
+                        'detections). The default for batched eval '
+                        '(--eval_batch_size > 1); batch 1 keeps the '
+                        'reference host path unless this flag forces it.')
+    p.add_argument('--host_postprocess', action='store_true',
+                   help='Force the reference host-numpy filter_prediction '
+                        'even for batched eval.')
+    p.add_argument('--device_dataset', action='store_true',
+                   help='Keep the eval split on the device as one uint8 '
+                        'canvas stack (uploaded once, reused across '
+                        'checkpoint polls) and resize and normalize there: '
+                        'each poll sends only row positions and extents.')
+    return p
+
+
+def _reject_unported(args) -> None:
+    """Flags of the JAX CLI whose port is still to come, or stays out."""
+    if args.quantize or args.calib_batches is not None or \
+            args.calib_percentile is not None:
+        raise SystemExit('--quantize and --calib_* are not ported yet: int8 '
+                         'arrives with ROADMAP Queue 1 item 12')
+    if args.native_loader:
+        raise SystemExit('--native_loader is not ported yet: the C++ '
+                         'loader is ROADMAP Queue 1 item 17')
+    if args.compilation_cache:
+        raise SystemExit('--compilation_cache is an XLA mechanism that '
+                         'stays out of the port (ROADMAP Queue 1 item 14)')
+
+
+def resolve_device_postprocess(args) -> bool:
+    """Batched eval postprocesses on the device by default; batch 1 keeps
+    the reference host path.  ``--device_postprocess`` and
+    ``--host_postprocess`` force either (host wins when both are given)."""
+    if args.host_postprocess:
+        return False
+    return args.device_postprocess or args.eval_batch_size > 1
+
+
+def _eval_stack(imdb, device):
+    """The split's uint8 canvas stack on ``device``: uploaded once and
+    cached on the imdb, keyed by the device, so a poll on the same device
+    reuses it and a changed placement uploads again."""
+    import torch
+    key = str(device)
+    cached = getattr(imdb, '_eval_stack_dev', None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    h0, w0 = imdb.canvas_size()
+    gib = len(imdb.image_idx) * h0 * w0 * 3 / 2**30
+    if gib > DEVICE_DATASET_GIB:
+        raise ValueError(
+            '--device_dataset eval: the {}-image split is {:.1f} GiB per '
+            'device as a uint8 canvas stack (more than {} GiB next to the '
+            'params on one device) — evaluate without --device_dataset, or '
+            'split the image set'.format(len(imdb.image_idx), gib,
+                                        DEVICE_DATASET_GIB))
+    stack = torch.from_numpy(imdb.load_canvas_dataset()).to(device)
+    print('Device-resident eval split: {} images, {:.2f} GiB, uploaded '
+          'once'.format(len(imdb.image_idx), gib))
+    imdb._eval_stack_dev = (key, stack)
+    return stack
+
+
+def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
+               device_dataset: bool = False):
+    """Run detection over the whole split with ``det``'s weights, on its
+    device.
+
+    The default is the reference protocol: the host reader resizes, the
+    forward returns the raw interpretation, and the host's numpy
+    ``filter_prediction`` runs after the boxes are rescaled to each
+    image's resolution.  ``device_postprocess`` runs top-K + per-class
+    NMS on the device at model resolution and rescales the K survivors:
+    IoU, ranking and thresholds are scale-invariant, so the detections are
+    the same.  ``device_dataset`` keeps the split on the device as one
+    uint8 canvas stack (:func:`_eval_stack`) and gathers, resizes and
+    normalizes each batch there (``augment_resize_normalize`` with zero
+    drift and no flip); each batch sends only row positions and extents.
+
+    The sequential reader wraps past the end of the split; the wrapped
+    tail repeats images already scored and is dropped.  The ``im_detect``
+    timer covers the copy of the outputs to the host, which waits for the
+    device.
+
+    Returns (all_boxes[cls][img] = [[x1, y1, x2, y2, score], ...],
+    num_detection, timers dict).
+    """
+    import torch
+
+    from squeezedet_torch.data.device_pipeline import \
+        augment_resize_normalize
+    from squeezedet_torch.ops.postprocess import device_results_to_lists
+    from squeezedet_torch.utils.util import Timer, bbox_transform
+
+    if imdb.mc.batch_size != batch_size:
+        # the readers take imdb.mc.batch_size images a call
+        raise ValueError("batch_size {} but the imdb reads {} images a "
+                         "batch".format(batch_size, imdb.mc.batch_size))
+    cfg = det.cfg
+    device = det.anchors.device
+    num_images = len(imdb.image_idx)
+    all_boxes = [[[] for _ in range(num_images)]
+                 for _ in range(imdb.num_classes)]
+    timers = {'im_detect': Timer(), 'im_read': Timer(), 'misc': Timer()}
+    stack = _eval_stack(imdb, device) if device_dataset else None
+
+    def predict(images):
+        if device_postprocess:
+            return det.predict_postprocessed(images)
+        interp = det.predict(images)
+        return interp.det_boxes, interp.det_probs, interp.det_class
+
+    num_detection = 0.0
+    imdb.reset_cursor()
+    done_images = 0
+    for bt in range(-(-num_images // batch_size)):
+        start = bt * batch_size
+        timers['im_read'].tic()
+        if device_dataset:
+            pos, aug, scales = imdb.read_image_rows()
+        else:
+            images, scales = imdb.read_image_batch(shuffle=False)
+        img_is = np.arange(start, start + len(scales))
+        img_is = np.where(img_is < num_images, img_is, -1)
+        timers['im_read'].toc()
+
+        timers['im_detect'].tic()
+        with torch.inference_mode():
+            if device_dataset:
+                canvas = stack.index_select(
+                    0, torch.from_numpy(pos).to(device, torch.long))
+                x = augment_resize_normalize(
+                    canvas, torch.from_numpy(aug).to(device),
+                    cfg.image_height, cfg.image_width, cfg.bgr_means)
+            else:
+                x = torch.from_numpy(np.stack(images)).to(device)
+            # a copy: the boxes are rescaled in place below
+            out = [np.array(o.cpu()) for o in predict(x)]
+        timers['im_detect'].toc()
+
+        timers['misc'].tic()
+        for j, i in enumerate(img_is):
+            if i < 0:
+                continue  # the wrapped tail
+            boxes_j = out[0][j]
+            boxes_j[:, 0::2] /= scales[j][0]
+            boxes_j[:, 1::2] /= scales[j][1]
+            if device_postprocess:
+                boxes, probs, classes = device_results_to_lists(
+                    boxes_j, out[1][j], out[2][j], out[3][j],
+                    imdb.num_classes)
+            else:
+                boxes, probs, classes = det.filter_prediction(
+                    boxes_j, out[1][j], out[2][j])
+            num_detection += len(boxes)
+            for c, b, s in zip(classes, boxes, probs):
+                all_boxes[c][i].append(bbox_transform(b) + [s])
+        timers['misc'].toc()
+
+        done_images += int((img_is >= 0).sum())
+        print('im_detect: {:d}/{:d} im_read: {:.3f}s '
+              'detect: {:.3f}s misc: {:.3f}s'.format(
+                  done_images, num_images,
+                  timers['im_read'].average_time,
+                  timers['im_detect'].average_time,
+                  timers['misc'].average_time))
+    return all_boxes, num_detection, timers
+
+
+def eval_checkpoint(det, imdb, global_step, *, eval_dir, batch_size=1,
+                    summary_writer=None, skip_analysis=False, plot_pr=False,
+                    device_postprocess=False, device_dataset=False):
+    """Score ``det``'s weights as step ``global_step``: detect, write and
+    score the det files, print and write the summaries, and analyse the
+    errors.  Returns (aps, ap_names, mAP)."""
+    all_boxes, num_detection, timers = detect_all(
+        det, imdb, batch_size, device_postprocess=device_postprocess,
+        device_dataset=device_dataset)
+    print('Evaluating detections...')
+    aps, ap_names = imdb.evaluate_detections(eval_dir, global_step,
+                                             all_boxes)
+    if plot_pr:
+        from squeezedet_torch.utils.plots import render_pr_curves
+        rendered = render_pr_curves(os.path.join(
+            eval_dir, 'detection_files_{}'.format(global_step)))
+        print('Rendered {} PR-curve images'.format(len(rendered)))
+    num_images = len(imdb.image_idx)
+
+    print('Evaluation summary:')
+    print('  Average number of detections per image: {}:'.format(
+        num_detection / num_images))
+    print('  Timing:')
+    print('    im_read: {:.3f}s detect: {:.3f}s misc: {:.3f}s'.format(
+        timers['im_read'].average_time, timers['im_detect'].average_time,
+        timers['misc'].average_time))
+    print('  Average precisions:')
+    for cls, ap in zip(ap_names, aps):
+        print('    {}: {:.3f}'.format(cls, ap))
+    mAP = float(np.mean(aps))
+    print('    Mean average precision: {:.3f}'.format(mAP))
+
+    if summary_writer is not None:
+        step = int(global_step)
+        for cls, ap in zip(ap_names, aps):
+            summary_writer.scalar('APs/' + cls, ap, step)
+        summary_writer.scalar('APs/mAP', mAP, step)
+        summary_writer.scalar('timing/im_detect',
+                              timers['im_detect'].average_time, step)
+        summary_writer.scalar('timing/im_read',
+                              timers['im_read'].average_time, step)
+        summary_writer.scalar('timing/post_proc',
+                              timers['misc'].average_time, step)
+        summary_writer.scalar('num_det_per_image',
+                              num_detection / num_images, step)
+        summary_writer.flush()
+
+    if not skip_analysis and hasattr(imdb, 'do_detection_analysis_in_eval'):
+        # the error-type taxonomy is KITTI's
+        print('Analyzing detections...')
+        imdb.do_detection_analysis_in_eval(eval_dir, global_step)
+    return aps, ap_names, mAP
+
+
+def main(argv=None):
+    """Poll ``--checkpoint_path`` and score each new step once (the first
+    one only, with ``--run_once``)."""
+    args = build_arg_parser().parse_args(argv)
+    _reject_unported(args)
+    from squeezedet_torch.utils.util import resolve_device
+    device = resolve_device(args.device, "eval")
+
+    from squeezedet_torch.checkpoint.manager import (CheckpointManager,
+                                                     latest_step)
+    from squeezedet_torch.config import config_for_dataset
+    from squeezedet_torch.data import imdb_for_dataset
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.summary import SummaryWriter
+
+    cfg = config_for_dataset(args.dataset, args.net, args.image_width,
+                             args.image_height)
+    cfg = cfg.replace(batch_size=args.eval_batch_size,
+                      load_pretrained_model=False, is_training=False)
+    if args.compute_dtype:
+        cfg = cfg.replace(compute_dtype=args.compute_dtype)
+    if args.image_cache_mb:
+        cfg = cfg.replace(image_cache_mb=args.image_cache_mb)
+    det = get_model(args.net, cfg, device=device)
+    imdb = imdb_for_dataset(args.dataset, args.image_set, args.data_path,
+                            cfg, year=args.year)
+    os.makedirs(args.eval_dir, exist_ok=True)
+    writer = SummaryWriter(args.eval_dir)
+
+    # params only: an inference job never reads the optimizer state
+    params_like = det.backbone.state_dict()
+    ckpt = CheckpointManager(args.checkpoint_path)
+    seen = set()
+    try:
+        while True:
+            step = latest_step(args.checkpoint_path)
+            if step is None or step in seen:
+                if step is None:
+                    print('No checkpoint file found')
+                if args.run_once:
+                    return
+                print('Wait {:d}s for new checkpoints to be saved ... '
+                      .format(args.eval_interval_secs))
+                time.sleep(args.eval_interval_secs)
+                continue
+            seen.add(step)
+            print('Evaluating step {}...'.format(step))
+            det.backbone.load_state_dict(ckpt.restore_params(step,
+                                                             params_like))
+            eval_checkpoint(det, imdb, step, eval_dir=args.eval_dir,
+                            batch_size=args.eval_batch_size,
+                            summary_writer=writer,
+                            skip_analysis=args.skip_analysis,
+                            plot_pr=args.plot_pr,
+                            device_postprocess=resolve_device_postprocess(
+                                args),
+                            device_dataset=args.device_dataset)
+            if args.run_once:
+                return
+    finally:
+        writer.close()
+
+
+if __name__ == '__main__':
+    main()

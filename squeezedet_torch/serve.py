@@ -14,9 +14,10 @@ a threading server with a micro-batcher: concurrent requests that arrive
 within ``--batch_window_ms`` of each other are padded into one batch-N
 forward.
 
-This slice serves randomly initialised weights only.  ``--checkpoint``,
-``--artifact``, ``--quantize`` and ``--num_devices`` other than 1 raise,
-naming the ROADMAP item that brings each.
+``--checkpoint`` serves a port checkpoint directory (its newest step)
+or a caffe pickle, loaded as the demo loads them; without it the weights
+are seeded random.  ``--artifact``, ``--quantize`` and ``--num_devices``
+other than 1 raise, naming the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve squeezedet-torch detections over HTTP.")
     p.add_argument('--checkpoint', default='',
-                   help='Checkpoint to serve (not ported yet).')
+                   help='Checkpoint directory of the port (its newest '
+                        'model.ckpt-<step>) or a caffe .pkl weight file.')
     p.add_argument('--artifact', default='',
                    help='Exported artifact to serve (not ported yet).')
     p.add_argument('--net', default='squeezeDet')
@@ -142,10 +144,6 @@ class MicroBatcher:
 
 def _reject_unported(args) -> None:
     """Options of the JAX server whose port is still to come."""
-    if args.checkpoint:
-        raise SystemExit("--checkpoint is not ported yet: serving a "
-                         "trainer checkpoint arrives with eval and the demo "
-                         "(ROADMAP Queue 1 item 9)")
     if args.artifact:
         raise SystemExit("--artifact is not ported yet: export arrives with "
                          "ROADMAP Queue 1 item 12")
@@ -159,7 +157,8 @@ def _reject_unported(args) -> None:
 
 
 def _build_from_checkpoint(args, cfg=None):
-    """(run, meta) for a randomly initialised model on ``args.device``.
+    """(run, meta) for the model of ``args.checkpoint`` (seeded random
+    weights without one) on ``args.device``.
 
     ``run`` maps a uint8 [max_batch, H, W, 3] numpy batch to numpy
     (boxes, probs, classes, keep).  ``cfg`` overrides the net's canonical
@@ -170,18 +169,19 @@ def _build_from_checkpoint(args, cfg=None):
 
     from squeezedet_torch.config import config_for_net
     from squeezedet_torch.models import get_model
+    from squeezedet_torch.utils.util import resolve_device
 
     _reject_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device {} but torch sees no CUDA device; the "
-                         "server does not fall back to the CPU".format(
-                             args.device))
+    device = resolve_device(args.device, "the server")
     cfg = (cfg or config_for_net(args.net)).replace(
         batch_size=args.max_batch, load_pretrained_model=False,
         compute_dtype=args.compute_dtype)
     det = get_model(args.net, cfg, device=device)
-    print("WARNING: no --checkpoint; serving random init")
+    if args.checkpoint:
+        from squeezedet_torch.demo import load_params
+        load_params(det, args.checkpoint)
+    else:
+        print("WARNING: no --checkpoint; serving random init")
     meta = {"class_names": list(cfg.class_names),
             "image_height": cfg.image_height,
             "image_width": cfg.image_width,

@@ -23,12 +23,12 @@ import numpy as np
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train SqueezeDet (PyTorch)")
     p.add_argument('--dataset', default='KITTI',
-                   help='KITTI (VOC is not ported yet).')
+                   help='KITTI or VOC.')
     p.add_argument('--data_path', default='', help='Root directory of data')
     p.add_argument('--image_set', default='train',
                    help='Can be train, trainval, val, or test')
     p.add_argument('--year', default='2007',
-                   help='VOC challenge year (VOC is not ported yet).')
+                   help='VOC challenge year.')
     p.add_argument('--train_dir',
                    default='/tmp/squeezedet_torch/logs/train',
                    help='Directory for event logs and checkpoints.')
@@ -135,10 +135,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     """Flags of the JAX CLI whose port is still to come, or stays out."""
-    if args.dataset in ('VOC', 'PASCAL_VOC'):
-        raise SystemExit('--dataset {} is not ported yet: Pascal VOC '
-                         'arrives with eval and the demo (ROADMAP Queue 1 '
-                         'item 9)'.format(args.dataset))
     if args.num_devices > 1:
         raise SystemExit('--num_devices {} is not ported yet: multi-GPU '
                          'training arrives with ROADMAP Queue 1 item '
@@ -150,6 +146,10 @@ def _reject_unported(args) -> None:
         raise SystemExit('--compilation_cache and --rng_impl are XLA/JAX '
                          'mechanisms that stay out of the port (ROADMAP '
                          'Queue 1 item 14)')
+    if args.activation_summary:
+        raise SystemExit('--activation_summary is not ported yet: '
+                         'activation summaries arrive with ROADMAP Queue 1 '
+                         'item 19')
     if args.steps_per_dispatch > 1:
         raise SystemExit('--steps_per_dispatch {} is not ported yet: the '
                          'multi-step dispatch arrives as CUDA graphs with '
@@ -214,12 +214,9 @@ def main(argv=None):
     from squeezedet_torch.models import get_model
     from squeezedet_torch.summary import SummaryWriter
     from squeezedet_torch.trainer import train
+    from squeezedet_torch.utils.util import resolve_device
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device {} but torch sees no CUDA device; "
-                         "training does not fall back to the CPU".format(
-                             args.device))
+    device = resolve_device(args.device, "training")
     cfg = config_from_args(args)
     max_steps = 1000000 if args.max_steps is None else args.max_steps
     det = get_model(args.net, cfg, device=device,

@@ -1,5 +1,6 @@
 """Host utilities (counterpart of ``squeezedet_tpu/utils/util.py``):
-box drawing, channel flips and a tic/toc timer."""
+box format conversions, box drawing, channel flips, the entry points'
+device check and a tic/toc timer."""
 
 from __future__ import annotations
 
@@ -16,9 +17,31 @@ def bbox_transform(bbox):
     return [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
 
 
+def bbox_transform_inv(bbox):
+    """Corners (xmin, ymin, xmax, ymax) -> center (cx, cy, w, h), with the
+    reference's +1 convention: a box over pixel columns xmin..xmax is
+    xmax - xmin + 1 wide."""
+    xmin, ymin, xmax, ymax = bbox
+    width = xmax - xmin + 1.0
+    height = ymax - ymin + 1.0
+    return [xmin + 0.5 * width, ymin + 0.5 * height, width, height]
+
+
 def bgr_to_rgb(ims):
     """Flip the channels of a list of BGR images."""
     return [im[:, :, ::-1] for im in ims]
+
+
+def resolve_device(name: str, what: str):
+    """``torch.device(name)`` for an entry point; exits when CUDA is asked
+    for and missing, so ``what`` never carries on on the CPU unless asked
+    to."""
+    import torch
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device {} but torch sees no CUDA device; {} "
+                         "does not fall back to the CPU".format(name, what))
+    return device
 
 
 class Timer:

@@ -242,12 +242,7 @@ def test_unported_parts_name_their_roadmap_item(kitti_root):
     for call, item in ((lambda: port.shard_data(2), "item 13"),
                        (lambda: port.shard_hosts(0, 2), "item 13"),
                        (lambda: port.load_canvas_shards([0]), "item 13"),
-                       (lambda: port.read_image_batch(), "item 9"),
-                       (lambda: port.read_image_rows(), "item 9"),
-                       (lambda: port.write_detection_files("x", []),
-                        "item 9"),
-                       (lambda: imdb_for_dataset("VOC", "train", kitti_root,
-                                                 port.mc), "item 9"),
+                       (lambda: port.eval_shard_batches(2), "item 13"),
                        (lambda: Kitti("train", kitti_root, port.mc.replace(
                            use_native_loader=True)), "item 17")):
         with pytest.raises(NotImplementedError, match=item):

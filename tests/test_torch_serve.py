@@ -1,5 +1,5 @@
-"""The port's HTTP server and micro-batcher on the CPU device, and the
-port's import boundary."""
+"""The port's HTTP server and micro-batcher on the CPU device, serving
+saved checkpoints, and the port's import boundary."""
 
 import json
 import subprocess
@@ -13,6 +13,8 @@ from concurrent.futures import ThreadPoolExecutor
 import cv2
 import numpy as np
 import pytest
+
+import torch
 
 import squeezedet_torch as st
 from squeezedet_torch import serve
@@ -101,7 +103,7 @@ def test_micro_batcher_rejects_and_propagates_errors():
     assert full.rejects == 1
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "x"], ["--artifact", "x"],
+@pytest.mark.parametrize("flag", [["--artifact", "x"],
                                   ["--quantize", "int8"],
                                   ["--num_devices", "2"]])
 def test_unported_options_name_their_roadmap_item(flag):
@@ -110,11 +112,58 @@ def test_unported_options_name_their_roadmap_item(flag):
         serve.build_server(args, st.tiny_test_config())
 
 
+@pytest.mark.parametrize("source", ["checkpoint_dir", "caffe_pickle"])
+def test_serves_a_saved_checkpoint(source, tmp_path):
+    """``--checkpoint`` serves the saved weights: the server's program
+    returns what ``predict_raw_postprocessed`` gives with them."""
+    import pickle
+
+    from squeezedet_torch.checkpoint.manager import CheckpointManager
+    from squeezedet_torch.weights import pickle_from_jax_params, \
+        to_jax_params
+    cfg = st.tiny_test_config().replace(batch_size=2)
+    det = st.get_model("squeezeDet", cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():  # spread the scores of the 1e-4 head
+        det.backbone.conv12.weight.mul_(500.0)
+    if source == "checkpoint_dir":
+        path = str(tmp_path / "train")
+        CheckpointManager(path).save(9, {"params":
+                                         det.backbone.state_dict()})
+    else:
+        path = str(tmp_path / "weights.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(pickle_from_jax_params(to_jax_params(
+                det.backbone.state_dict())), f)
+    args = serve.build_arg_parser().parse_args(
+        ["--device", "cpu", "--compute_dtype", "float32", "--max_batch", "2",
+         "--checkpoint", path])
+    run, _ = serve._build_from_checkpoint(args, cfg)
+    u8 = np.random.RandomState(3).randint(0, 256, (2, 96, 96, 3), np.uint8)
+    got = run(u8)
+    want = det.predict_raw_postprocessed(torch.from_numpy(u8))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert got[3].any()
+
+
+def test_cuda_without_cuda_exits():
+    args = serve.build_arg_parser().parse_args(["--checkpoint", "none"])
+    assert args.device == "cuda" and not torch.cuda.is_available()
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        serve.build_server(args, st.tiny_test_config())
+
+
 def test_port_imports_no_jax():
-    """squeezedet_torch and its server import neither jax nor the JAX
-    package (whose __init__ imports jax)."""
+    """squeezedet_torch, its entry points and its data layer import
+    neither jax nor the JAX package (whose __init__ imports jax), nor cv2
+    at import time."""
     code = ("import sys; import squeezedet_torch, squeezedet_torch.serve, "
-            "squeezedet_torch.weights, squeezedet_torch.ops.fused_frontend; "
+            "squeezedet_torch.weights, squeezedet_torch.ops.fused_frontend, "
+            "squeezedet_torch.eval, squeezedet_torch.demo, "
+            "squeezedet_torch.data.kitti, squeezedet_torch.data.kitti_ap, "
+            "squeezedet_torch.data.pascal_voc, squeezedet_torch.native, "
+            "squeezedet_torch.utils.plots; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'squeezedet_tpu', 'cv2')]; "
             "assert not bad, bad")

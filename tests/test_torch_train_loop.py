@@ -281,7 +281,7 @@ def test_recipe_batch_needs_max_steps():
     ["--num_devices", "2"], ["--native_loader"], ["--compilation_cache",
                                                   "x"],
     ["--rng_impl", "rbg"], ["--steps_per_dispatch", "2"],
-    ["--dataset", "VOC"]])
+    ["--activation_summary"]])
 def test_unported_flags_name_their_roadmap_item(flag, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP"):
         port_cli.main(["--device", "cpu", "--train_dir", str(tmp_path)]
