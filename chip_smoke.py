@@ -61,7 +61,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    demo frame, K2 never.  Prints each eval mode's time per image and
    mAP, and the demo's per-frame times; then, with launches no longer
    counted, K1 timed at the eval and demo shapes and the f32 B=1 eval
-   forward's host time against its device time.
+   forward's host time against its device time;
+9. the other backbones, squeezeDet+ (B=20), VGG16 (B=5) and ResNet50
+   (B=20) at 1242x375 with seeded weights.  First, not counted: K2
+   against its plain version in f32 and bf16 at every conv shape their
+   train steps route to it (two launches bitwise equal), then timed in
+   bf16 beside cuDNN's weight gradient and the bound.  Then, per net:
+   uint8 -> detections in f32 on the card against the CPU (B=2; VGG16
+   B=1) and a bf16 reading at the config batch; one f32 B=2 train step
+   on the card against the CPU in filter-grad mode True, and one f32 B=4
+   step per mode (K2 launches per backward 20 / 10 / 1 in True, 0 in
+   "1x1"); the train CLI (10 bf16 steps at the config batch,
+   ``--device_assign --uint8_ingest --device_augment --pallas_grads``,
+   on 24 fixture frames: finite logged loss, a checkpoint), the eval CLI
+   on that checkpoint (every image scored, finite APs) and, for
+   squeezeDet+, the demo.  K1 must launch 0 times (it is squeezeDet's
+   front end only) and K2 as many times as the steps need.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -100,6 +115,11 @@ BOX_ATOL, PROB_ATOL = 1e-3, 1e-5
 # MIN_IOU_MARGIN away from nms_thresh: many times the GPU-CPU f32
 # differences of the scores (~1e-6) and IoUs (~3e-6), which the run prints.
 MIN_GAP, MIN_IOU_MARGIN = 5e-6, 1e-4
+# Phase 9's deeper backbones (VGG16: 14 convs without normalisation)
+# carry more f32 rounding into the box deltas: the card and the CPU gave
+# VGG16 boxes 1.6e-3 px (5.2e-6 relative) apart on an H100, so there the
+# boxes may also differ by BACKBONE_BOX_RTOL of their value.
+BACKBONE_BOX_RTOL = 2e-5
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
 KERNELS = ("conv1_pool1", "filter_grad")
@@ -114,13 +134,13 @@ HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # output may differ by K2_RTOL times sum|x|*|dy| of its own terms (the
 # plain version run on absolute values), plus K2_ATOL.
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
-# (kh, C, O, H, W) of the convs the train step routes to K2 at 1248x384,
-# each called once for each of its two conv2d_pair halves: the squeeze
-# 1x1s of fire5, fire6, fire9, fire10, fire11 ("1x1" mode), then conv12's
-# 3x3 (True mode adds it).
-K2_TRAIN_SHAPES = [(1, 128, 32, 48, 156), (1, 128, 48, 24, 78),
-                   (1, 256, 64, 24, 78), (1, 256, 96, 24, 78),
-                   (1, 384, 96, 24, 78), (3, 384, 72, 24, 78)]
+# (calls, kh, C, O, H, W) of the convs the train step routes to K2 at
+# 1248x384, each called once for each of its two conv2d_pair halves: the
+# squeeze 1x1s of fire5, fire6, fire9, fire10, fire11 ("1x1" mode), then
+# conv12's 3x3 (True mode adds it).
+K2_TRAIN_SHAPES = [(2, 1, 128, 32, 48, 156), (2, 1, 128, 48, 24, 78),
+                   (2, 1, 256, 64, 24, 78), (2, 1, 256, 96, 24, 78),
+                   (2, 1, 384, 96, 24, 78), (2, 3, 384, 72, 24, 78)]
 K2_TRAIN_BATCH = 20
 K2_BIG_BATCH = 128  # the device-bound train step (PERF.md section 5)
 # the odd shapes of tests/test_filter_grad.py: (kh, kw, H, W), C = O = 128
@@ -174,6 +194,29 @@ SCORER_AP_RTOL, SCORER_ROW_ATOL = 1e-5, 1e-6
 # the demo: fixture frames in image mode; in video mode MJPG frames of
 # 1920x1080 whose [500:-205, 239:-439] crop is a 375x1242 fixture frame
 DEMO_IMAGES, DEMO_VIDEO_FRAMES, VIDEO_FRAME = 4, 6, (1080, 1920)
+# phase 9: the other backbones at their published configurations.  K2's
+# routed convs of one train-step backward in filter-grad mode True, as
+# (calls, kh, C, O, H, W) at the config's batch (the JAX package routes
+# the same convs: tests/test_torch_backbones.py); "1x1" (--pallas_grads)
+# routes none of them.  squeezeDet+: the 1x1 squeezes of fire5/6 (C=128)
+# and fire9-11 (C=256) on both pair halves, the fire8-11 expands (C=384)
+# and conv12's halves; VGG16: conv3_1..conv5_3 and conv6 (conv2_2's
+# backward never runs: it and its input are frozen); ResNet50: conv5.
+BACKBONES = ("squeezeDet+", "vgg16", "resnet50")
+K2_BACKBONE_SHAPES = {
+    "squeezeDet+": [(2, 1, 128, 192, 45, 153), (2, 1, 128, 288, 45, 153),
+                    (1, 1, 384, 256, 45, 153), (1, 3, 384, 256, 45, 153),
+                    (6, 1, 256, 384, 22, 76), (3, 1, 384, 256, 22, 76),
+                    (3, 3, 384, 256, 22, 76), (2, 3, 256, 72, 22, 76)],
+    "vgg16": [(1, 3, 128, 256, 94, 311), (2, 3, 256, 256, 94, 311),
+              (1, 3, 256, 512, 47, 156), (2, 3, 512, 512, 47, 156),
+              (3, 3, 512, 512, 24, 78), (1, 3, 512, 72, 24, 78)],
+    "resnet50": [(1, 3, 1024, 72, 24, 78)],
+}
+# steps of the f32 mode comparison, and the train CLI's bf16 run (at the
+# config's batch and resolution) with its fixture of 1242x375 frames
+BACKBONE_MODE_BATCH, BACKBONE_CLI_STEPS, BACKBONE_IMAGES = 4, 10, 24
+BACKBONE_DEMO_FRAMES = 3
 
 
 def log(*a):
@@ -416,18 +459,19 @@ def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
     return err.max().item()
 
 
-def time_k2(card, batch, dtype, gen, with_plain):
+def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
+            what="squeezeDet"):
     """K2, (its plain version) and cuDNN's weight gradient timed at the
-    train step's shapes, each in turn; returns the sums over one
-    backward's 12 calls (each conv's two conv2d_pair halves)."""
+    ``shapes`` (calls, kh, C, O, H, W) of one backward, each in turn;
+    returns the sums over the backward's calls and the per-shape rows."""
     import torch
 
     from squeezedet_torch.ops import filter_grad as fg
     name = str(dtype).replace("torch.", "")
     total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0, "bound": 0.0,
              "bytes": 0.0, "operations": 0.0}
-    largest = None
-    for kh, c, o, h, w in K2_TRAIN_SHAPES:
+    largest, rows = None, []
+    for calls, kh, c, o, h, w in shapes:
         x = torch.randn(batch, h, w, c, device="cuda", generator=gen).to(dtype)
         dy = torch.randn(batch, h, w, o, device="cuda",
                          generator=gen).to(dtype)
@@ -449,10 +493,14 @@ def time_k2(card, batch, dtype, gen, with_plain):
         ms["bound"], bound_by = k2_bound(batch, kh, c, o, h, w)
         ms["bytes"] = ms["operations"] = 0.0
         ms[bound_by] = ms["bound"]
-        for n in total:  # each conv's two conv2d_pair halves
-            total[n] += 2 * ms[n]
+        for n in total:
+            total[n] += calls * ms[n]
         if largest is None or ms["kernel"] > largest[1]["kernel"]:
             largest = ((kh, c, o, h, w), ms)
+        rows.append({"batch": batch, "kh": kh, "C": c, "O": o, "H": h,
+                     "W": w, "calls": calls, "ms": ms["kernel"],
+                     "library_ms": ms["cudnn"], "bound_ms": ms["bound"],
+                     "bound_by": bound_by})
         log("[k2] time B={} {}x{} C={} O={} {}x{} {}: kernel {:.4f} ms, "
             "plain {}, cuDNN weight grad {:.4f} ms; bf16 bound {:.4f} ms "
             "({}), kernel at {:.1f} TFLOP/s".format(
@@ -461,13 +509,14 @@ def time_k2(card, batch, dtype, gen, with_plain):
                 ms["cudnn"], ms["bound"], bound_by,
                 2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9))
         del x, dy, xn, dyn
-    log("[k2] one backward's 12 K2 calls, B={} {} on {}: kernel {:.4f} ms, "
-        "plain {}, cuDNN weight grad {:.4f} ms, bf16 bound {:.4f} ms; "
+    log("[k2] one {} backward's {} K2 calls, B={} {} on {}: kernel {:.4f} "
+        "ms, plain {}, cuDNN weight grad {:.4f} ms, bf16 bound {:.4f} ms; "
         "largest call {} kernel {:.4f} ms".format(
-            batch, name, card, total["kernel"],
+            what, sum(s[0] for s in shapes), batch, name, card,
+            total["kernel"],
             "{:.4f} ms".format(total["plain"]) if with_plain else "not timed",
             total["cudnn"], total["bound"], largest[0], largest[1]["kernel"]))
-    return total
+    return total, rows
 
 
 def phase_k2(card):
@@ -481,20 +530,20 @@ def phase_k2(card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for kh, c, o, h, w in K2_TRAIN_SHAPES:
+        for _, kh, c, o, h, w in K2_TRAIN_SHAPES:
             max_err = max(max_err, check_k2(K2_TRAIN_BATCH, kh, kh, h, w, c,
                                             o, dtype, gen))
         for kh, kw, h, w in K2_ODD_SHAPES:
             max_err = max(max_err, check_k2(2, kh, kw, h, w, 128, 128, dtype,
                                             gen))
 
-    t32 = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
-    t16 = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
+    t32, _ = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
+    t16, _ = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
     time_k2(card, K2_BIG_BATCH, torch.bfloat16, gen, False)
     log("[k2] f32 route, B={}: kernel {:.4f} ms against its CUDA-core f32 "
         "bound {:.4f} ms".format(K2_TRAIN_BATCH, t32["kernel"], sum(
-            2 * 2 * K2_TRAIN_BATCH * h * w * c * o * kh * kh / F32_FLOPS * 1e3
-            for kh, c, o, h, w in K2_TRAIN_SHAPES)))
+            calls * 2 * K2_TRAIN_BATCH * h * w * c * o * kh * kh / F32_FLOPS
+            * 1e3 for calls, kh, c, o, h, w in K2_TRAIN_SHAPES)))
     # what binds the larger part of the 12 calls' summed bound
     bound_by = max(("bytes", "operations"), key=lambda k: t16[k])
     return {"max_abs_err": max_err, "ms": t16["kernel"],
@@ -521,32 +570,38 @@ def _same_class_iou(boxes, classes):
     return iou[same & ~off]
 
 
-def phase_main_path(card):
+def rescaled_detector(net, cfg, u8):
+    """``net`` with its seeded weights on the card, the head rescaled so
+    that its box deltas have std HEAD_SPREAD on ``u8``: the 1e-4 head init
+    leaves every score near 1/6, where top-64 ranks are ties.  One
+    forward on the card."""
+    import torch
+
+    from squeezedet_torch.models import get_model
+    det = get_model(net, cfg, device="cuda")
+    with torch.no_grad():
+        spread = det.predict_raw(u8.cuda()).pred_box_delta.std().item()
+        det.layers()[-1].weight.mul_(HEAD_SPREAD / spread)
+    return det
+
+
+def serving_check(det, tag, box_rtol=0.0):
+    """uint8 -> detections of ``det`` (f32, on the card) against the same
+    weights on the CPU, on the first seeded batch whose CPU reference
+    keeps its ranks and NMS choices clear of near-ties; boxes within
+    BOX_ATOL px plus ``box_rtol`` of their value.  Returns the forwards
+    run on the card."""
     import numpy as np
     import torch
 
-    from squeezedet_torch.config import kitti_squeezedet_config
     from squeezedet_torch.models import get_model
-    from squeezedet_torch.ops import fused_frontend as ff
-    cfg = kitti_squeezedet_config()
-    det = get_model("squeezeDet", cfg, device="cuda")
-    rs = np.random.RandomState(0)
-    u8 = torch.from_numpy(rs.randint(0, 256, (2, cfg.image_height,
-                                              cfg.image_width, 3),
-                                     dtype=np.uint8))
-    forwards = 0
-    with torch.no_grad():
-        # the 1e-4 head init leaves every score near 1/6, where top-64
-        # ranks are ties; rescale the head to spread the scores out
-        spread = det.predict_raw(u8.cuda()).pred_box_delta.std().item()
-        det.backbone.conv12.weight.mul_(HEAD_SPREAD / spread)
-        forwards += 1
-    cpu = get_model("squeezeDet", cfg, device="cpu")
+    cfg = det.cfg
+    cpu = get_model(det.net, cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
-
+    shape = (cfg.batch_size, cfg.image_height, cfg.image_width, 3)
     for seed in range(1, 65):
         u8 = torch.from_numpy(np.random.RandomState(seed).randint(
-            0, 256, u8.shape, dtype=np.uint8))
+            0, 256, shape, dtype=np.uint8))
         cpu_interp = cpu.predict_raw(u8)
         cpu_out = cpu.postprocess_device(cpu_interp)
         gap = _top_gap(cpu_interp.det_probs)
@@ -559,7 +614,6 @@ def phase_main_path(card):
 
     gpu_interp = det.predict_raw(u8.cuda())
     gpu_out = det.predict_raw_postprocessed(u8.cuda())
-    forwards += 2
     for name in ("pred_class_logits", "pred_conf", "pred_box_delta"):
         torch.testing.assert_close(getattr(gpu_interp, name).cpu(),
                                    getattr(cpu_interp, name),
@@ -567,17 +621,69 @@ def phase_main_path(card):
     boxes, probs, classes, keep = [o.cpu() for o in gpu_out]
     noise = (gpu_interp.det_probs.cpu() - cpu_interp.det_probs).abs().max()
     iou_noise = (_same_class_iou(boxes, cpu_out[2]) - cpu_iou).abs().max()
-    log("[main] f32 B=2, input seed {}: preds match the CPU; top-65 score "
+    log("[{}] {} f32 B={}, input seed {}: preds match the CPU; top-65 score "
         "gap {:.3e} vs max score difference {:.3e}; IoU margin to "
         "nms_thresh {:.3e} vs max IoU difference {:.3e}".format(
-            seed, gap, noise.item(), margin, iou_noise.item()))
-    torch.testing.assert_close(boxes, cpu_out[0], rtol=0, atol=BOX_ATOL)
+            tag, det.net, cfg.batch_size, seed, gap, noise.item(), margin,
+            iou_noise.item()))
+    torch.testing.assert_close(boxes, cpu_out[0], rtol=box_rtol,
+                               atol=BOX_ATOL)
     torch.testing.assert_close(probs, cpu_out[1], rtol=0, atol=PROB_ATOL)
     if not (torch.equal(classes, cpu_out[2]) and
             torch.equal(keep, cpu_out[3])):
         raise AssertionError("classes/keep differ between GPU and CPU")
-    log("[main] f32 B=2: boxes, probs, classes and keep agree with the "
-        "CPU ({} kept)".format(int(keep.sum())))
+    log("[{}] {} f32 B={}: boxes (max difference {:.3e} px), probs, "
+        "classes and keep agree with the CPU ({} kept)".format(
+            tag, det.net, cfg.batch_size,
+            (boxes - cpu_out[0]).abs().max().item(), int(keep.sum())))
+    return 2
+
+
+def serving_reading(det, batch, warmup, iters, card, tag):
+    """uint8 -> detections of ``det`` (bf16) timed at ``batch`` on the
+    host clock, a smoke reading; returns the forwards run."""
+    import numpy as np
+    import torch
+    cfg = det.cfg
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (batch, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8)).cuda()
+    for _ in range(warmup):
+        out = det.predict_raw_postprocessed(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = det.predict_raw_postprocessed(x)
+    kept = int(out[3].sum().item())  # consumes the last batch's outputs
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    boxes, probs, classes, keep = out
+    if boxes.shape != (batch, 64, 4) or probs.shape != (batch, 64) or \
+            not (torch.isfinite(boxes).all() and torch.isfinite(probs).all()):
+        raise AssertionError("bad bf16 outputs {}".format(
+            [tuple(o.shape) for o in out]))
+    log("[{}] smoke reading, not a benchmark: {} uint8->detections B={} "
+        "{}x{} bf16: {:.3f} ms/batch, {:.1f} img/s, peak {:.2f} GiB, {} "
+        "kept, on {}".format(tag, det.net, batch, cfg.image_height,
+                             cfg.image_width, dt * 1e3, batch / dt,
+                             torch.cuda.max_memory_allocated() / 2**30, kept,
+                             card))
+    return warmup + iters
+
+
+def phase_main_path(card):
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    cfg = kitti_squeezedet_config().replace(batch_size=2)
+    u8 = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, cfg.image_height, cfg.image_width, 3), dtype=np.uint8))
+    det = rescaled_detector("squeezeDet", cfg, u8)
+    forwards = 1 + serving_check(det, "main")
     if ff.LAUNCHES != forwards:
         raise AssertionError("K1 launches {} != forwards {}".format(
             ff.LAUNCHES, forwards))
@@ -585,31 +691,7 @@ def phase_main_path(card):
     det16 = get_model("squeezeDet", cfg.replace(compute_dtype="bfloat16"),
                       device="cuda")
     det16.load_state_dict(det.state_dict())
-    batch, warmup, iters = 128, 3, 10
-    x = torch.from_numpy(rs.randint(0, 256, (batch, cfg.image_height,
-                                             cfg.image_width, 3),
-                                    dtype=np.uint8)).cuda()
-    for _ in range(warmup):
-        out = det16.predict_raw_postprocessed(x)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = det16.predict_raw_postprocessed(x)
-    kept = int(out[3].sum().item())  # consumes the last batch's outputs
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / iters
-    forwards += warmup + iters
-    boxes, probs, classes, keep = out
-    if boxes.shape != (batch, 64, 4) or probs.shape != (batch, 64) or \
-            not (torch.isfinite(boxes).all() and torch.isfinite(probs).all()):
-        raise AssertionError("bad bf16 outputs {}".format(
-            [tuple(o.shape) for o in out]))
-    log("[main] smoke reading, not a benchmark: uint8->detections B={} "
-        "384x1248 bf16: {:.3f} ms/batch, {:.1f} img/s, peak {:.2f} GiB, "
-        "{} kept, on {}".format(batch, dt * 1e3, batch / dt,
-                                torch.cuda.max_memory_allocated() / 2**30,
-                                kept, card))
+    forwards += serving_reading(det16, 128, 3, 10, card, "main")
     if ff.LAUNCHES != forwards:
         raise AssertionError("K1 launches {} != forwards {}".format(
             ff.LAUNCHES, forwards))
@@ -693,12 +775,12 @@ def match_gap(anchors, boxes, num_gt):
 
 
 def fresh_state(cfg, device, weights):
-    """A TrainState on ``device``: the detector with ``weights`` (a
-    backbone state_dict) and a new optimizer."""
+    """A TrainState on ``device``: the detector of ``cfg.net`` with
+    ``weights`` (a backbone state_dict) and a new optimizer."""
     from squeezedet_torch.models import get_model
     from squeezedet_torch.optim import build_optimizer
     from squeezedet_torch.trainer import TrainState
-    det = get_model("squeezeDet", cfg, device=device)
+    det = get_model(cfg.net, cfg, device=device)
     det.backbone.load_state_dict(weights)
     return TrainState(det, build_optimizer(cfg, det))
 
@@ -719,17 +801,17 @@ def worst_step_ratio(got, want, before):
     return worst, leaf
 
 
-def phase_train_check(weights):
-    """One f32 B=2 train step on the card against the CPU; returns the
-    number of steps run on the card."""
+def phase_train_check(weights, cfg):
+    """One f32 B=2 train step of ``cfg.net`` in filter-grad mode True on
+    the card against the CPU; returns the number of steps run on the
+    card."""
     import numpy as np
     import torch
 
-    from squeezedet_torch.config import kitti_squeezedet_config
     from squeezedet_torch.data.device_pipeline import assign_anchors_device
     from squeezedet_torch.models import layers as L
     from squeezedet_torch.trainer import make_train_step_device
-    cfg = kitti_squeezedet_config().replace(keep_prob=1.0)
+    cfg = cfg.replace(keep_prob=1.0)
     anchors = torch.tensor(cfg.anchor_box, dtype=torch.float32)
     for seed in range(1, 65):
         rs = np.random.RandomState(seed)
@@ -754,10 +836,10 @@ def phase_train_check(weights):
     torch.testing.assert_close(got.box_delta_input.cpu(),
                                want.box_delta_input, rtol=DELTA_RTOL,
                                atol=DELTA_RTOL)
-    log("[train] f32 B=2, batch seed {}: {} GT boxes, IoU gap to the "
+    log("[train] {} f32 B=2, batch seed {}: {} GT boxes, IoU gap to the "
         "next smaller IoU >= {:.3e}; matcher mask, boxes and labels equal "
         "on card and CPU, deltas within {:.3e}".format(
-            seed, int(gt[2].sum()), gap, delta.item()))
+            cfg.net, seed, int(gt[2].sum()), gap, delta.item()))
 
     L.set_filter_grad(True)
     cpu = fresh_state(cfg, "cpu", weights)
@@ -773,32 +855,32 @@ def phase_train_check(weights):
         weights), worst_step_ratio(gpu.opt.trace, cpu.opt.trace,
                                    {n: torch.zeros_like(t)
                                     for n, t in cpu.opt.trace.items()})
-    log("[train] f32 B=2 step, card vs CPU: loss {} vs {}; worst leaf "
+    log("[train] {} f32 B=2 step, card vs CPU: loss {} vs {}; worst leaf "
         "||diff||/||update||: params {:.3e} ({}), momentum {:.3e} ({})".format(
-            [round(float(v), 6) for v in lb_gpu],
+            cfg.net, [round(float(v), 6) for v in lb_gpu],
             [round(float(v), 6) for v in lb_cpu], *params, *momentum))
     if params[0] > STEP_TOL or momentum[0] > STEP_TOL:
         raise AssertionError("card and CPU train steps disagree")
     return 1
 
 
-def phase_train_modes(weights):
-    """One f32 B=20 step per filter-grad mode from the same state: K2's
-    weight gradients against cuDNN's, and K2's launches per backward.
-    Returns the number of steps run."""
+def phase_train_modes(weights, cfg, batch, per_step):
+    """One f32 step of ``cfg.net`` at ``batch`` per filter-grad mode from
+    the same state: K2's weight gradients against cuDNN's, and K2's
+    launches per backward (``per_step``, by mode).  Returns the number of
+    steps run."""
     import numpy as np
     import torch
 
-    from squeezedet_torch.config import kitti_squeezedet_config
     from squeezedet_torch.models import layers as L
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.trainer import make_train_step_device
-    cfg = kitti_squeezedet_config().replace(keep_prob=1.0)
+    cfg = cfg.replace(keep_prob=1.0)
     rs = np.random.RandomState(100)
-    u8 = torch.from_numpy(rs.randint(0, 256, (20, cfg.image_height,
+    u8 = torch.from_numpy(rs.randint(0, 256, (batch, cfg.image_height,
                                               cfg.image_width, 3),
                                      dtype=np.uint8)).cuda()
-    gt = [t.cuda() for t in gt_batch(rs, 20, cfg)]
+    gt = [t.cuda() for t in gt_batch(rs, batch, cfg)]
     after = {}
     for mode in (False, "1x1", True):
         L.set_filter_grad(mode)
@@ -807,17 +889,19 @@ def phase_train_modes(weights):
         make_train_step_device(state, uint8_ingest=True)(u8, *gt)
         torch.cuda.synchronize()
         launches = fg.LAUNCHES - launches
-        log("[train] f32 B=20 step, filter-grad mode {!r}: {} K2 "
-            "launches".format(mode, launches))
-        if launches != K2_PER_STEP[mode]:
+        log("[train] {} f32 B={} step, filter-grad mode {!r}: {} K2 "
+            "launches".format(cfg.net, batch, mode, launches))
+        if launches != per_step[mode]:
             raise AssertionError("K2 launches {} in mode {!r}, expected "
                                  "{}".format(launches, mode,
-                                             K2_PER_STEP[mode]))
+                                             per_step[mode]))
         after[mode] = state.det.backbone.state_dict()
+        del state
     for mode in ("1x1", True):
         worst, leaf = worst_step_ratio(after[mode], after[False], weights)
-        log("[train] mode {!r} vs False (cuDNN weight grads): worst leaf "
-            "||diff||/||update|| {:.3e} ({})".format(mode, worst, leaf))
+        log("[train] {} mode {!r} vs False (cuDNN weight grads): worst leaf "
+            "||diff||/||update|| {:.3e} ({})".format(cfg.net, mode, worst,
+                                                     leaf))
         if worst > STEP_TOL:
             raise AssertionError("K2 and cuDNN train steps disagree")
     return 3
@@ -1440,6 +1524,175 @@ def probe_eval_shapes(card, weights):
             "not measured", card))
 
 
+def phase_k2_backbones(card):
+    """K2 against its plain version at every conv shape the other
+    backbones route to it (f32 with TF32 off, and bf16; two launches
+    bitwise equal), then K2 and cuDNN's weight gradient timed in bf16
+    beside the bound.  Outside the counted windows.  Returns (max abs
+    err, per-shape rows)."""
+    import torch
+
+    from squeezedet_torch.config import config_for_net
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    max_err, rows = 0.0, []
+    for net in BACKBONES:
+        batch = config_for_net(net).batch_size
+        for dtype in (torch.float32, torch.bfloat16):
+            for _, kh, c, o, h, w in K2_BACKBONE_SHAPES[net]:
+                max_err = max(max_err, check_k2(batch, kh, kh, h, w, c, o,
+                                                dtype, gen))
+        _, net_rows = time_k2(card, batch, torch.bfloat16, gen, False,
+                              K2_BACKBONE_SHAPES[net], net)
+        rows += [dict(r, net=net) for r in net_rows]
+        torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def _recorded(module, name, sink):
+    """Patch ``module.name`` with a wrapper that appends each result to
+    ``sink``; returns the original, for the caller to restore."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        sink.append(real(*a, **k))
+        return sink[-1]
+    setattr(module, name, wrapper)
+    return real
+
+
+def backbone_clis(net, root, work, card):
+    """The train CLI on ``net`` (bf16, config batch and resolution,
+    --device_assign --uint8_ingest --device_augment --pallas_grads),
+    then the eval CLI on its checkpoint, then (squeezeDet+) the demo.
+    Returns the train steps run."""
+    import re
+
+    import numpy as np
+
+    from squeezedet_torch import demo
+    from squeezedet_torch import eval as eval_cli
+    from squeezedet_torch import train as cli
+    from squeezedet_torch.config import config_for_net
+    cfg = config_for_net(net)
+    train_dir = os.path.join(work, net + "_train")
+    t0 = time.perf_counter()
+    state, out = _logged(cli.main, [
+        "--net", net, "--device", "cuda", "--data_path", root, "--train_dir",
+        train_dir, "--batch_size", str(cfg.batch_size), "--compute_dtype",
+        "bfloat16", "--learning_rate", "0.001", "--device_assign",
+        "--uint8_ingest", "--device_augment", "--pallas_grads",
+        "--max_steps", str(BACKBONE_CLI_STEPS), "--checkpoint_step", "1000",
+        "--summary_step", "0"])
+    seconds = time.perf_counter() - t0
+    logged = [float(v) for v in re.findall(r"loss = (\S+) \(", out)]
+    ckpt = "model.ckpt-{}".format(BACKBONE_CLI_STEPS - 1)
+    if state.step != BACKBONE_CLI_STEPS or not logged or \
+            not np.isfinite(logged).all() or \
+            ckpt not in os.listdir(train_dir):
+        raise AssertionError("{} train CLI: step {}, logged loss {}, "
+                             "files {}".format(net, state.step, logged,
+                                               os.listdir(train_dir)))
+    del state
+    log("[backbones] {} train CLI: {} bf16 steps at B={} {}x{} in {:.1f} s "
+        "(the run, its start-up included); logged loss {}; {} written; on "
+        "{}".format(net, BACKBONE_CLI_STEPS, cfg.batch_size, cfg.image_width,
+                    cfg.image_height, seconds, logged, ckpt, card))
+
+    aps = []  # eval_checkpoint's (APs, names, mAP)
+    real = _recorded(eval_cli, "eval_checkpoint", aps)
+    eval_dir = os.path.join(work, net + "_eval")
+    t0 = time.perf_counter()
+    try:
+        _logged(eval_cli.main, [
+            "--net", net, "--device", "cuda", "--data_path", root,
+            "--image_set", "train", "--checkpoint_path", train_dir,
+            "--eval_dir", eval_dir, "--run_once", "--eval_batch_size", "8"])
+    finally:
+        eval_cli.eval_checkpoint = real
+    data = os.path.join(eval_dir, "detection_files_{}".format(
+        BACKBONE_CLI_STEPS - 1), "data")
+    if len(aps) != 1 or len(aps[0][0]) != 9 or \
+            not np.isfinite(aps[0][0]).all() or \
+            len(os.listdir(data)) != BACKBONE_IMAGES:
+        raise AssertionError("{} eval CLI: APs {}, {} det files".format(
+            net, aps, len(os.listdir(data))))
+    log("[backbones] {} eval CLI: {} images scored in {:.1f} s, f32 B=8, "
+        "finite APs, mAP {:.6f}".format(net, BACKBONE_IMAGES,
+                                        time.perf_counter() - t0,
+                                        aps[0][2]))
+    if net == "squeezeDet+":
+        out_dir = os.path.join(work, "demo")
+        _logged(demo.main, [
+            "--demo_net", net, "--device", "cuda", "--checkpoint", train_dir,
+            "--input_path", os.path.join(root, "training", "image_2",
+                                         "00000[0-{}].png".format(
+                                             BACKBONE_DEMO_FRAMES - 1)),
+            "--out_dir", out_dir])
+        if len(os.listdir(out_dir)) != BACKBONE_DEMO_FRAMES:
+            raise AssertionError("demo wrote {}".format(os.listdir(out_dir)))
+        log("[backbones] demo --demo_net squeezeDet+: {} frames "
+            "drawn".format(BACKBONE_DEMO_FRAMES))
+    return BACKBONE_CLI_STEPS
+
+
+def phase_backbones(card):
+    """Phase 9: squeezeDet+, VGG16 and ResNet50 at their published
+    configurations with seeded weights: serving (f32 card against CPU,
+    then a bf16 reading at the config batch), the f32 train step (card
+    against CPU in mode True, then one step per filter-grad mode), and
+    the train, eval and demo CLIs.  Returns the K2 launches the path
+    must have made."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import config_for_net
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.models import layers as L
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "backbones")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    write_kitti_fixture(root, BACKBONE_IMAGES, LOOP_FRAME, seed=3)
+    k2 = 0
+    try:
+        for net in BACKBONES:
+            t_net = time.perf_counter()
+            cfg = config_for_net(net)
+            serve_cfg = cfg.replace(batch_size=1 if net == "vgg16" else 2)
+            u8 = torch.from_numpy(np.random.RandomState(0).randint(
+                0, 256, (serve_cfg.batch_size, cfg.image_height,
+                         cfg.image_width, 3), dtype=np.uint8))
+            det = rescaled_detector(net, serve_cfg, u8)
+            serving_check(det, "backbones", BACKBONE_BOX_RTOL)
+            det16 = get_model(net, cfg.replace(compute_dtype="bfloat16"),
+                              device="cuda")
+            det16.load_state_dict(det.state_dict())
+            serving_reading(det16, cfg.batch_size, 2, 5, card, "backbones")
+            del det, det16
+
+            weights = get_model(net, cfg, device="cpu").backbone.state_dict()
+            per_step = {False: 0, "1x1": 0, True: sum(
+                s[0] for s in K2_BACKBONE_SHAPES[net])}
+            phase_train_check(weights, cfg)
+            phase_train_modes(weights, cfg, BACKBONE_MODE_BATCH, per_step)
+            L.set_filter_grad(False)
+            k2 += 2 * per_step[True]
+            torch.cuda.empty_cache()
+            backbone_clis(net, root, work, card)
+            torch.cuda.empty_cache()
+            log("[backbones] {} took {:.1f} s".format(
+                net, time.perf_counter() - t_net))
+    finally:
+        L.set_filter_grad(False)
+        shutil.rmtree(work, ignore_errors=True)
+    log("[backbones] phase 9 took {:.1f} s".format(
+        time.perf_counter() - t_phase))
+    return k2
+
+
 def main():
     import_port()
     import torch
@@ -1466,9 +1719,10 @@ def main():
     from squeezedet_torch.config import kitti_squeezedet_config
     weights = get_model("squeezeDet", kitti_squeezedet_config(),
                         device="cpu").backbone.state_dict()
+    cfg = kitti_squeezedet_config()
     ff.LAUNCHES = fg.LAUNCHES = 0
-    steps = phase_train_check(weights)
-    steps += phase_train_modes(weights)
+    steps = phase_train_check(weights, cfg)
+    steps += phase_train_modes(weights, cfg, 20, K2_PER_STEP)
     run_steps, run_k2 = phase_train_run(card, weights)
     L.set_filter_grad(False)
     train = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
@@ -1507,12 +1761,26 @@ def main():
                                              evald["k2"]))
     probe_eval_shapes(card, eval_weights)
 
+    # the other backbones: K2 at their shapes (not counted), then the
+    # paths, with the counts from 0 just before them
+    k2_err, k2_rows = phase_k2_backbones(card)
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    want_k2 = phase_backbones(card)
+    backbones = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    if backbones["k1"] != 0 or backbones["k2"] != want_k2:
+        raise AssertionError("other backbones: K1 launches {k1}, K2 launches "
+                             "{k2}, expected 0 and {0}".format(
+                                 want_k2, **backbones))
+    log("[backbones] path: K1 launches {}, K2 launches {}".format(
+        backbones["k1"], backbones["k2"]))
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
-        "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"],
+        "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
+        + backbones["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **k1,
     }, {
@@ -1520,9 +1788,10 @@ def main():
         "route": "cuda",
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
-        "launches": train["k2"] + loop["k2"],
+        "launches": train["k2"] + loop["k2"] + backbones["k2"],
         "tensor_core_instructions": tc["filter_grad"],
-        **k2,
+        **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
+        "backbone_shapes": k2_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ A second package beside ``squeezedet_tpu`` (the JAX reference it is
 held against), written for one NVIDIA H100.  It imports torch and
 numpy only: never jax, and nothing from ``squeezedet_tpu``.
 
-It covers two paths of the squeezeDet backbone.  Serving: uint8 ->
-detections (mean subtraction, the backbone with conv1+pool1 in a
-hand-written CUDA kernel, ``ops/fused_frontend.py``, the ConvDet head,
+It covers the four backbones of the JAX package (squeezeDet,
+squeezeDet+, vgg16, resnet50; ``available_nets()``) on two paths.
+Serving: uint8 -> detections (mean subtraction, the backbone, whose
+squeezeDet conv1+pool1 run in a hand-written CUDA kernel,
+``ops/fused_frontend.py``, the ConvDet head,
 interpretation, top-K + per-class NMS).  Training: the single-device
 train step (``trainer.py``: on-device ingest and anchor matching, the
 forward with dropout, the loss, the backward with the weight gradients
@@ -22,9 +24,16 @@ from squeezedet_torch.config import (  # noqa: F401
     ModelConfig,
     base_model_config,
     config_for_net,
+    kitti_res50_config,
     kitti_squeezedet_config,
+    kitti_squeezedet_plus_config,
+    kitti_vgg16_config,
     tiny_test_config,
 )
-from squeezedet_torch.models import Detector, get_model  # noqa: F401
+from squeezedet_torch.models import (  # noqa: F401
+    Detector,
+    available_nets,
+    get_model,
+)
 
 __version__ = "0.1.0"

@@ -16,7 +16,11 @@ from squeezedet_torch.config.kitti import (  # noqa: F401
     config_for_net_at,
     custom_kitti_config,
     grid_for_net,
+    kitti_model_config,
+    kitti_res50_config,
     kitti_squeezedet_config,
+    kitti_squeezedet_plus_config,
+    kitti_vgg16_config,
     scale_recipe_to_batch,
     tiny_test_config,
 )
@@ -25,21 +29,16 @@ from squeezedet_torch.config.voc import (  # noqa: F401
     voc_config_for_net,
 )
 
-_CONFIG_FACTORIES = {"squeezeDet": kitti_squeezedet_config}
-
-
-def require_ported(net: str) -> None:
-    """Raise NotImplementedError for a net the JAX package supports but
-    this port does not yet."""
-    if net in ("squeezeDet+", "vgg16", "resnet50"):
-        raise NotImplementedError(
-            "{} is not ported yet: it arrives with the other backbones "
-            "(ROADMAP Queue 1 item 11)".format(net))
+_CONFIG_FACTORIES = {
+    "squeezeDet": kitti_squeezedet_config,
+    "squeezeDet+": kitti_squeezedet_plus_config,
+    "vgg16": kitti_vgg16_config,
+    "resnet50": kitti_res50_config,
+}
 
 
 def config_for_net(net: str) -> ModelConfig:
     """Look up the KITTI config factory for a net name."""
-    require_ported(net)
     if net not in _CONFIG_FACTORIES:
         raise ValueError(
             "Selected neural net architecture not supported: {}".format(net))

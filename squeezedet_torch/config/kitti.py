@@ -1,8 +1,10 @@
 """KITTI configurations (counterpart of ``squeezedet_tpu/config/kitti.py``).
 
-This slice ports the squeezeDet factory, the generic grid arithmetic,
-custom resolutions and the tiny test config.  The other backbones'
-factories arrive with their backbones (ROADMAP Queue 1 item 11).
+The four backbones' factories (squeezeDet, squeezeDet+, vgg16,
+resnet50) and the legacy generic one, the grid arithmetic, custom
+resolutions and the tiny test config.  All share one training recipe;
+they differ in input resolution, batch size, detection grid and anchor
+shapes.
 """
 
 from __future__ import annotations
@@ -53,6 +55,31 @@ def kitti_squeezedet_config() -> ModelConfig:
     """1248x384 input, 24x78x9 = 16,848 anchors (kitti_squeezeDet_config.py)."""
     return _kitti_config("squeezeDet", 1248, 384, 78, 24,
                          SQUEEZEDET_ANCHOR_SHAPES)
+
+
+def kitti_squeezedet_plus_config() -> ModelConfig:
+    """1242x375 input, 22x76x9 = 15,048 anchors
+    (kitti_squeezeDetPlus_config.py)."""
+    return _kitti_config("squeezeDet+", 1242, 375, 76, 22,
+                         SQUEEZEDET_ANCHOR_SHAPES)
+
+
+def kitti_vgg16_config() -> ModelConfig:
+    """1242x375 input, batch 5, 24x78x9 anchors (kitti_vgg16_config.py)."""
+    return _kitti_config("vgg16", 1242, 375, 78, 24,
+                         SQUEEZEDET_ANCHOR_SHAPES, batch_size=5)
+
+
+def kitti_res50_config() -> ModelConfig:
+    """1242x375 input, 24x78x9 anchors with the ResNet shape table
+    (kitti_res50_config.py)."""
+    return _kitti_config("resnet50", 1242, 375, 78, 24,
+                         RESNET50_ANCHOR_SHAPES)
+
+
+def kitti_model_config() -> ModelConfig:
+    """Legacy generic variant (kitti_model_config.py): 1248x384, 24x78x9."""
+    return _kitti_config("model", 1248, 384, 78, 24, SQUEEZEDET_ANCHOR_SHAPES)
 
 
 def _cdiv(a: int, b: int) -> int:

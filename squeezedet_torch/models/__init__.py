@@ -15,19 +15,29 @@ import numpy as np
 import torch
 from torch import nn
 
-from squeezedet_torch.config import (ModelConfig, config_for_net,
-                                     require_ported)
+from squeezedet_torch.config import ModelConfig, config_for_net
 from squeezedet_torch.data.device_pipeline import normalize_images
 from squeezedet_torch.models import layers as L
-from squeezedet_torch.models import squeezedet
+from squeezedet_torch.models import (resnet50, squeezedet, squeezedet_plus,
+                                     vgg16)
 from squeezedet_torch.models.skeleton import (Interpretation, LossBreakdown,
                                               Targets, detection_loss,
                                               interpret)
 from squeezedet_torch.ops.postprocess import filter_prediction_device
 
-_BACKBONES = {"squeezeDet": squeezedet.SqueezeDet}
+_BACKBONES = {
+    "squeezeDet": squeezedet.SqueezeDet,
+    "squeezeDet+": squeezedet_plus.SqueezeDetPlus,
+    "vgg16": vgg16.VGG16,
+    "resnet50": resnet50.ResNet50,
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def available_nets():
+    """The backbone names :func:`get_model` takes."""
+    return tuple(_BACKBONES)
 
 
 class Detector(nn.Module):
@@ -56,36 +66,62 @@ class Detector(nn.Module):
         """The backbone's shape and accounting walk (``model_metrics.txt``)."""
         return self.backbone.tracer
 
+    def layers(self):
+        """The backbone's conv layers (:class:`layers.Conv` and
+        :class:`layers.ConvBN`), in construction order."""
+        return [m for m in self.backbone.modules()
+                if isinstance(m, (L.Conv, L.ConvBN))]
+
     @torch.no_grad()
     def load_pretrained(self, weights) -> None:
-        """Copy caffe-pickle entries ({layer: [kernel OIHW, bias]}) onto
-        the backbone's layers of the same name and shape.  Layers without
-        an entry, or with one of another shape, keep their random init
-        and are printed; entries that matched no layer are listed."""
+        """Copy caffe-pickle entries onto the backbone's layers, found by
+        each layer's caffe name: ``{name: [kernel OIHW, bias]}`` for a
+        conv (bias only where the layer has one), plus ``{bn_name: [mean,
+        var], scale_name: [gamma, beta]}`` for a conv + batch norm.
+        Layers without an entry, or with one of another shape, keep their
+        random init and are printed; entries that matched no layer are
+        listed."""
         from squeezedet_torch.checkpoint.importer import (TrackedWeights,
                                                           warn_unconsumed)
         weights = TrackedWeights(weights)
-        for name, _ in self.tracer.model_size_counter:
-            conv = self.backbone.get_submodule(name.replace("/", "."))
-            if name not in weights:
+        for layer in self.layers():
+            names = [layer.name]
+            if isinstance(layer, L.ConvBN):
+                names += [layer.bn_name, layer.scale_name]
+            missing = [n for n in names if n not in weights]
+            if missing:
                 print("Cannot find {} in the pretrained model, use randomly "
-                      "initialized parameter".format(name))
+                      "initialized parameter".format(", ".join(missing)))
                 continue
-            kernel, bias = (np.asarray(b) for b in weights[name][:2])
-            if kernel.shape != tuple(conv.weight.shape) or \
-                    bias.shape != tuple(conv.bias.shape):
+            blobs = weights[layer.name]
+            pairs = [(layer.weight, blobs[0])]
+            if layer.bias is not None:
+                pairs.append((layer.bias, blobs[1] if len(blobs) > 1
+                              else None))
+            if isinstance(layer, L.ConvBN):
+                pairs += list(zip((layer.mean, layer.var),
+                                  weights[layer.bn_name][:2]))
+                pairs += list(zip((layer.gamma, layer.beta),
+                                  weights[layer.scale_name][:2]))
+            if any(b is None or np.shape(b) != tuple(t.shape)
+                   for t, b in pairs):
                 print("Shape of the pretrained parameter of {} does not "
-                      "match, use randomly initialized parameter".format(name))
+                      "match, use randomly initialized parameter".format(
+                          layer.name))
                 continue
-            conv.weight.copy_(torch.from_numpy(kernel.astype(np.float32)))
-            conv.bias.copy_(torch.from_numpy(bias.astype(np.float32)))
+            for t, b in pairs:
+                t.copy_(torch.from_numpy(np.asarray(b, np.float32)))
         warn_unconsumed(weights)
 
     def trainable_mask(self) -> Dict[str, bool]:
-        """Backbone state_dict name -> whether it trains (conv1 is frozen,
-        as ``requires_grad=False``; the rest trains)."""
-        return {name: p.requires_grad
+        """Backbone state_dict name -> whether it trains: a parameter
+        trains unless its layer is frozen (``requires_grad=False``); the
+        batch-norm statistics (buffers) never train."""
+        mask = {name: p.requires_grad
                 for name, p in self.backbone.named_parameters()}
+        mask.update((name, False) for name in self.backbone.state_dict()
+                    if name not in mask)
+        return mask
 
     # -- forward ------------------------------------------------------------
     def forward(self, images: torch.Tensor, *, train: bool = False,
@@ -173,7 +209,6 @@ def get_model(net: str, cfg: Optional[ModelConfig] = None, *, device,
     """Build a randomly initialised Detector by reference net name on
     ``device``.  ``generator`` (a CPU generator; seed 0 when omitted)
     draws the initial weights."""
-    require_ported(net)
     if net not in _BACKBONES:
         raise ValueError(
             "Selected neural net architecture not supported: {}".format(net))

@@ -10,11 +10,12 @@ Padding follows TF SAME (pad_top = pad_total // 2): on a stride-2 layer
 with an even input it pads (0, 1), not torch's symmetric ``padding=1``.
 Max-pool SAME pads with -inf.
 
-The squeezeDet float path is ported here, for inference and training:
+The float path of the four backbones is ported here, for inference and
+training: conv, conv + frozen-statistics batch norm (ResNet), pools,
 dropout, weight decay, and the filter-gradient routing that sends the
 weight gradient of eligible stride-1 SAME convs through K2
-(``ops/filter_grad.py``).  int8, ``conv2d_s2d``, ``conv_bn`` and fc come
-with later slices.
+(``ops/filter_grad.py``).  int8 comes with a later slice; fc (which no
+backbone uses) and the TPU-only ``conv2d_s2d`` are not ported.
 """
 
 from __future__ import annotations
@@ -95,11 +96,13 @@ class NetTracer:
 
 
 class Conv(nn.Module):
-    """Parameters of one conv layer: ``weight`` OIHW f32, ``bias`` [O]."""
+    """Parameters of one conv layer: ``weight`` OIHW f32, ``bias`` [O].
+    ``name`` is the layer's name in the tracer and in a caffe pickle."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor,
-                 freeze: bool = False):
+                 freeze: bool = False, name: str = ""):
         super().__init__()
+        self.name = name
         self.weight = nn.Parameter(weight, requires_grad=not freeze)
         self.bias = nn.Parameter(bias, requires_grad=not freeze)
 
@@ -117,19 +120,25 @@ def init_conv(generator: torch.Generator, tracer: NetTracer, name: str,
     draw happens on the CPU generator, so a seed gives the same weights
     on every device.
     """
-    in_ch = tracer.channels
-    shape = (filters, in_ch, size, size)
-    if xavier:
-        limit = math.sqrt(6.0 / (size * size * (in_ch + filters)))
-        weight = torch.empty(shape).uniform_(-limit, limit,
-                                             generator=generator)
-    else:
-        weight = torch.nn.init.trunc_normal_(
-            torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
-            generator=generator) * stddev
+    weight = _init_weight(generator, (filters, tracer.channels, size, size),
+                          xavier, stddev)
     tracer.conv(name, filters, size, stride, padding, relu)
     return Conv(weight.to(device), torch.zeros(filters, device=device),
-                freeze=freeze)
+                freeze=freeze, name=name)
+
+
+def _init_weight(generator: torch.Generator, shape, xavier: bool,
+                 stddev: float) -> torch.Tensor:
+    """An OIHW weight drawn on the CPU generator: uniform Glorot (fans
+    include the receptive field) or a normal clipped to 2 sigma."""
+    filters, in_ch, size, _ = shape
+    if xavier:
+        limit = math.sqrt(6.0 / (size * size * (in_ch + filters)))
+        return torch.empty(shape).uniform_(-limit, limit,
+                                           generator=generator)
+    return torch.nn.init.trunc_normal_(
+        torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
+        generator=generator) * stddev
 
 
 def _conv_nchw(x: torch.Tensor, weight: torch.Tensor,
@@ -249,6 +258,73 @@ def conv2d(conv: Conv, x: torch.Tensor, stride: int, padding: str = "SAME",
            relu: bool = True) -> torch.Tensor:
     """NHWC conv + bias (+ relu), matching tf.nn.conv2d SAME/VALID."""
     y = _conv_op(x, conv.weight, conv.bias, stride, padding)
+    if relu:
+        y = F.relu(y)
+    return y.permute(0, 2, 3, 1)
+
+
+# --- conv + frozen-statistics batch norm (ResNet) ---------------------------
+
+
+class ConvBN(nn.Module):
+    """A conv and its frozen-statistics batch norm: ``weight`` OIHW, an
+    optional ``bias`` (ResNet's conv1 only), ``gamma`` and ``beta``
+    (parameters, trained unless the layer is frozen) and ``mean`` and
+    ``var`` (persistent buffers: never trained, carried by state_dict
+    and checkpoints).  ``name``, ``bn_name`` and ``scale_name`` are the
+    caffe pickle's entries for [kernel (, bias)], [mean, var] and
+    [gamma, beta]."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                 filters: int, *, freeze: bool = False, name: str = "",
+                 bn_name: str = "", scale_name: str = ""):
+        super().__init__()
+        self.name, self.bn_name, self.scale_name = name, bn_name, scale_name
+        device = weight.device
+        self.weight = nn.Parameter(weight, requires_grad=not freeze)
+        self.bias = None if bias is None else \
+            nn.Parameter(bias, requires_grad=not freeze)
+        self.gamma = nn.Parameter(torch.ones(filters, device=device),
+                                  requires_grad=not freeze)
+        self.beta = nn.Parameter(torch.zeros(filters, device=device),
+                                 requires_grad=not freeze)
+        self.register_buffer("mean", torch.zeros(filters, device=device))
+        self.register_buffer("var", torch.ones(filters, device=device))
+
+
+def init_conv_bn(generator: torch.Generator, tracer: NetTracer, name: str,
+                 filters: int, size: int, stride: int, *, device,
+                 bn_name: str, scale_name: str, freeze: bool = False,
+                 relu: bool = True,
+                 conv_with_bias: bool = False, stddev: float = 0.001,
+                 xavier: bool = False) -> ConvBN:
+    """A randomly initialised :class:`ConvBN` (weight as in
+    :func:`init_conv`; zero bias; identity batch norm: mean 0, var 1,
+    gamma 1, beta 0); advances ``tracer``."""
+    weight = _init_weight(generator, (filters, tracer.channels, size, size),
+                          xavier, stddev)
+    tracer.conv(name, filters, size, stride, "SAME", relu)
+    bias = torch.zeros(filters, device=device) if conv_with_bias else None
+    return ConvBN(weight.to(device), bias, filters, freeze=freeze, name=name,
+                  bn_name=bn_name, scale_name=scale_name)
+
+
+def conv_bn(layer: ConvBN, x: torch.Tensor, stride: int, *,
+            relu: bool = True, eps: float = 1e-5) -> torch.Tensor:
+    """NHWC SAME conv (+ bias), then the frozen-statistics batch norm as an
+    affine, gamma * (y - mean) / sqrt(var + eps) + beta, in the JAX
+    package's arithmetic: ``inv = gamma * rsqrt(var + eps)`` in f32, then
+    ``y * inv + (beta - mean * inv)`` with both terms cast to y's dtype
+    (not ``F.batch_norm``, and not folded into the conv, which round
+    bf16 differently).  Never routed through K2, as the JAX conv_bn
+    calls its conv directly."""
+    y = _conv_nchw(x, layer.weight, None, stride, "SAME")
+    if layer.bias is not None:
+        y = y + layer.bias.to(y.dtype).view(1, -1, 1, 1)
+    inv = layer.gamma * torch.rsqrt(layer.var + eps)
+    shift = layer.beta - layer.mean * inv
+    y = y * inv.to(y.dtype).view(1, -1, 1, 1) + \
+        shift.to(y.dtype).view(1, -1, 1, 1)
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)

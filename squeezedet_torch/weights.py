@@ -1,10 +1,13 @@
 """Weight bridge between the JAX package's parameter tree and the port.
 
 The JAX tree nests layer names (``conv1``, ``fire2/squeeze1x1``, ...,
-``conv12``) down to ``{"kernel": HWIO, "bias": [O]}`` leaves; the port's
-backbone ``state_dict`` names the same layers with dots and holds OIHW
-``weight`` and ``bias`` tensors.  Both directions only transpose, so a
-round trip JAX -> torch -> JAX is bit-identical.  The optimizer state
+``conv12``; ResNet's ``res2a/branch2/branch2a``) down to ``{"kernel":
+HWIO, "bias": [O]}`` leaves, plus ``gamma``, ``beta``, ``mean`` and
+``var`` [O] for a conv + batch norm; the port's backbone ``state_dict``
+names the same layers with dots and holds OIHW ``weight`` tensors and
+the other leaves under their JAX names (``mean`` and ``var`` as
+buffers).  Both directions only transpose, so a round trip JAX -> torch
+-> JAX is bit-identical.  The optimizer state
 maps the same way: the optax chain's momentum ``trace`` tree and step
 ``count`` to and from ``optim.Momentum.state_dict()``.  Two more views
 hold the train loop against the JAX package's: the caffe-pickle layout
@@ -19,7 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-_TO_TORCH = {"kernel": "weight", "bias": "bias"}
+_TO_TORCH = {"kernel": "weight", "bias": "bias", "gamma": "gamma",
+             "beta": "beta", "mean": "mean", "var": "var"}
 _TO_JAX = {v: k for k, v in _TO_TORCH.items()}
 
 
@@ -74,8 +78,9 @@ def from_jax_opt_state(opt_state, trainable: Dict[str, bool]) -> dict:
     """The JAX package's optimizer state (the ``build_optimizer`` chain:
     its ``trace`` tree and schedule ``count``) -> ``Momentum.state_dict()``
     of the port: OIHW momentum buffers of the trainable parameters, and
-    the step.  ``trainable`` is ``Detector.trainable_mask()``; a frozen
-    leaf's trace must be zero, as the chain keeps it."""
+    the step.  ``trainable`` is ``Detector.trainable_mask()``, which
+    names every state_dict entry and holds the batch-norm statistics as
+    frozen; a frozen leaf's trace must be zero, as the chain keeps it."""
     trace = from_jax_params(_chain_field(opt_state, "trace").trace)
     if set(trace) != set(trainable):
         raise ValueError("trace names {} do not match the parameters "
@@ -108,17 +113,28 @@ def to_jax_opt_state(state: dict, params: Dict[str, torch.Tensor], like):
 
 
 def pickle_from_jax_params(tree) -> Dict[str, list]:
-    """JAX params -> the caffe-pickle layout {layer: [kernel OIHW, bias]},
-    layer names as the JAX tree nests them ('fire2/squeeze1x1')."""
-    out = {}
+    """JAX params -> the caffe-pickle layout: {layer: [kernel OIHW, bias]},
+    layer names as the JAX tree nests them ('fire2/squeeze1x1'); a conv +
+    batch norm (ResNet) gives its caffe entries instead (``resnet50.
+    caffe_names``): {conv: [kernel (, bias)], bn: [mean, var], scale:
+    [gamma, beta]}."""
+    from squeezedet_torch.models.resnet50 import caffe_names
+    layers: dict = {}
     for path, leaf in _flatten(tree):
-        layer = "/".join(path[:-1])
-        blobs = out.setdefault(layer, [None, None])
         arr = np.asarray(leaf)
         if path[-1] == "kernel":
-            blobs[0] = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
-        else:
-            blobs[1] = arr
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        layers.setdefault(path[:-1], {})[path[-1]] = arr
+    out = {}
+    for path, leaves in layers.items():
+        if "gamma" not in leaves:
+            out["/".join(path)] = [leaves["kernel"], leaves["bias"]]
+            continue
+        conv, bn, scale = caffe_names(".".join(path))
+        out[conv] = [leaves["kernel"]] + (
+            [leaves["bias"]] if "bias" in leaves else [])
+        out[bn] = [leaves["mean"], leaves["var"]]
+        out[scale] = [leaves["gamma"], leaves["beta"]]
     return out
 
 

@@ -32,16 +32,33 @@ def _assert_same_config(got, want):
                                  batch_size=3),
     lambda m: m.custom_kitti_config("squeezeDet", 624, 192),
     lambda m: m.config_for_net_at("squeezeDet", 640, 0),
+    lambda m: m.kitti_squeezedet_plus_config(),
+    lambda m: m.kitti_vgg16_config(),
+    lambda m: m.kitti_res50_config(),
+    lambda m: m.kitti_model_config(),
+    lambda m: m.tiny_test_config("resnet50"),
+    lambda m: m.custom_kitti_config("vgg16", 624, 192),
 ], ids=["flagship", "tiny", "tiny_160x64", "custom_624x192",
-        "config_for_net_at_640"])
+        "config_for_net_at_640", "squeezedet_plus", "vgg16", "res50",
+        "model", "tiny_resnet50", "custom_vgg16_624x192"])
 def test_config_matches_jax(make):
     _assert_same_config(make(tc.kitti), make(jk))
 
 
-def test_config_for_net_matches_jax():
+@pytest.mark.parametrize("net", ["squeezeDet", "squeezeDet+", "vgg16",
+                                 "resnet50"])
+def test_config_for_net_matches_jax(net):
     from squeezedet_tpu.config import config_for_net
-    _assert_same_config(tc.config_for_net("squeezeDet"),
-                        config_for_net("squeezeDet"))
+    _assert_same_config(tc.config_for_net(net), config_for_net(net))
+
+
+@pytest.mark.parametrize("net", ["squeezeDet", "squeezeDet+", "vgg16",
+                                 "resnet50"])
+def test_voc_config_for_net_matches_jax(net):
+    from squeezedet_tpu.config.voc import voc_config_for_net
+    _assert_same_config(tc.voc_config_for_net(net), voc_config_for_net(net))
+    _assert_same_config(tc.voc_config_for_net(net, 512, 384),
+                        voc_config_for_net(net, 512, 384))
 
 
 @pytest.mark.parametrize("net", ["squeezeDet", "squeezeDet+", "vgg16",
@@ -60,12 +77,3 @@ def test_anchor_grid_and_tables_match_jax():
     want = ja.make_anchor_grid(1248, 384, 78, 24, ja.SQUEEZEDET_ANCHOR_SHAPES)
     assert got.shape == (16848, 4) and got.dtype == np.float64
     np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("net", ["squeezeDet+", "vgg16", "resnet50"])
-def test_unported_nets_raise(net):
-    from squeezedet_torch.models import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.config_for_net(net)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(net, tc.tiny_test_config(), device="cpu")

@@ -163,7 +163,11 @@ def test_port_imports_no_jax():
             "squeezedet_torch.eval, squeezedet_torch.demo, "
             "squeezedet_torch.data.kitti, squeezedet_torch.data.kitti_ap, "
             "squeezedet_torch.data.pascal_voc, squeezedet_torch.native, "
-            "squeezedet_torch.utils.plots; "
+            "squeezedet_torch.utils.plots, squeezedet_torch.train, "
+            "squeezedet_torch.models.squeezedet_plus, "
+            "squeezedet_torch.models.vgg16, "
+            "squeezedet_torch.models.resnet50, "
+            "squeezedet_torch.config.voc; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'squeezedet_tpu', 'cv2')]; "
             "assert not bad, bad")
