@@ -76,7 +76,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    on 24 fixture frames: finite logged loss, a checkpoint), the eval CLI
    on that checkpoint (every image scored, finite APs) and, for
    squeezeDet+, the demo.  K1 must launch 0 times (it is squeezeDet's
-   front end only) and K2 as many times as the steps need.
+   front end only) and K2 as many times as the steps need;
+10. int8 and the exported artifact, on phase 8's checkpoint and fixture.
+   squeezeDet at 1248x384 calibrated on the card on 2 uint8 batches
+   (B=2): the int8 detector built from those scales on the CPU holds the
+   same tree, and its int8 activation tape and raw preds at B=2 equal the
+   card's bit for bit; the int8 uint8 -> detections program timed at
+   B=128 beside bf16, with its peak memory; a hybrid int8 forward (start
+   fire2) launches K1 once; squeezeDet+, VGG16 and ResNet50 at 1242x375
+   in int8 at B=2, card against CPU (ResNet50's float conv1 within the
+   f32 tolerance, its int8 blocks, fed the card's conv1, exactly);
+   ``squeezedet_torch.export.main`` at B=8, bf16
+   and int8, on cuda: each reloaded artifact equals the direct program
+   bit for bit, K1 launching once per bf16 artifact call and never in
+   the whole-net int8 one; the server on the bf16 artifact
+   (``--artifact``, ``--max_batch 8``, 16 concurrent requests); the eval
+   CLI with ``--quantize int8 --run_once`` (every image scored, finite
+   APs) and the demo with ``--quantize int8`` on 4 frames.  Then, not
+   counted, each int8 conv of squeezeDet (im2col + ``torch._int_mm`` +
+   epilogue) timed at B=128 beside the bf16 cuDNN conv of the same layer.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -217,6 +235,11 @@ K2_BACKBONE_SHAPES = {
 # config's batch and resolution) with its fixture of 1242x375 frames
 BACKBONE_MODE_BATCH, BACKBONE_CLI_STEPS, BACKBONE_IMAGES = 4, 10, 24
 BACKBONE_DEMO_FRAMES = 3
+# phase 10: int8 and the exported artifact.  Calibration batches (uint8,
+# B=2), the batches of the int8 readings, the hybrid boundary, the
+# artifact's batch, and the int8 eval's calibration batches.
+INT8_CALIB_BATCHES, INT8_CHECK_BATCH, INT8_BIG_BATCH = 2, 2, 128
+INT8_HYBRID_START, EXPORT_BATCH, INT8_EVAL_CALIB = "fire2", 8, 2
 
 
 def log(*a):
@@ -1452,8 +1475,8 @@ def phase_eval_demo(card):
             DEMO_VIDEO_FRAMES, shape[1], shape[0],
             *(json.dumps([round(float(t), 3) for t in col])
               for col in times.T), *np.median(times[1:], axis=0), card))
-    shutil.rmtree(work, ignore_errors=True)
     log("[eval] phase 8 took {:.1f} s".format(time.perf_counter() - t_phase))
+    # phase 10 takes the fixture and the checkpoint, then removes them
     return forwards, cpu.backbone.state_dict()
 
 
@@ -1693,6 +1716,407 @@ def phase_backbones(card):
     return k2
 
 
+def int8_card_vs_cpu(det, calib, tag, start=""):
+    """Calibrate ``det`` (on the card) on the uint8 batches ``calib`` and
+    quantize it; build the int8 detector of the same scales on the CPU,
+    which must hold the same tree; then hold the card's int8 activation
+    tape and raw preds at B=INT8_CHECK_BATCH to the CPU's, bit for bit.
+    ResNet50 keeps a float conv1 before its int8 blocks: the card's and
+    the CPU's f32 convs differ in their last bits, which the int8
+    boundary would turn into whole-step flips, so its conv1 is held to
+    PRED_RTOL/PRED_ATOL and the CPU's int8 blocks take the card's conv1
+    output.  Returns the card's int8 detector and its scales."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import quant
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.models import layers as L
+    t0 = time.perf_counter()
+    scales = quant.calibrate(det, calib)
+    qdet = quant.quantize_detector(det, scales, start=start)
+    cpu = get_model(det.net, det.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    qcpu = quant.quantize_detector(cpu, scales, start=start)
+    qstate = qdet.state_dict()
+    for k, v in qcpu.state_dict().items():
+        if not torch.equal(v, qstate[k].cpu()):
+            raise AssertionError("{} int8 {}: the CPU's tree differs at "
+                                 "{}".format(tag, det.net, k))
+    cfg = det.cfg
+    u8 = torch.from_numpy(np.random.RandomState(11).randint(
+        0, 256, (INT8_CHECK_BATCH, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8))
+    tape_card, tape_cpu = {}, {}
+    with torch.inference_mode():
+        qdet.backbone(qdet.quant_input(u8.cuda()), tape=tape_card)
+    float_conv1 = isinstance(getattr(qcpu.backbone, "conv1", None),
+                             L.ConvBN)
+    real = L.conv_bn
+    if float_conv1:
+        with torch.inference_mode():
+            own = real(qcpu.backbone.conv1, qcpu.quant_input(u8), 2,
+                       eps=cfg.batch_norm_epsilon)
+        torch.testing.assert_close(tape_card["conv1"].cpu(), own,
+                                   rtol=PRED_RTOL, atol=PRED_ATOL)
+
+        def card_conv1(layer, x, *a, **k):
+            if layer is qcpu.backbone.conv1:
+                return tape_card["conv1"].cpu()
+            return real(layer, x, *a, **k)
+        L.conv_bn = card_conv1
+    try:
+        with torch.inference_mode():
+            qcpu.backbone(qcpu.quant_input(u8), tape=tape_cpu)
+    finally:
+        L.conv_bn = real
+    bad = [k for k in tape_cpu if not torch.equal(tape_card[k].cpu(),
+                                                  tape_cpu[k])]
+    if bad:
+        raise AssertionError("{} int8 {}: {} differ from the CPU's".format(
+            tag, det.net, bad))
+    log("[int8] {} {} int8 (start {}) B={} at {}x{}: calibrated on {} uint8 "
+        "batches; all {} taped activations (int8, and the f32 head) equal "
+        "the CPU's bit for bit{}; {:.1f} s".format(
+            tag, det.net, start or quant.DEFAULT_START[det.net],
+            INT8_CHECK_BATCH, cfg.image_height, cfg.image_width, len(calib),
+            len(tape_cpu), ", the float conv1 within the f32 tolerance and "
+            "the int8 blocks fed the card's conv1" if float_conv1 else "",
+            time.perf_counter() - t0))
+    return qdet, scales
+
+
+def int8_reading(qdet, det16, card):
+    """uint8 -> detections at B=INT8_BIG_BATCH, int8 and bf16 in turns
+    (int8, bf16, bf16, int8) on the host clock over synchronised batches,
+    with the int8 program's peak memory; a smoke reading.  Returns the
+    bf16 forwards run (each launches K1)."""
+    import numpy as np
+    import torch
+    cfg = qdet.cfg
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (INT8_BIG_BATCH, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8)).cuda()
+    runs = {"int8": qdet.predict_quant_postprocessed,
+            "bf16": det16.predict_raw_postprocessed}
+    ms, peak, bf16_forwards = {"int8": [], "bf16": []}, 0.0, 0
+    for name in ("int8", "bf16", "bf16", "int8"):
+        fn = runs[name]
+        fn(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn(x)
+        kept = int(out[3].sum().item())
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / 3 * 1e3)
+        if name == "int8":
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        else:
+            bf16_forwards += 4
+        if out[0].shape != (INT8_BIG_BATCH, 64, 4) or \
+                not torch.isfinite(out[1]).all():
+            raise AssertionError("bad {} outputs".format(name))
+    log("[int8] smoke reading, not a benchmark: squeezeDet uint8->detections "
+        "B={} {}x{}: int8 {} ms/batch, bf16 {} ms/batch (two turns each, 3 "
+        "batches a turn); int8 peak {:.2f} GiB; {} kept; on {}".format(
+            INT8_BIG_BATCH, cfg.image_height, cfg.image_width,
+            json.dumps([round(t, 3) for t in ms["int8"]]),
+            json.dumps([round(t, 3) for t in ms["bf16"]]), peak, kept, card))
+    return bf16_forwards
+
+
+def one_frame_latency(det, x1, out_dir, card):
+    """A B=1 bf16 artifact of ``det`` (a serving camera's one frame):
+    equal to the direct program, and both timed by CUDA events over
+    synchronised calls (host-bound at B=1).  Returns its K1 launches."""
+    import torch
+
+    from squeezedet_torch.serving import export_model, load_exported
+    export_model(det, out_dir, batch_size=1)
+    fn, _ = load_exported(out_dir)
+    program = det.predict_raw_postprocessed
+    if not all(torch.equal(g, w) for g, w in zip(fn(x1), program(x1))):
+        raise AssertionError("B=1 artifact differs from the direct program")
+    ms, ms_direct = [], []
+    for _ in range(2):  # in turns
+        ms.append(cuda_ms(lambda: fn(x1), 20))
+        ms_direct.append(cuda_ms(lambda: program(x1), 20))
+    log("[export] bf16 artifact B=1: equal to the direct program bit for "
+        "bit; smoke reading {} ms a frame (direct {}) by CUDA events, two "
+        "turns of 20 calls; on {}".format(
+            json.dumps([round(t, 3) for t in ms]),
+            json.dumps([round(t, 3) for t in ms_direct]), card))
+    return 2 + 4 * 22
+
+
+def export_and_serve(ckpt_dir, calib_glob, work, card):
+    """``squeezedet_torch.export.main`` at B=EXPORT_BATCH, bf16 and int8,
+    on cuda; each reloaded artifact against the direct program of the
+    same checkpoint (and calibration frames), bit for bit, with K1's
+    launches per artifact call; then the server on the bf16 artifact.
+    Returns the K1 launches it expects."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import export, serve
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.demo import load_params
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.quant import calib_batch_from_images
+    from squeezedet_torch.serving import load_exported
+    cfg = kitti_squeezedet_config().replace(batch_size=EXPORT_BATCH,
+                                            compute_dtype="bfloat16")
+    direct = load_params(get_model("squeezeDet", cfg, device="cuda"),
+                         ckpt_dir)
+    x = torch.from_numpy(np.random.RandomState(12).randint(
+        0, 256, (EXPORT_BATCH, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8)).cuda()
+    k1, arts = 0, {}
+    for name, extra in (("bf16", []), ("int8", ["--quantize", "int8",
+                                                "--calib_images",
+                                                calib_glob])):
+        out_dir = os.path.join(work, "artifact_" + name)
+        t0 = time.perf_counter()
+        _logged(export.main, ["--device", "cuda", "--checkpoint", ckpt_dir,
+                              "--out_dir", out_dir, "--batch_size",
+                              str(EXPORT_BATCH)] + extra)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn, meta = load_exported(out_dir)
+        t_load = time.perf_counter() - t0
+        if name == "int8":
+            model = direct.quantize([calib_batch_from_images(
+                calib_glob, cfg.image_width, cfg.image_height)])
+            program = model.predict_quant_postprocessed
+        else:
+            program = direct.predict_raw_postprocessed
+        before = ff.LAUNCHES
+        got = fn(x)
+        per_call = ff.LAUNCHES - before
+        want = program(x)
+        k1 += per_call + (name == "bf16")
+        if per_call != (1 if name == "bf16" else 0):
+            raise AssertionError("{} artifact: {} K1 launches a call".format(
+                name, per_call))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("{} artifact differs from the direct "
+                                 "program".format(name))
+        ms = cuda_ms(lambda: fn(x), 5)
+        ms_direct = cuda_ms(lambda: program(x), 5)
+        if name == "bf16":
+            k1 += 14  # 7 timed calls of each
+            k1 += one_frame_latency(direct, x[:1].contiguous(),
+                                    os.path.join(work, "artifact_b1"),
+                                    card)
+        arts[name] = out_dir
+        log("[export] {} artifact B={}: exported in {:.1f} s ({:.1f} MB), "
+            "reloaded in {:.1f} s; equal to the direct program bit for bit; "
+            "K1 launches per call {}; quantized {}; smoke reading {:.3f} "
+            "ms/batch (direct {:.3f}) by CUDA events; on {}".format(
+                name, EXPORT_BATCH, t_export,
+                os.path.getsize(os.path.join(out_dir, "model.pt2")) / 1e6,
+                t_load, per_call, meta["quantized"], ms, ms_direct, card))
+
+    args = serve.build_arg_parser().parse_args(
+        ["--artifact", arts["bf16"], "--max_batch", str(EXPORT_BATCH),
+         "--port", "0", "--device", "cuda"])
+    server, batcher = serve.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = "http://127.0.0.1:{}/healthz".format(server.server_address[1])
+        with urllib.request.urlopen(url, timeout=30) as r:
+            if r.status != 200 or r.read() != b"ok":
+                raise AssertionError("/healthz did not answer 200 ok")
+        frames = np.random.RandomState(13).randint(
+            0, 256, (16, cfg.image_height, cfg.image_width, 3),
+            dtype=np.uint8)
+        with ThreadPoolExecutor(16) as pool:
+            replies = list(pool.map(batcher.submit, frames))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for boxes, probs, classes, keep in replies:
+        if boxes.shape != (1, 64, 4) or keep.shape != (1, 64) or \
+                not np.isfinite(probs).all():
+            raise AssertionError("bad artifact reply")
+    if len(replies) != 16 or batcher.batches_run < 2:
+        raise AssertionError("{} replies in {} batches".format(
+            len(replies), batcher.batches_run))
+    log("[export] serve --artifact --max_batch {}: /healthz 200; 16 requests "
+        "in {} batches".format(EXPORT_BATCH, batcher.batches_run))
+    return k1 + 1 + batcher.batches_run
+
+
+def int8_eval_demo(root, ckpt_dir, work):
+    """The eval CLI with --quantize int8 --run_once on phase 8's fixture,
+    and the demo with --quantize int8 on 4 of its frames (whole-net int8:
+    no K1)."""
+    import glob
+
+    import numpy as np
+
+    from squeezedet_torch import demo
+    from squeezedet_torch import eval as eval_cli
+    t0 = time.perf_counter()
+    scored = []
+    real = _recorded(eval_cli, "eval_checkpoint", scored)
+    try:
+        _logged(eval_cli.main, [
+            "--device", "cuda", "--data_path", root, "--image_set", "val",
+            "--checkpoint_path", ckpt_dir, "--eval_dir",
+            os.path.join(work, "eval_int8"), "--run_once",
+            "--eval_batch_size", "8", "--quantize", "int8",
+            "--calib_batches", str(INT8_EVAL_CALIB)])
+    finally:
+        eval_cli.eval_checkpoint = real
+    aps, _, mAP = scored[0]
+    data = os.path.join(work, "eval_int8", "detection_files_{}".format(
+        EVAL_STEP), "data")
+    if len(os.listdir(data)) != EVAL_IMAGES or len(aps) != 9 or \
+            not np.isfinite(aps).all():
+        raise AssertionError("int8 eval: {} det files, APs {}".format(
+            len(os.listdir(data)), aps))
+    log("[int8] eval --quantize int8 --run_once (f32 B=8, calibrated on {} "
+        "batches): {} images scored, mAP {:.6f}, {:.1f} s".format(
+            INT8_EVAL_CALIB, EVAL_IMAGES, mAP, time.perf_counter() - t0))
+    out = os.path.join(work, "demo_int8")
+    _logged(demo.main, [
+        "--device", "cuda", "--checkpoint", ckpt_dir, "--quantize", "int8",
+        "--input_path", os.path.join(root, "training", "image_2",
+                                     "00000[0-{}].png".format(
+                                         DEMO_IMAGES - 1)),
+        "--out_dir", out])
+    if len(glob.glob(os.path.join(out, "out_*.png"))) != DEMO_IMAGES:
+        raise AssertionError("int8 demo wrote {}".format(os.listdir(out)))
+    log("[int8] demo --quantize int8: {} frames drawn".format(DEMO_IMAGES))
+
+
+def int8_layer_table(qdet, det16, card):
+    """Not counted: each int8 conv of squeezeDet's uint8 -> detections
+    program at B=INT8_BIG_BATCH (im2col + torch._int_mm + epilogue, on the
+    inputs the program gives it) timed by CUDA events beside the bf16
+    cuDNN conv of the same layer (conv + bias + ReLU, or the two halves
+    of a virtual concat) on inputs of the same shape."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.models import layers as L
+    cfg = qdet.cfg
+    calls = []
+    real = L.qconv
+
+    def recording(conv, xs, stride, padding="SAME", relu=True):
+        calls.append((conv, xs, stride, padding, relu))
+        return real(conv, xs, stride, padding, relu)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (INT8_BIG_BATCH, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8)).cuda()
+    L.qconv = recording
+    try:
+        qdet.predict_quant(x)
+    finally:
+        L.qconv = real
+    names = {id(m): n for n, m in qdet.backbone.named_modules()}
+    floats = dict(det16.backbone.named_modules())
+    rows, total = [], [0.0, 0.0]
+    for conv, xs, stride, padding, relu in calls:
+        name = names[id(conv)]
+        fconv = floats[name]
+        xb = [torch.randn(t.shape, device=t.device).to(torch.bfloat16)
+              for t in xs]
+        t_int8 = cuda_ms(lambda: real(conv, xs, stride, padding, relu), 3,
+                         warmup=1)
+        if len(xb) == 1:
+            t_bf16 = cuda_ms(lambda: L.conv2d(fconv, xb[0], stride, padding,
+                                              relu), 3, warmup=1)
+        else:
+            t_bf16 = cuda_ms(lambda: L.conv2d_pair(fconv, xb[0], xb[1],
+                                                   stride, relu), 3,
+                             warmup=1)
+        o, c, kh, kw = conv.weight.shape
+        rows.append({"layer": name, "in": [list(t.shape) for t in xs],
+                     "kernel": [kh, kw, c, o], "int8_ms": round(t_int8, 4),
+                     "bf16_cudnn_ms": round(t_bf16, 4)})
+        total[0] += t_int8
+        total[1] += t_bf16
+        del xb
+    for r in rows:
+        log("[int8] conv {layer}: in {in}, kernel {kernel}: int8 {int8_ms} ms, "
+            "bf16 cuDNN {bf16_cudnn_ms} ms".format(**r))
+    log("[int8] the {} convs at B={}: int8 {:.3f} ms, bf16 cuDNN {:.3f} ms "
+        "({:.2f}x); on {}".format(len(rows), INT8_BIG_BATCH, total[0],
+                                  total[1], total[0] / total[1], card))
+    return rows
+
+
+def phase_int8_export(card, weights):
+    """Phase 10: int8 and the exported artifact on phase 8's checkpoint
+    (``weights``) and fixture.  Returns the K1 launches the counted part
+    must show; the per-layer timing table runs after it, uncounted, from
+    :func:`main`."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import config_for_net, \
+        kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = os.path.join(HERE, ".chipscratch", "eval_demo")
+    root, ckpt_dir = os.path.join(work, "kitti"), os.path.join(work, "train")
+    cfg = kitti_squeezedet_config().replace(batch_size=INT8_CHECK_BATCH)
+    det = get_model("squeezeDet", cfg, device="cuda")
+    det.backbone.load_state_dict(weights)
+    rs = np.random.RandomState(10)
+    calib = [rs.randint(0, 256, (INT8_CHECK_BATCH, cfg.image_height,
+                                 cfg.image_width, 3), dtype=np.uint8)
+             for _ in range(INT8_CALIB_BATCHES)]
+    qdet, scales = int8_card_vs_cpu(det, calib, "main")
+    if ff.LAUNCHES != 0:
+        raise AssertionError("calibration or whole-net int8 launched K1")
+
+    det16 = get_model("squeezeDet", cfg.replace(compute_dtype="bfloat16"),
+                      device="cuda")
+    det16.backbone.load_state_dict(weights)
+    k1 = int8_reading(qdet, det16, card)
+    from squeezedet_torch import quant
+    hybrid = quant.quantize_detector(det, scales, start=INT8_HYBRID_START)
+    before = ff.LAUNCHES
+    out = hybrid.predict_quant_postprocessed(torch.from_numpy(calib[0]).cuda())
+    if ff.LAUNCHES - before != 1 or not torch.isfinite(out[1]).all():
+        raise AssertionError("hybrid int8 forward: {} K1 launches".format(
+            ff.LAUNCHES - before))
+    k1 += 1
+    log("[int8] hybrid int8 from {}: K1 launches once a forward".format(
+        INT8_HYBRID_START))
+
+    for net in BACKBONES:
+        bcfg = config_for_net(net).replace(batch_size=INT8_CHECK_BATCH)
+        bdet = get_model(net, bcfg, device="cuda")
+        rsb = np.random.RandomState(14)
+        int8_card_vs_cpu(bdet, [rsb.randint(
+            0, 256, (INT8_CHECK_BATCH, bcfg.image_height, bcfg.image_width,
+                     3), dtype=np.uint8)], "backbones")
+        del bdet
+    torch.cuda.empty_cache()
+
+    calib_glob = os.path.join(root, "training", "image_2", "*.png")
+    k1 += export_and_serve(ckpt_dir, calib_glob, work, card)
+    int8_eval_demo(root, ckpt_dir, work)
+    log("[int8] phase 10 took {:.1f} s".format(time.perf_counter() - t_phase))
+    shutil.rmtree(work, ignore_errors=True)
+    return k1, qdet, det16
+
+
 def main():
     import_port()
     import torch
@@ -1774,13 +2198,24 @@ def main():
     log("[backbones] path: K1 launches {}, K2 launches {}".format(
         backbones["k1"], backbones["k2"]))
 
+    # int8 and the exported artifact: counts from 0 just before them
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    want_k1, qdet, det16 = phase_int8_export(card, eval_weights)
+    int8 = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    if int8["k1"] != want_k1 or int8["k2"] != 0:
+        raise AssertionError("int8 and export: K1 launches {k1}, expected "
+                             "{0}; K2 launches {k2}".format(want_k1, **int8))
+    log("[int8] path: K1 launches {}, K2 launches {}".format(
+        int8["k1"], int8["k2"]))
+    int8_layer_table(qdet, det16, card)
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
-        + backbones["k1"],
+        + backbones["k1"] + int8["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **k1,
     }, {

@@ -8,9 +8,11 @@ Image mode: glob the inputs, resize to model resolution, detect, draw
 class-coloured boxes, write ``out_<name>``.  Video mode: crop each frame
 to ``[500:-205, 239:-439]`` (a 1920x1080 frame gives 375x1242), detect,
 draw, write ``<n>.jpg`` and print per-frame timing.  Runs on ``--device``
-(``cuda`` by default, never falling back to the CPU); every forward runs
-the K1 kernel there.  cv2 reads, resizes, draws and writes, as in the
-JAX demo, imported where it is used.
+(``cuda`` by default, never falling back to the CPU); every float
+squeezeDet forward runs the K1 kernel there.  ``--quantize int8`` runs
+the int8 program instead, calibrated on ``--calib_images`` (in image
+mode, by default, on the input frames).  cv2 reads, resizes, draws and
+writes, as in the JAX demo, imported where it is used.
 """
 
 from __future__ import annotations
@@ -45,7 +47,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='torch device to detect on; never falls back.')
     p.add_argument('--compute_dtype', default='')
     p.add_argument('--quantize', default='', choices=['', 'int8'],
-                   help='int8 (not ported yet).')
+                   help='Run the int8 PTQ program (quant.py), calibrated '
+                        'on --calib_images (default: the input images in '
+                        'image mode).')
+    p.add_argument('--calib_images', default='',
+                   help='Image file, directory or glob for --quantize '
+                        'calibration; required in video mode.')
+    p.add_argument('--calib_percentile', type=float, default=None,
+                   help='Calibrate activation ranges at this percentile of '
+                        '|activation| instead of abs-max.')
     p.add_argument('--image_width', type=int, default=0,
                    help='Override input width (0 = model default).')
     p.add_argument('--image_height', type=int, default=0,
@@ -89,15 +99,13 @@ def load_params(det, checkpoint: str):
     return det
 
 
-def _build(args):
-    """(det, cfg) for the demo's net on ``--device``, with its weights."""
+def _build(args, default_calib: str = ''):
+    """(det, cfg) for the demo's net on ``--device``, with its weights;
+    with ``--quantize``, its int8 twin (:func:`_maybe_quantize`)."""
     from squeezedet_torch.config import config_for_net_at
     from squeezedet_torch.models import get_model
     from squeezedet_torch.utils.util import resolve_device
 
-    if args.quantize:
-        raise SystemExit('--quantize is not ported yet: int8 arrives with '
-                         'ROADMAP Queue 1 item 12')
     if args.demo_net not in ('squeezeDet', 'squeezeDet+'):
         raise SystemExit('Selected neural net architecture not supported: '
                          '{}'.format(args.demo_net))
@@ -109,7 +117,25 @@ def _build(args):
         cfg = cfg.replace(compute_dtype=args.compute_dtype)
     det = load_params(get_model(args.demo_net, cfg, device=device),
                       args.checkpoint)
-    return det, cfg
+    return _maybe_quantize(args, det, default_calib), cfg
+
+
+def _maybe_quantize(args, det, default_calib: str = ''):
+    """``det``, or with ``--quantize int8`` its int8 twin calibrated on
+    ``--calib_images`` (else ``default_calib``), which the demo's forward
+    runs through ``predict_quant_normalized``."""
+    if not args.quantize:
+        return det
+    calib_src = args.calib_images or default_calib
+    if not calib_src:
+        raise SystemExit('--quantize needs --calib_images')
+    from squeezedet_torch.quant import calib_batch_from_images
+    cfg = det.cfg
+    calib = calib_batch_from_images(calib_src, cfg.image_width,
+                                    cfg.image_height)
+    print('Quantizing (int8 PTQ, {} calibration frames)...'.format(
+        len(calib)))
+    return det.quantize([calib], percentile=args.calib_percentile)
 
 
 def _predict(det, im_input: np.ndarray, device_pp: bool):
@@ -120,11 +146,11 @@ def _predict(det, im_input: np.ndarray, device_pp: bool):
     import torch
     x = torch.from_numpy(np.ascontiguousarray(im_input[None])).to(
         det.anchors.device)
-    if device_pp:
-        out = det.predict_postprocessed(x)
-    else:
-        interp = det.predict(x)
-        out = (interp.det_boxes, interp.det_probs, interp.det_class)
+    with torch.inference_mode():
+        interp = det.predict_quant_normalized(x) if det.quantized else \
+            det.predict(x)
+        out = det.postprocess_device(interp) if device_pp else \
+            (interp.det_boxes, interp.det_probs, interp.det_class)
     return tuple(o.cpu().numpy() for o in out)
 
 
@@ -170,7 +196,7 @@ def _detect_and_draw(det, frame, im_input, mc, device_pp: bool = False):
 def image_demo(args):
     import cv2
 
-    det, cfg = _build(args)
+    det, cfg = _build(args, default_calib=args.input_path)
     for f in glob.iglob(args.input_path):
         im = cv2.imread(f).astype(np.float32)
         im = cv2.resize(im, (cfg.image_width, cfg.image_height))

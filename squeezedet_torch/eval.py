@@ -10,8 +10,11 @@
 (``cuda`` by default, never falling back to the CPU), rescales the boxes
 to each image's resolution, writes KITTI det files, scores them and
 writes AP/mAP/timing summaries.  :func:`main` polls the checkpoint
-directory and scores each new step once.  Every forward runs the K1
-kernel (``ops/fused_frontend.py``) on the card.
+directory and scores each new step once.  Every float squeezeDet forward
+runs the K1 kernel (``ops/fused_frontend.py``) on the card.
+``--quantize int8`` scores the int8 program of each checkpoint,
+calibrated on the split's first ``--calib_batches`` batches
+(:func:`quantize_on_split`).
 
 One device, so no mesh and no spatial partitioning: the JAX package
 takes those only with several devices (ROADMAP Queue 1 item 13).  Flags
@@ -66,13 +69,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Render recall/precision curve images from the '
                         'scorer plot data (matplotlib).')
     p.add_argument('--quantize', default='', choices=['', 'int8'],
-                   help='int8 eval (not ported yet).')
-    p.add_argument('--calib_batches', type=int, default=None,
-                   help='Calibration batches for --quantize (not ported '
-                        'yet).')
+                   help='Post-training int8 quantization: calibrate on the '
+                        'first --calib_batches eval batches, then score the '
+                        'int8 program (quant.py).')
+    p.add_argument('--calib_batches', type=int, default=4,
+                   help='Calibration batches for --quantize.')
     p.add_argument('--calib_percentile', type=float, default=None,
-                   help='Calibration percentile for --quantize (not '
-                        'ported yet).')
+                   help='Calibrate activation ranges at this percentile of '
+                        '|activation| instead of abs-max (saturating clip, '
+                        'e.g. 99.99).')
     p.add_argument('--device_postprocess', action='store_true',
                    help='Run top-K + per-class NMS on the device instead '
                         'of the host-numpy filter_prediction (the same '
@@ -92,10 +97,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     """Flags of the JAX CLI whose port is still to come, or stays out."""
-    if args.quantize or args.calib_batches is not None or \
-            args.calib_percentile is not None:
-        raise SystemExit('--quantize and --calib_* are not ported yet: int8 '
-                         'arrives with ROADMAP Queue 1 item 12')
     if args.native_loader:
         raise SystemExit('--native_loader is not ported yet: the C++ '
                          'loader is ROADMAP Queue 1 item 17')
@@ -111,6 +112,25 @@ def resolve_device_postprocess(args) -> bool:
     if args.host_postprocess:
         return False
     return args.device_postprocess or args.eval_batch_size > 1
+
+
+def quantize_on_split(det, imdb, calib_batches: int, percentile=None):
+    """The int8 twin of ``det`` (``quant.py``), calibrated on the first
+    ``calib_batches`` batches of the split (unshuffled, the reader's
+    cursor reset before and after).  ``det`` is left as it was."""
+    from squeezedet_torch.quant import calibrate_normalized, \
+        quantize_detector
+    imdb.reset_cursor()
+
+    def batches():
+        for _ in range(calib_batches):
+            images, _ = imdb.read_image_batch(shuffle=False)
+            yield np.stack(images)
+
+    qdet = quantize_detector(det, calibrate_normalized(
+        det, batches(), percentile=percentile))
+    imdb.reset_cursor()
+    return qdet
 
 
 def _eval_stack(imdb, device):
@@ -181,10 +201,13 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
     timers = {'im_detect': Timer(), 'im_read': Timer(), 'misc': Timer()}
     stack = _eval_stack(imdb, device) if device_dataset else None
 
+    # an int8 detector (quantize_on_split) runs its int8 program
+    forward = det.predict_quant_normalized if det.quantized else det.predict
+
     def predict(images):
+        interp = forward(images)
         if device_postprocess:
-            return det.predict_postprocessed(images)
-        interp = det.predict(images)
+            return det.postprocess_device(interp)
         return interp.det_boxes, interp.det_probs, interp.det_class
 
     num_detection = 0.0
@@ -246,10 +269,20 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
 
 def eval_checkpoint(det, imdb, global_step, *, eval_dir, batch_size=1,
                     summary_writer=None, skip_analysis=False, plot_pr=False,
+                    quantize='', calib_batches=4, calib_percentile=None,
                     device_postprocess=False, device_dataset=False):
     """Score ``det``'s weights as step ``global_step``: detect, write and
     score the det files, print and write the summaries, and analyse the
-    errors.  Returns (aps, ap_names, mAP)."""
+    errors.  With ``quantize='int8'`` the int8 twin of ``det`` is scored
+    (:func:`quantize_on_split`).  Returns (aps, ap_names, mAP)."""
+    if quantize:
+        if quantize != 'int8':
+            raise ValueError('quantize must be int8, got {!r}'.format(
+                quantize))
+        print('Quantizing (int8 PTQ, {} calibration batches)...'.format(
+            calib_batches))
+        det = quantize_on_split(det, imdb, calib_batches,
+                                percentile=calib_percentile)
     all_boxes, num_detection, timers = detect_all(
         det, imdb, batch_size, device_postprocess=device_postprocess,
         device_dataset=device_dataset)
@@ -352,6 +385,9 @@ def main(argv=None):
                             summary_writer=writer,
                             skip_analysis=args.skip_analysis,
                             plot_pr=args.plot_pr,
+                            quantize=args.quantize,
+                            calib_batches=args.calib_batches,
+                            calib_percentile=args.calib_percentile,
                             device_postprocess=resolve_device_postprocess(
                                 args),
                             device_dataset=args.device_dataset)

@@ -4,7 +4,9 @@
 :class:`Detector` bundles a backbone with the shared interpretation
 graph and postprocessing, so entry points deal with one object.  Unlike
 the JAX facade it owns its parameters, as an ``nn.Module``; the weight
-bridge (``squeezedet_torch.weights``) loads the JAX package's.
+bridge (``squeezedet_torch.weights``) loads the JAX package's.  Its int8
+twin is another ``Detector`` (:meth:`Detector.quantize`), whose
+``predict_quant*`` methods serve it.
 """
 
 from __future__ import annotations
@@ -153,6 +155,64 @@ class Detector(nn.Module):
         images = normalize_images(images_u8, self.cfg.bgr_means,
                                   self.compute_dtype)
         return self.interpret(self.backbone(images).float())
+
+    # -- int8 serving (quant.py) ---------------------------------------------
+    @property
+    def quantized(self) -> bool:
+        """Whether this is an int8 detector (:meth:`quantize`)."""
+        return any(isinstance(m, L.QConv) for m in self.backbone.modules())
+
+    def quantize(self, calib_batches_u8, start: str = "",
+                 percentile: Optional[float] = None) -> "Detector":
+        """Post-training int8 quantization: calibrate activation ranges on
+        uint8 batches and return a new int8 detector (``quant.py``);
+        this one is left as it was.  ``start`` names the first quantized
+        layer (default: the JAX package's boundary for the net);
+        ``percentile`` calibrates at that percentile of |activation|
+        instead of the abs-max."""
+        from squeezedet_torch.quant import quantize
+        return quantize(self, calib_batches_u8, start=start,
+                        percentile=percentile)
+
+    def quant_input(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """The int8 backbone's input from uint8 BGR images: int8 at
+        ``input_scale`` in whole-net mode (the scale stored at quantize
+        time, never re-derived from the config), else mean-subtracted in
+        the compute dtype for the float layers before the boundary."""
+        from squeezedet_torch.quant import quantize_images
+        scale = getattr(self, "input_scale", None)
+        if scale is not None:
+            return quantize_images(images_u8, self.cfg.bgr_means, scale)
+        return normalize_images(images_u8, self.cfg.bgr_means,
+                                self.compute_dtype)
+
+    def quant_input_normalized(self, images: torch.Tensor) -> torch.Tensor:
+        """:meth:`quant_input` for mean-subtracted float images."""
+        from squeezedet_torch.quant import quantize_images_normalized
+        scale = getattr(self, "input_scale", None)
+        if scale is not None:
+            return quantize_images_normalized(images, scale)
+        return images.to(self.compute_dtype).contiguous()
+
+    @torch.inference_mode()
+    def predict_quant(self, images_u8: torch.Tensor) -> Interpretation:
+        """int8 serving path: uint8 BGR images -> Interpretation, the
+        backbone's convs as int8 GEMMs with int32 accumulation."""
+        return self.interpret(self.backbone(
+            self.quant_input(images_u8)).float())
+
+    @torch.inference_mode()
+    def predict_quant_postprocessed(self, images_u8: torch.Tensor):
+        """int8 twin of :meth:`predict_raw_postprocessed`."""
+        return self.postprocess_device(self.predict_quant(images_u8))
+
+    @torch.inference_mode()
+    def predict_quant_normalized(self, images: torch.Tensor
+                                 ) -> Interpretation:
+        """int8 twin of :meth:`predict` for mean-subtracted float images
+        (the eval and demo readers' format)."""
+        return self.interpret(self.backbone(
+            self.quant_input_normalized(images)).float())
 
     # -- loss ---------------------------------------------------------------
     def loss(self, images: torch.Tensor, targets: Targets,

@@ -14,8 +14,13 @@ The float path of the four backbones is ported here, for inference and
 training: conv, conv + frozen-statistics batch norm (ResNet), pools,
 dropout, weight decay, and the filter-gradient routing that sends the
 weight gradient of eligible stride-1 SAME convs through K2
-(``ops/filter_grad.py``).  int8 comes with a later slice; fc (which no
-backbone uses) and the TPU-only ``conv2d_s2d`` are not ported.
+(``ops/filter_grad.py``).  So is the int8 path of post-training
+quantization (``quant.py``): :class:`QConv` layers, which ``conv2d``,
+``conv2d_pair`` and ``conv_bn`` dispatch on as the JAX layers dispatch
+on ``"mult" in params``, the float -> int8 boundary, and the int8
+max-pool.  ``record`` fills the activation tape that calibration and
+the quant report read.  fc (which no backbone uses) and the TPU-only
+``conv2d_s2d`` are not ported.
 """
 
 from __future__ import annotations
@@ -254,13 +259,158 @@ def _conv_op(x: torch.Tensor, weight: torch.Tensor,
     return _conv_nchw(x, weight, bias, stride, padding)
 
 
-def conv2d(conv: Conv, x: torch.Tensor, stride: int, padding: str = "SAME",
+def conv2d(conv, x: torch.Tensor, stride: int, padding: str = "SAME",
            relu: bool = True) -> torch.Tensor:
-    """NHWC conv + bias (+ relu), matching tf.nn.conv2d SAME/VALID."""
+    """NHWC conv + bias (+ relu), matching tf.nn.conv2d SAME/VALID.  A
+    :class:`QConv` layer takes the int8 path (:func:`qconv`)."""
+    if isinstance(conv, QConv):
+        return qconv(conv, [x], stride, padding, relu)
     y = _conv_op(x, conv.weight, conv.bias, stride, padding)
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)
+
+
+# --- int8 (post-training quantization, quant.py) ----------------------------
+#
+# Symmetric int8 with zero-points of 0, so SAME zero padding and the
+# virtual concat stay exact in the quantized domain.  The conv is an
+# im2col GEMM through torch._int_mm (int8 x int8 -> int32, exact) on the
+# CPU and the card alike: torch has no int8 conv, and the JAX package
+# computes these convs with XLA, outside any Pallas kernel.  The epilogue
+# is a multiply, then an add, then round and clamp, each rounding once as
+# the JAX epilogue does, so the int8 activations of the card and the CPU
+# are equal bit for bit.
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+class QConv(nn.Module):
+    """An int8 conv layer (``quant.quantize_detector``): ``weight`` OIHW
+    int8, per-output-channel f32 ``mult`` and ``bias`` with every scale
+    folded in, and ``in_scale``, the scale at which a float input is
+    quantized (the first int8 layer after float ones), or None.  Buffers
+    all: a quantized detector serves and does not train.
+
+    ``gemm_weight`` is ``weight`` as the [N, K] matrix of the im2col GEMM,
+    taps in (dy, dx, c) order, with K and N zero-padded to multiples of 8
+    (``torch._int_mm`` on the card takes no other; conv1's K is 27)."""
+
+    def __init__(self, weight: torch.Tensor, mult: torch.Tensor,
+                 bias: torch.Tensor, in_scale: Optional[float] = None,
+                 name: str = ""):
+        super().__init__()
+        if weight.dtype != torch.int8:
+            raise TypeError("QConv weight must be int8, got {}".format(
+                weight.dtype))
+        self.name = name
+        device = weight.device
+        self.register_buffer("weight", weight)
+        self.register_buffer("mult", mult.to(device, torch.float32))
+        self.register_buffer("bias", bias.to(device, torch.float32))
+        self.register_buffer("in_scale", None if in_scale is None else
+                             torch.tensor(float(in_scale), dtype=torch.float32,
+                                          device=device))
+        o, c, kh, kw = weight.shape
+        k = kh * kw * c
+        mat = torch.zeros((_round8(o), _round8(k)), dtype=torch.int8,
+                          device=device)
+        mat[:o, :k] = weight.permute(0, 2, 3, 1).reshape(o, k)
+        self.register_buffer("gemm_weight", mat, persistent=False)
+
+
+def quantize_activation(x: torch.Tensor, scale) -> torch.Tensor:
+    """Float activation -> int8 at ``scale`` (an f32 scalar; symmetric,
+    round half to even): ``clip(round(x * (1 / scale)), -128, 127)``, the
+    reciprocal and the product in f32, as the JAX boundary computes them.
+    Used at every float -> int8 boundary, for the input images and for
+    ResNet's re-quantized block outputs."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    y = x.float() * (scale.new_ones(()) / scale)
+    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+
+
+def _quant_boundary(conv: QConv, x: torch.Tensor) -> torch.Tensor:
+    """int8 input of ``conv``: an int8 activation passes; a float one (the
+    output of the last float layer) is quantized at ``conv.in_scale``."""
+    if x.dtype == torch.int8:
+        return x
+    if conv.in_scale is None:
+        raise ValueError("int8 layer {} got a {} input and has no in_scale "
+                         "to quantize it".format(conv.name, x.dtype))
+    return quantize_activation(x, conv.in_scale)
+
+
+def im2col_int8(xs, kh: int, kw: int, stride: int, padding: str,
+                k_cols: int):
+    """NHWC int8 inputs -> the [B*Ho*Wo, k_cols] rows of an im2col GEMM:
+    for each tap (dy, dx), the strided window of each input in turn, so
+    that ``xs = [xa, xb]`` is the virtual concat of ``conv2d_pair``;
+    columns past the taps are zero.  A stride-1 1x1 conv over one input
+    with ``k_cols`` channels is the input itself, uncopied.  Returns the
+    rows and (B, Ho, Wo)."""
+    b, h, w, _ = xs[0].shape
+    if padding == "SAME":
+        ho, pt, pb = same_padding(h, kh, stride)
+        wo, pl, pr = same_padding(w, kw, stride)
+        if pt or pb or pl or pr:
+            xs = [F.pad(x, (0, 0, pl, pr, pt, pb)) for x in xs]
+    else:
+        ho, wo = _out_size(h, kh, stride, padding), \
+            _out_size(w, kw, stride, padding)
+    cols = [x[:, dy:dy + (ho - 1) * stride + 1:stride,
+              dx:dx + (wo - 1) * stride + 1:stride]
+            for dy in range(kh) for dx in range(kw) for x in xs]
+    k = sum(col.shape[-1] for col in cols)
+    if k_cols > k:
+        cols.append(cols[0].new_zeros((b, ho, wo, k_cols - k)))
+    rows = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
+    return rows.reshape(b * ho * wo, k_cols), (b, ho, wo)
+
+
+def _int_mm(rows: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 x [N, K]^T int8 -> [M, N] int32 (exact).  The card's
+    ``_int_mm`` takes only M > 16, so smaller M is padded with zero rows."""
+    m = rows.shape[0]
+    if m <= 16:
+        rows = F.pad(rows, (0, 0, 0, 17 - m))
+    return torch._int_mm(rows, mat.t())[:m]
+
+
+def qconv(conv: QConv, xs, stride: int, padding: str = "SAME",
+          relu: bool = True) -> torch.Tensor:
+    """The int8 conv of ``conv`` over the virtual concat of NHWC ``xs``
+    (each int8, or float and quantized at ``conv.in_scale``): the int32
+    accumulator, then ``acc * mult + bias`` in f32.  With ``relu`` the
+    result is re-quantized, ``clip(round(max(y, 0)), 0, 127)`` as int8;
+    without (the ConvDet head, ResNet's branch2c and projection
+    shortcuts) it stays f32.  Returns NHWC."""
+    xs = [_quant_boundary(conv, x) for x in xs]
+    o, _, kh, kw = conv.weight.shape
+    rows, (b, ho, wo) = im2col_int8(xs, kh, kw, stride, padding,
+                                    conv.gemm_weight.shape[1])
+    acc = _int_mm(rows, conv.gemm_weight)
+    y = (acc if acc.shape[1] == o else acc[:, :o]).float()
+    y.mul_(conv.mult)  # in place, then in place: two roundings, no FMA
+    y.add_(conv.bias)
+    if relu:
+        y = torch.clamp_(torch.round_(torch.clamp_(y, min=0.0)), 0, 127) \
+            .to(torch.int8)
+    return y.reshape(b, ho, wo, o)
+
+
+def record(tape, name: str, activation) -> None:
+    """Store a layer activation in ``tape`` (a dict, or a mapping that
+    reduces what it is given, as calibration's does) under ``name``; no-op
+    when tape is None.  Concat-free fire pairs are stored as their
+    concat."""
+    if tape is None:
+        return
+    if isinstance(activation, tuple):
+        activation = torch.cat(activation, dim=-1)
+    tape[name] = activation
 
 
 # --- conv + frozen-statistics batch norm (ResNet) ---------------------------
@@ -309,7 +459,7 @@ def init_conv_bn(generator: torch.Generator, tracer: NetTracer, name: str,
                   bn_name=bn_name, scale_name=scale_name)
 
 
-def conv_bn(layer: ConvBN, x: torch.Tensor, stride: int, *,
+def conv_bn(layer, x: torch.Tensor, stride: int, *,
             relu: bool = True, eps: float = 1e-5) -> torch.Tensor:
     """NHWC SAME conv (+ bias), then the frozen-statistics batch norm as an
     affine, gamma * (y - mean) / sqrt(var + eps) + beta, in the JAX
@@ -317,7 +467,10 @@ def conv_bn(layer: ConvBN, x: torch.Tensor, stride: int, *,
     ``y * inv + (beta - mean * inv)`` with both terms cast to y's dtype
     (not ``F.batch_norm``, and not folded into the conv, which round
     bf16 differently).  Never routed through K2, as the JAX conv_bn
-    calls its conv directly."""
+    calls its conv directly.  A :class:`QConv` (the batch norm folded
+    into it at quantize time, ``quant._fold_bn``) takes the int8 path."""
+    if isinstance(layer, QConv):
+        return qconv(layer, [x], stride, "SAME", relu)
     y = _conv_nchw(x, layer.weight, None, stride, "SAME")
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype).view(1, -1, 1, 1)
@@ -338,7 +491,13 @@ def max_pool(x: torch.Tensor, size: int, stride: int,
     even extent), torch's ``ceil_mode`` lets the last window run past the
     end by exactly that one element and ignores it, which equals the -inf
     pad without materialising a padded copy.
+
+    An int8 tensor is pooled in bf16, which holds -128..127 exactly (the
+    card's max-pool takes no integer type), and cast back: the same max.
     """
+    if x.dtype == torch.int8:
+        return max_pool(x.to(torch.bfloat16), size, stride,
+                        padding).to(torch.int8)
     xc = x.permute(0, 3, 1, 2)
     pad, ceil_mode = 0, False
     if padding == "SAME":
@@ -413,11 +572,14 @@ class Fire(nn.Module):
         tracer.channels = e1x1 + e3x3
 
 
-def conv2d_pair(conv: Conv, xa: torch.Tensor, xb: torch.Tensor,
+def conv2d_pair(conv, xa: torch.Tensor, xb: torch.Tensor,
                 stride: int = 1, relu: bool = True) -> torch.Tensor:
     """Conv over a virtual concat: conv(concat(xa, xb), k) ==
     conv(xa, k[:, :Ca]) + conv(xb, k[:, Ca:]), so fire outputs are never
-    concatenated."""
+    concatenated.  A :class:`QConv` takes both halves' taps into one
+    int32 accumulator, which equals the JAX package's sum of two."""
+    if isinstance(conv, QConv):
+        return qconv(conv, [xa, xb], stride, "SAME", relu)
     ca = xa.shape[-1]
     y = _conv_op(xa, conv.weight[:, :ca], conv.bias, stride, "SAME")
     y = y + _conv_op(xb, conv.weight[:, ca:], None, stride, "SAME")
@@ -426,17 +588,21 @@ def conv2d_pair(conv: Conv, xa: torch.Tensor, xb: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
-def fire_pair(fire: Fire, pair, *, pool=None, padding: str = "SAME"):
+def fire_pair(fire: Fire, pair, *, pool=None, padding: str = "SAME",
+              tape=None, name: str = ""):
     """Fire module over (expand1x1, expand3x3) halves, returning halves.
 
     ``pair`` is a single tensor (first fire) or an (a, b) tuple; ``pool``
     optionally applies (size, stride) max-pooling to both halves, since
-    pooling commutes with channel concatenation.
+    pooling commutes with channel concatenation.  With a ``tape``, the
+    squeeze output is recorded as ``<name>/squeeze1x1``.
     """
     if isinstance(pair, tuple):
         sq = conv2d_pair(fire.squeeze1x1, pair[0], pair[1], 1)
     else:
         sq = conv2d(fire.squeeze1x1, pair, 1)
+    if name:
+        record(tape, name + "/squeeze1x1", sq)
     a = conv2d(fire.expand1x1, sq, 1)
     b = conv2d(fire.expand3x3, sq, 1)
     if pool is not None:

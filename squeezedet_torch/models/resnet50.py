@@ -93,26 +93,45 @@ class ResNet50(nn.Module):
                                  xavier=False, relu=False, stddev=0.0001)
 
     def forward(self, images: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tape=None) -> torch.Tensor:
         """In training, one dropout draw from ``generator`` masks res4f's
-        output before the head."""
+        output before the head.  ``tape`` (a dict, or None) receives conv1,
+        each block's branch2a and branch2b and each block's output under
+        the JAX backbone's names (``res2a_branch2a``, ``res2a``).
+
+        An int8 block (``quant._quantize_resnet``) carries buffers: its
+        identity shortcut, when int8, is dequantized at ``shortcut_scale``
+        (branch2c and a projection shortcut already come out f32), the join
+        runs in f32, and the block output is re-quantized at
+        ``out_scale``."""
         eps = self.eps
         x = L.conv_bn(self.conv1, images, 2, eps=eps)
+        L.record(tape, "conv1", x)
         x = L.max_pool(x, 3, 2, "VALID")
         for stage, blocks, _, _, _ in _STAGES:
             for block in blocks:
-                res = getattr(self, "res" + stage + block)
+                name = "res" + stage + block
+                res = getattr(self, name)
                 stride = 1
                 shortcut = x
                 if block == "a":
                     stride = 1 if stage == "2" else 2
                     shortcut = L.conv_bn(res.branch1, x, stride, relu=False,
                                          eps=eps)
+                elif getattr(res, "shortcut_scale", None) is not None:
+                    shortcut = shortcut.float() * res.shortcut_scale
                 b2 = res.branch2
                 y = L.conv_bn(b2.branch2a, x, stride, eps=eps)
+                L.record(tape, name + "_branch2a", y)
                 y = L.conv_bn(b2.branch2b, y, 1, eps=eps)
+                L.record(tape, name + "_branch2b", y)
                 y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps)
                 x = F.relu(shortcut + y)
+                if getattr(res, "out_scale", None) is not None:
+                    x = L.quantize_activation(x, res.out_scale)
+                L.record(tape, name, x)
         x = L.dropout(x, self.keep_prob, generator, train)
-        return L.conv2d(self.conv5, x, 1, relu=False)
+        out = L.conv2d(self.conv5, x, 1, relu=False)
+        L.record(tape, "conv5", out)
+        return out

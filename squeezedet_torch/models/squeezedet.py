@@ -5,9 +5,12 @@ conv1 (64f 3x3 s2, frozen) -> pool1 -> fire2..3 -> pool3 -> fire4..5 ->
 pool5 -> fire6..9 -> fire10..11 -> dropout (training) -> conv12 ConvDet
 head with
 APG*(C+1+4) channels, 3x3, no relu, stddev 1e-4.  All pools are 3x3
-stride-2 SAME; overall stride 16.  conv1+pool1 always run through the
-K1 wrapper (:func:`squeezedet_torch.ops.fused_frontend.conv1_pool1`):
-the CUDA kernel on the card, its plain version on the CPU.
+stride-2 SAME; overall stride 16.  A float conv1+pool1 runs through the
+K1 wrapper (:func:`squeezedet_torch.ops.fused_frontend.conv1_pool1`),
+the CUDA kernel on the card and its plain version on the CPU, unless an
+activation tape asks for conv1's output before the pool, which K1 never
+exposes.  An int8 conv1 (``quant.py``, whole-net int8) is a
+``layers.QConv`` and the int8 max-pool, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,16 +58,28 @@ class SqueezeDet(nn.Module):
                                   xavier=False, relu=False, stddev=0.0001)
 
     def forward(self, images: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tape=None) -> torch.Tensor:
         """In training, two independent dropout draws from ``generator``
-        mask the fire11 halves before conv12."""
-        x = fused_frontend.conv1_pool1(
-            images, self.conv1.weight.permute(2, 3, 1, 0), self.conv1.bias)
+        mask the fire11 halves before conv12.  ``tape`` (a dict, or None)
+        receives each stage's activation under its layer name, conv1's
+        before pool1, as the JAX backbone records them."""
+        if tape is None and not isinstance(self.conv1, L.QConv):
+            x = fused_frontend.conv1_pool1(
+                images, self.conv1.weight.permute(2, 3, 1, 0),
+                self.conv1.bias)
+        else:
+            x = L.conv2d(self.conv1, images, 2)
+            L.record(tape, "conv1", x)
+            x = L.max_pool(x, 3, 2, "SAME")
         pair = x
         for name, _, _, _ in _FIRES:
             pool = (3, 2) if name in _POOL_AFTER else None
-            pair = L.fire_pair(getattr(self, name), pair, pool=pool)
+            pair = L.fire_pair(getattr(self, name), pair, pool=pool,
+                               tape=tape, name=name)
+            L.record(tape, name, pair)
         pair = (L.dropout(pair[0], self.keep_prob, generator, train),
                 L.dropout(pair[1], self.keep_prob, generator, train))
-        return L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)
+        out = L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)
+        L.record(tape, "conv12", out)
+        return out

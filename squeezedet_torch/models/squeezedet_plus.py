@@ -53,16 +53,21 @@ class SqueezeDetPlus(nn.Module):
                                   xavier=False, relu=False, stddev=0.0001)
 
     def forward(self, images: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tape=None) -> torch.Tensor:
         """In training, two independent dropout draws from ``generator``
-        mask the fire11 halves before conv12."""
+        mask the fire11 halves before conv12.  ``tape`` (a dict, or None)
+        receives each stage's activation under its layer name."""
         x = L.conv2d(self.conv1, images, 2, padding="VALID")
+        L.record(tape, "conv1", x)
         pair = L.max_pool(x, 3, 2, "VALID")
         for name, _, _, _ in _FIRES:
             pool = (3, 2) if name in _POOL_AFTER else None
             pair = L.fire_pair(getattr(self, name), pair, pool=pool,
-                               padding="VALID")
+                               padding="VALID", tape=tape, name=name)
+            L.record(tape, name, pair)
         pair = (L.dropout(pair[0], self.keep_prob, generator, train),
                 L.dropout(pair[1], self.keep_prob, generator, train))
-        return L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)
+        out = L.conv2d_pair(self.conv12, pair[0], pair[1], 1, relu=False)
+        L.record(tape, "conv12", out)
+        return out

@@ -49,14 +49,18 @@ class VGG16(nn.Module):
                                  xavier=False, relu=False, stddev=0.0001)
 
     def forward(self, images: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tape=None) -> torch.Tensor:
         """In training, one dropout draw from ``generator`` masks conv5_3's
-        output before the head."""
+        output before the head.  ``tape`` (a dict, or None) receives each
+        conv's activation under its layer name."""
         x = images
         for name, _, _ in _CONVS:
             x = L.conv2d(getattr(self, name), x, 1)
+            L.record(tape, name, x)
             if name in _POOL_AFTER:
                 x = L.max_pool(x, 2, 2, "SAME")
         x = L.dropout(x, self.keep_prob, generator, train)
-        return L.conv2d(self.conv6, x, 1, relu=False)
+        out = L.conv2d(self.conv6, x, 1, relu=False)
+        L.record(tape, "conv6", out)
+        return out

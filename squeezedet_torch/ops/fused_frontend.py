@@ -17,6 +17,15 @@ images' dtype (as the JAX layer casts them), everything after that is
 f32 (sum, bias, ReLU, max), and the result is rounded to the images'
 dtype once.  Padding is TF SAME for the conv and the pool, so any H and
 W are taken.
+
+:func:`conv1_pool1` calls the op ``squeezedet_torch::conv1_pool1``,
+registered here with ``torch.library.custom_op``: its CUDA
+implementation launches the kernel, its CPU one is the plain version,
+and its fake implementation gives the output's shape, so that
+``torch.export`` traces the op into an artifact (``serving.py``) and the
+artifact launches the kernel (and counts in :data:`LAUNCHES`) when it
+runs.  The op has no autograd formula: on the CPU, a call that needs a
+gradient runs the plain version directly.
 """
 
 from __future__ import annotations
@@ -116,19 +125,44 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
     """conv1+pool1: images [B, H, W, 3] (f32 or bf16, contiguous NHWC),
     kernel [3, 3, 3, 64] HWIO, bias [64] -> [B, Hp, Wp, 64] NHWC in the
     images' dtype.  ``out.permute(0, 3, 1, 2)`` is the same tensor as
-    NCHW in ``channels_last`` memory format."""
-    global LAUNCHES
+    NCHW in ``channels_last`` memory format.  On the card, the kernel
+    through the registered op; on the CPU, the plain version (directly
+    when autograd needs its graph, else through the op)."""
     _check(images, kernel, bias)
-    if images.device.type == "cpu":
-        return conv1_pool1_reference(images, kernel, bias)
-    if images.device.type != "cuda":
+    device = images.device.type
+    if device not in ("cpu", "cuda", "meta"):
         raise ValueError("conv1_pool1 runs on cpu or cuda tensors, got "
                          "{}".format(images.device))
-    check_kernel_layout(images)
+    if device == "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (images, kernel, bias)):
+        return conv1_pool1_reference(images, kernel, bias)
     check_no_grad(images, kernel, bias)
+    if not 1 <= images.shape[0] <= 65535:
+        raise ValueError("batch must be 1..65535 (grid z), got {}".format(
+            images.shape[0]))
+    return torch.ops.squeezedet_torch.conv1_pool1(images, kernel, bias)
+
+
+@torch.library.custom_op("squeezedet_torch::conv1_pool1", mutates_args=(),
+                         device_types="cpu")
+def _conv1_pool1_op(images: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    return conv1_pool1_reference(images, kernel, bias)
+
+
+@_conv1_pool1_op.register_fake
+def _conv1_pool1_fake(images, kernel, bias):
     b, h, w, _ = images.shape
-    if not 1 <= b <= 65535:
-        raise ValueError("batch must be 1..65535 (grid z), got {}".format(b))
+    _, _, hp, wp = geometry(h, w)[:4]
+    return images.new_empty((b, hp, wp, FILTERS))
+
+
+@_conv1_pool1_op.register_kernel("cuda")
+def _conv1_pool1_cuda(images, kernel, bias):
+    """Launch the kernel of csrc/conv1_pool1.cu on the current stream."""
+    global LAUNCHES
+    check_kernel_layout(images)
+    b, h, w, _ = images.shape
     geo = geometry(h, w)
     dtype = images.dtype
     k = kernel.detach().to(dtype).float().contiguous()

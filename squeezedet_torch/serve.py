@@ -16,8 +16,11 @@ forward.
 
 ``--checkpoint`` serves a port checkpoint directory (its newest step)
 or a caffe pickle, loaded as the demo loads them; without it the weights
-are seeded random.  ``--artifact``, ``--quantize`` and ``--num_devices``
-other than 1 raise, naming the ROADMAP item that brings each.
+are seeded random.  ``--quantize int8`` serves the int8 program of those
+weights, calibrated on ``--calib_images`` (``quant.py``).  ``--artifact``
+serves an exported artifact (``squeezedet-torch-export``) instead, with
+no model code, on the device it was traced on.  ``--num_devices`` other
+than 1 raises, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Checkpoint directory of the port (its newest '
                         'model.ckpt-<step>) or a caffe .pkl weight file.')
     p.add_argument('--artifact', default='',
-                   help='Exported artifact to serve (not ported yet).')
+                   help='squeezedet-torch-export artifact directory '
+                        '(instead of --checkpoint; runs without the model '
+                        'code, on the kind of device it was traced on).')
     p.add_argument('--net', default='squeezeDet')
     p.add_argument('--device', default='cuda',
                    help='torch device to serve on; never falls back.')
@@ -47,7 +52,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Report only detections above this score '
                         '(default: the config plot threshold).')
     p.add_argument('--quantize', default='', choices=['', 'int8'],
-                   help='int8 serving (not ported yet).')
+                   help='Serve the int8 PTQ program (quant.py); requires '
+                        '--calib_images.')
+    p.add_argument('--calib_images', default='',
+                   help='Image file, directory or glob for --quantize '
+                        'calibration (representative frames).')
+    p.add_argument('--calib_percentile', type=float, default=None,
+                   help='Calibrate activation ranges at this percentile of '
+                        '|activation| instead of abs-max (saturating clip, '
+                        'e.g. 99.99).')
     p.add_argument('--max_batch', type=int, default=1,
                    help='Micro-batching: run the program at this batch '
                         'size behind a threading server, folding '
@@ -143,22 +156,24 @@ class MicroBatcher:
 
 
 def _reject_unported(args) -> None:
-    """Options of the JAX server whose port is still to come."""
-    if args.artifact:
-        raise SystemExit("--artifact is not ported yet: export arrives with "
-                         "ROADMAP Queue 1 item 12")
-    if args.quantize:
-        raise SystemExit("--quantize is not ported yet: int8 arrives with "
-                         "ROADMAP Queue 1 item 12")
+    """Options of the JAX server whose port is still to come, and the
+    combinations it refuses."""
     if args.num_devices != 1:
         raise SystemExit("--num_devices {} is not ported yet: multi-GPU "
                          "serving arrives with ROADMAP Queue 1 item "
                          "13".format(args.num_devices))
+    if args.artifact and args.quantize:
+        raise SystemExit(
+            "--quantize does not apply to --artifact (an artifact bakes its "
+            "program in at export time): build an int8 artifact with "
+            "squeezedet-torch-export --quantize int8")
+    if args.quantize and not args.calib_images:
+        raise SystemExit("--quantize needs --calib_images")
 
 
 def _build_from_checkpoint(args, cfg=None):
     """(run, meta) for the model of ``args.checkpoint`` (seeded random
-    weights without one) on ``args.device``.
+    weights without one) on ``args.device``, int8 with ``--quantize``.
 
     ``run`` maps a uint8 [max_batch, H, W, 3] numpy batch to numpy
     (boxes, probs, classes, keep).  ``cfg`` overrides the net's canonical
@@ -181,7 +196,17 @@ def _build_from_checkpoint(args, cfg=None):
         from squeezedet_torch.demo import load_params
         load_params(det, args.checkpoint)
     else:
-        print("WARNING: no --checkpoint; serving random init")
+        print("WARNING: no --checkpoint/--artifact; serving random init")
+    predict = det.predict_raw_postprocessed
+    if args.quantize:
+        from squeezedet_torch.quant import calib_batch_from_images
+        calib = calib_batch_from_images(
+            args.calib_images, cfg.image_width, cfg.image_height)
+        print("Quantizing (int8 PTQ, {} calibration frames)...".format(
+            len(calib)))
+        predict = det.quantize(
+            [calib], percentile=args.calib_percentile
+        ).predict_quant_postprocessed
     meta = {"class_names": list(cfg.class_names),
             "image_height": cfg.image_height,
             "image_width": cfg.image_width,
@@ -189,8 +214,39 @@ def _build_from_checkpoint(args, cfg=None):
 
     def run(images_u8):
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-        return tuple(o.cpu().numpy()
-                     for o in det.predict_raw_postprocessed(x))
+        return tuple(o.cpu().numpy() for o in predict(x))
+
+    return run, meta
+
+
+def _build_from_artifact(args):
+    """(run, meta) for the artifact at ``args.artifact``, as
+    :func:`_build_from_checkpoint` gives them, on ``args.device`` (which
+    must be of the kind the artifact was traced on).  Refuses an artifact
+    that does not fit the server: raw outputs, float input, or another
+    batch than ``--max_batch``."""
+    from squeezedet_torch.serving import load_exported
+    from squeezedet_torch.utils.util import resolve_device
+
+    _reject_unported(args)
+    fn, meta = load_exported(args.artifact,
+                             resolve_device(args.device, "the server"))
+    if not meta.get("postprocess", True):
+        raise SystemExit("artifact was exported with --no_postprocess; the "
+                         "server needs the postprocessed outputs")
+    if meta.get("input_dtype", "uint8") != "uint8":
+        raise SystemExit("artifact takes {} input; the server sends raw "
+                         "uint8 frames: export it again without "
+                         "--f32_input".format(meta["input_dtype"]))
+    if meta.get("batch_size", 1) != args.max_batch:
+        raise SystemExit("artifact was exported at batch_size={}; the server "
+                         "runs the program at batch {}: export it again "
+                         "with a matching --batch_size or pass --max_batch "
+                         "{}".format(meta["batch_size"], args.max_batch,
+                                     meta["batch_size"]))
+
+    def run(images_u8):
+        return tuple(o.cpu().numpy() for o in fn(images_u8))
 
     return run, meta
 
@@ -287,7 +343,10 @@ def build_server(args, cfg=None):
     if args.max_batch < 1:
         raise SystemExit("--max_batch must be >= 1, got {}".format(
             args.max_batch))
-    run, meta = _build_from_checkpoint(args, cfg)
+    if args.artifact:
+        run, meta = _build_from_artifact(args)
+    else:
+        run, meta = _build_from_checkpoint(args, cfg)
     prob_thresh = args.prob_thresh if args.prob_thresh is not None \
         else meta["plot_prob_thresh"]
 

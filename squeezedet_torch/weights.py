@@ -13,6 +13,8 @@ maps the same way: the optax chain's momentum ``trace`` tree and step
 hold the train loop against the JAX package's: the caffe-pickle layout
 (``{layer: [kernel OIHW, bias]}``) that both packages' pretrained-weight
 paths consume, and a port checkpoint as a JAX ``TrainState`` tree.
+:func:`from_jax_qparams` builds the int8 detector of a JAX quantized
+tree (``quant.py``).
 """
 
 from __future__ import annotations
@@ -147,3 +149,58 @@ def checkpoint_to_jax_tree(tree: dict, like_opt_state) -> dict:
             "opt_state": to_jax_opt_state(tree["opt_state"], tree["params"],
                                           like_opt_state),
             "step": np.asarray(int(tree["step"]), np.int64)}
+
+
+def from_jax_qparams(det, tree):
+    """A quantized tree in the JAX package's layout (numpy leaves: int8
+    HWIO kernels with ``mult``, ``bias`` and maybe ``in_scale``; float
+    layers as in :func:`from_jax_params`; ResNet blocks' ``out_scale`` and
+    ``shortcut_scale``; ``__input_scale__`` in whole-net mode) -> a new
+    int8 ``Detector``: a copy of the float ``det`` whose quantized convs
+    are ``layers.QConv``, whose block scales are buffers of their blocks
+    and whose input scale is the buffer ``input_scale``.  ``det`` is left
+    as it was; the copy lives on its device and is in eval mode."""
+    import copy
+
+    from squeezedet_torch.quant import INPUT_SCALE_KEY
+    qdet = copy.deepcopy(det).eval()
+    device = det.anchors.device
+    for name, node in tree.items():
+        if name == INPUT_SCALE_KEY:
+            qdet.register_buffer("input_scale", torch.tensor(
+                float(node), dtype=torch.float32, device=device))
+        else:
+            _load_quantized(qdet.backbone, name, node, device)
+    return qdet
+
+
+def _load_quantized(parent, name: str, node, device) -> None:
+    """Put JAX-layout ``node`` into ``parent``'s submodule ``name``: a
+    QConv in place of a quantized conv, float leaves copied into a float
+    one, block scales as buffers, and sub-trees recursively."""
+    from squeezedet_torch.models.layers import QConv
+    module = getattr(parent, name)
+    if "mult" in node:
+        kernel = np.asarray(node["kernel"])
+        if kernel.dtype != np.int8:
+            raise TypeError("{}: quantized kernel must be int8, got "
+                            "{}".format(name, kernel.dtype))
+        in_scale = node.get("in_scale")
+        setattr(parent, name, QConv(
+            torch.tensor(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)),
+                         device=device),
+            torch.tensor(np.asarray(node["mult"], np.float32)),
+            torch.tensor(np.asarray(node["bias"], np.float32)),
+            in_scale=None if in_scale is None else float(in_scale),
+            name=getattr(module, "name", name)))
+        return
+    if "kernel" in node:
+        module.load_state_dict({k: v.to(device) for k, v in
+                                from_jax_params(node).items()})
+        return
+    for key, value in node.items():
+        if key in ("out_scale", "shortcut_scale"):
+            module.register_buffer(key, torch.tensor(
+                float(value), dtype=torch.float32, device=device))
+        else:
+            _load_quantized(module, key, value, device)

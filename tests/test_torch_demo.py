@@ -174,7 +174,6 @@ def test_load_params_from_each_source(params, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,error,match", [
-    (["--quantize", "int8"], SystemExit, "item 12"),
     (["--demo_net", "resnet50"], SystemExit, "not supported"),
     (["--demo_net", "vgg7"], SystemExit, "not supported"),
 ])

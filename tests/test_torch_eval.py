@@ -264,9 +264,6 @@ def test_daemon_polls_and_scores_each_step_once(kitti_root, tmp_path,
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--quantize", "int8"], "item 12"), (["--calib_batches", "2"],
-                                          "item 12"),
-    (["--calib_percentile", "99.9"], "item 12"),
     (["--native_loader"], "item 17"), (["--compilation_cache", "x"],
                                        "item 14")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
