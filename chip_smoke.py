@@ -94,7 +94,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    CLI with ``--quantize int8 --run_once`` (every image scored, finite
    APs) and the demo with ``--quantize int8`` on 4 frames.  Then, not
    counted, each int8 conv of squeezeDet (im2col + ``torch._int_mm`` +
-   epilogue) timed at B=128 beside the bf16 cuDNN conv of the same layer.
+   epilogue) timed at B=128 beside the bf16 cuDNN conv of the same layer;
+11. data parallelism on the one card (``squeezedet_torch.parallel``),
+   squeezeDet at 1248x384 with phase 6's seeded weights: (a) the f32
+   train step (TF32 off, dropout on) at global batch 4 on two gloo ranks
+   sharing the card, each on 2 rows, and on one NCCL rank, against the
+   one-process step from the same weights, generator and batch (loss
+   terms within LOSS_RTOL, every parameter and momentum leaf within
+   DP_STEP_TOL of its update's norm); (b) the train CLI with ``--num_devices
+   2`` (two gloo ranks on the card) at global B=20 in bf16 with
+   ``--device_assign --uint8_ingest --device_augment``: 10 steps and a
+   checkpoint, then 10 sharded ``--device_dataset`` steps, then one NCCL
+   rank (a torchrun environment) with ``--pallas_grads``: finite logged
+   loss, one events file, one sampler file per rank, each rank's K1
+   launches equal to its forwards and K2 0 (10 a step under
+   ``--pallas_grads``), with each rank's ms/step, img/s and peak memory
+   (smoke readings of ranks that share one card, not a scaling figure)
+   and the profiler's all-reduce time per step; (c) eval's ``detect_all``
+   over two replicas on the card, f32 B=8 and bf16 B=8
+   ``--device_dataset``, against one replica's detections; (d) the server
+   over two replicas (``--num_devices 2 --max_batch 8``, f32): 16
+   concurrent frames get one replica's replies.  K1 launches once per
+   replica per batch, and once per forward on every rank.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -240,6 +261,18 @@ BACKBONE_DEMO_FRAMES = 3
 # artifact's batch, and the int8 eval's calibration batches.
 INT8_CALIB_BATCHES, INT8_CHECK_BATCH, INT8_BIG_BATCH = 2, 2, 128
 INT8_HYBRID_START, EXPORT_BATCH, INT8_EVAL_CALIB = "fire2", 8, 2
+# phase 11: data parallelism on the one card.  Ranks (and replicas) that
+# share it; the f32 step's global batch; the train CLI's steps (global
+# batch LOOP_ARGV's 20) and the steps it traces for the collectives; the
+# fixture frames; eval's batch.  Two ranks' f32 step against one
+# process's is held to phase 6's LOSS_RTOL and to DP_STEP_TOL of each
+# leaf's update norm: the same sums in other orders on one card, whose
+# worst leaf measured 2.756e-4 (two gloo ranks) and 2.080e-4 (one NCCL
+# rank) on an H100; the limit leaves room of about 7x above them, and is
+# 10x tighter than phase 6's card-against-CPU STEP_TOL.
+DP_RANKS, DP_STEP_BATCH, DP_CLI_STEPS, DP_IMAGES = 2, 4, 10, 24
+DP_STEP_TOL = 2e-3
+DP_PROFILE_STEPS, DP_EVAL_BATCH = "7:9", 8
 
 
 def log(*a):
@@ -2117,6 +2150,297 @@ def phase_int8_export(card, weights):
     return k1, qdet, det16
 
 
+def _rank_rows(out):
+    """The per-rank report the train CLI's rank 0 prints."""
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("data-parallel ranks ")]
+    if len(line) != 1:
+        raise AssertionError("{} per-rank reports".format(len(line)))
+    return json.loads(line[0].split(" ", 2)[2])
+
+
+def _collective_ms(trace_dir, steps):
+    """ms per traced step of the collectives in a StepTracer trace: the
+    host ops (gloo, c10d) and the NCCL device kernels, by name."""
+    import glob
+    (path,) = glob.glob(os.path.join(trace_dir, "trace_steps_*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    per = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        low = name.lower()
+        if e.get("ph") == "X" and ("allreduce" in low or "all_reduce" in low
+                                   or "nccl" in low):
+            per[name[:60]] = per.get(name[:60], 0.0) + e.get("dur", 0) / 1e3
+    return {k: round(v / steps, 3) for k, v in sorted(per.items())}
+
+
+def dp_train_cli(root, train_dir, extra, card, env=None):
+    """The train CLI in a new process (``--num_devices`` spawns its
+    ranks; ``env`` may hold a launcher's rank environment instead) at
+    B=20, 1248x384, bf16, with the on-device ingest, matcher and augment,
+    a checkpoint at the last step and the detection images of step 0;
+    returns its per-rank report after checking the run's files and
+    logged loss."""
+    import re
+
+    import numpy as np
+    argv = ["--device", "cuda", "--image_width", "1248", "--image_height",
+            "384", "--batch_size", "20", "--compute_dtype", "bfloat16",
+            "--learning_rate", "0.001", "--device_assign", "--uint8_ingest",
+            "--device_augment", "--data_path", root, "--train_dir",
+            train_dir, "--max_steps", str(DP_CLI_STEPS), "--checkpoint_step",
+            str(DP_CLI_STEPS), "--summary_step", str(DP_CLI_STEPS)] + extra
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "squeezedet_torch.train"]
+                          + argv, cwd=HERE, capture_output=True, text=True,
+                          timeout=900, env=env)
+    seconds = time.perf_counter() - t0
+    keep = [ln for ln in proc.stdout.splitlines()
+            if "torch.distributed" in ln or "loss =" in ln
+            or "Device-resident" in ln or "WARNING" in ln]
+    for ln in keep:
+        log("[dp]   " + ln)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-8000:])
+        raise AssertionError("train CLI {} exited {}".format(
+            extra, proc.returncode))
+    losses = [float(v) for v in re.findall(r"loss = (\S+) \(", proc.stdout)]
+    rows = _rank_rows(proc.stdout)
+    world = len(rows)
+    files = sorted(os.listdir(train_dir))
+    want_sampler = ["sampler.ckpt-{}{}.npz".format(
+        DP_CLI_STEPS - 1, ".p{}".format(r) if world > 1 else "")
+        for r in range(world)]
+    events = [f for f in files if f.startswith("events.out.tfevents")]
+    if not losses or not np.isfinite(losses).all() or len(events) != 1 or \
+            "model_metrics.txt" not in files or \
+            "model.ckpt-{}".format(DP_CLI_STEPS - 1) not in files or \
+            [f for f in files if f.startswith("sampler.ckpt-{}.".format(
+                DP_CLI_STEPS - 1))] != want_sampler:
+        raise AssertionError("train CLI {}: logged loss {}, files {}".format(
+            extra, losses, files))
+    for r, row in enumerate(rows):
+        if row["steps"] != DP_CLI_STEPS or row["k1"] != row["forwards"]:
+            raise AssertionError("rank {}: {}".format(r, row))
+        log("[dp] smoke reading of {} rank(s) sharing one card, not a "
+            "scaling figure: rank {} {}: {:.3f} ms/step (median after 2), "
+            "{:.1f} img/s of the global batch of 20, peak {} MiB; K1 {} for "
+            "{} forwards, K2 {} for {} steps; on {}".format(
+                world, r, " ".join(extra), row["step_us"] / 1e3,
+                20e6 / max(row["step_us"], 1), row["peak_mib"], row["k1"],
+                row["forwards"], row["k2"], row["steps"], card))
+    log("[dp] train CLI {}: {} rank(s), logged loss {}, {} events file, "
+        "{} in {:.1f} s".format(" ".join(extra), world, losses, len(events),
+                                want_sampler, seconds))
+    return rows
+
+
+def _assert_same_detections(got, want, what):
+    import numpy as np
+    worst, n = 0.0, 0
+    for c in range(len(want)):
+        for i in range(len(want[c])):
+            a = np.asarray(sorted(map(tuple, want[c][i])))
+            b = np.asarray(sorted(map(tuple, got[c][i])))
+            if a.shape != b.shape:
+                raise AssertionError("{}: class {} image {}: {} detections, "
+                                     "one replica {}".format(
+                                         what, c, i, len(b), len(a)))
+            if a.size:
+                np.testing.assert_allclose(b, a, rtol=EVAL_BOX_RTOL,
+                                           atol=EVAL_BOX_ATOL)
+                worst = max(worst, float(np.abs(b - a).max()))
+                n += len(a)
+    return n, worst
+
+
+def _serve_replies(args, frames):
+    from squeezedet_torch import serve
+    server, batcher = serve.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with ThreadPoolExecutor(len(frames)) as pool:
+            replies = list(pool.map(batcher.submit, frames))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return replies, batcher.batches_run
+
+
+def phase_data_parallel(card, weights):
+    """Phase 11 (see the docstring).  Returns the K1 launches this process
+    must have made and the K1 and K2 launches its ranks reported."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.checkpoint.manager import CheckpointManager
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data.kitti import Kitti
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    from squeezedet_torch.eval import detect_all
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.parallel import dryrun
+    from squeezedet_torch.parallel.distributed import free_port
+    from squeezedet_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "data_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    k1 = 0
+    child = {"k1": 0, "k2": 0}
+    try:
+        # (a) the f32 step: two gloo ranks on the card, one NCCL rank
+        cfg = kitti_squeezedet_config().replace(batch_size=DP_STEP_BATCH)
+        det = get_model("squeezeDet", cfg, device="cpu")
+        det.backbone.load_state_dict(weights)
+        rs = np.random.RandomState(11)
+        u8 = rs.randint(0, 256, (DP_STEP_BATCH, cfg.image_height,
+                                 cfg.image_width, 3), dtype=np.uint8)
+        case_path = os.path.join(work, "case.pt")
+        dryrun.write_case(case_path, det, [u8] + [
+            t.numpy() for t in gt_batch(rs, DP_STEP_BATCH, cfg)],
+            seed=5, device="cuda")
+        want = dryrun.one_step(dryrun.load_case(case_path))
+        k1 += 1
+        zeros = {n: torch.zeros_like(t) for n, t in want["momentum"].items()}
+        for world, backend in ((DP_RANKS, "gloo"), (1, "nccl")):
+            results = dryrun.step_on_ranks(
+                case_path, os.path.join(work, "out{}".format(world)), world)
+            for r, got in enumerate(results):
+                torch.testing.assert_close(got["loss"], want["loss"],
+                                           rtol=LOSS_RTOL, atol=0)
+                params = worst_step_ratio(got["params"], want["params"],
+                                          weights)
+                momentum = worst_step_ratio(got["momentum"],
+                                            want["momentum"], zeros)
+                log("[dp] f32 B={} step, rank {} of {} ({}) vs one process: "
+                    "loss {} vs {}; worst leaf ||diff||/||update||: params "
+                    "{:.3e} ({}), momentum {:.3e} ({}); K1 {}, K2 {}".format(
+                        DP_STEP_BATCH, r, world, got["backend"],
+                        [round(float(v), 6) for v in got["loss"]],
+                        [round(float(v), 6) for v in want["loss"]],
+                        *params, *momentum, got["k1"], got["k2"]))
+                if params[0] > DP_STEP_TOL or momentum[0] > DP_STEP_TOL or \
+                        got["backend"] != backend or got["k1"] != 1 or \
+                        got["k2"] != 0:
+                    raise AssertionError("data-parallel step disagrees")
+                child["k1"] += got["k1"]
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        # (b) the train CLI: two gloo ranks, then sharded --device_dataset,
+        # then one NCCL rank under a launcher's environment
+        root = os.path.join(work, "kitti")
+        write_kitti_fixture(root, DP_IMAGES, LOOP_FRAME, seed=4)
+        rows = dp_train_cli(root, os.path.join(work, "tr"),
+                            ["--num_devices", str(DP_RANKS)], card)
+        dd_dir = os.path.join(work, "tr_dd")
+        rows += dp_train_cli(root, dd_dir, [
+            "--num_devices", str(DP_RANKS), "--device_dataset",
+            "--profile_steps", DP_PROFILE_STEPS], card)
+        traced = int(DP_PROFILE_STEPS.split(":")[1]) - \
+            int(DP_PROFILE_STEPS.split(":")[0])
+        log("[dp] rank 0's collectives, 2 gloo ranks on one card, ms per "
+            "step (torch.profiler over {} steps): {}".format(
+                traced, _collective_ms(os.path.join(dd_dir, "profile"),
+                                       traced)))
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()))
+        nccl_dir = os.path.join(work, "tr_nccl")
+        nccl = dp_train_cli(root, nccl_dir, [
+            "--pallas_grads", "--profile_steps", DP_PROFILE_STEPS], card,
+            env=env)
+        log("[dp] the NCCL rank's collectives, ms per step (torch.profiler "
+            "over {} steps): {}".format(traced, _collective_ms(
+                os.path.join(nccl_dir, "profile"), traced)))
+        if any(r["k2"] for r in rows) or \
+                nccl[0]["k2"] != K2_PER_STEP["1x1"] * DP_CLI_STEPS:
+            raise AssertionError("K2 launches: gloo ranks {}, NCCL rank "
+                                 "{}".format([r["k2"] for r in rows],
+                                             nccl[0]["k2"]))
+        for row in rows + nccl:
+            child["k1"] += row["k1"]
+            child["k2"] += row["k2"]
+
+        # (c) eval over two replicas on the card against one replica
+        val = os.path.join(work, "val")
+        write_kitti_fixture(val, DP_IMAGES, LOOP_FRAME, seed=6,
+                            image_set="val", boxes=(5, 9))
+        ecfg = kitti_squeezedet_config().replace(batch_size=DP_EVAL_BATCH)
+        det = rescaled_detector("squeezeDet", ecfg, torch.from_numpy(
+            u8[:2]))
+        k1 += 1
+        det16 = get_model("squeezeDet", ecfg.replace(
+            compute_dtype="bfloat16"), device="cuda")
+        det16.load_state_dict(det.state_dict())
+        mesh = make_mesh(DP_RANKS, "cuda")
+        for tag, d, dd in (("f32 B=8", det, False),
+                           ("bf16 B=8 --device_dataset", det16, True)):
+            runs = []
+            for m in (None, mesh):
+                t0 = time.perf_counter()
+                boxes, n_det, timers = detect_all(
+                    d, Kitti("val", val, d.cfg), DP_EVAL_BATCH,
+                    device_postprocess=True, device_dataset=dd, mesh=m)
+                runs.append((boxes, time.perf_counter() - t0))
+                k1 += timers["im_detect"].calls * (1 if m is None
+                                                   else DP_RANKS)
+            n, worst = _assert_same_detections(runs[1][0], runs[0][0], tag)
+            log("[dp] eval {} over {} replicas on {}: {} detections equal to "
+                "one replica's (max difference {:.3e}); {:.2f} s vs {:.2f} s "
+                "for the scan, on {}".format(
+                    tag, DP_RANKS, ", ".join(str(x) for x in mesh), n, worst,
+                    runs[1][1], runs[0][1], card))
+
+        # (d) the server over two replicas against one, on a checkpoint
+        # of the rescaled weights
+        ckpt = os.path.join(work, "ckpt")
+        CheckpointManager(ckpt).save(1, {"params": det.backbone.state_dict()})
+        from squeezedet_torch import serve
+        flags = ["--max_batch", "8", "--port", "0", "--device", "cuda",
+                 "--compute_dtype", "float32", "--checkpoint", ckpt]
+        frames = np.random.RandomState(12).randint(
+            0, 256, (16, 384, 1248, 3), dtype=np.uint8)
+        one, b1 = _serve_replies(serve.build_arg_parser().parse_args(flags),
+                                 frames)
+        two, b2 = _serve_replies(serve.build_arg_parser().parse_args(
+            flags + ["--num_devices", str(DP_RANKS)]), frames)
+        k1 += 1 + b1 + DP_RANKS * (1 + b2)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(one, two)):
+            if not (np.array_equal(a[3], b[3]) and
+                    np.array_equal(a[2][a[3]], b[2][b[3]])):
+                raise AssertionError("frame {}: kept detections or classes "
+                                     "differ".format(i))
+            keep = a[3]
+            np.testing.assert_allclose(b[0][keep], a[0][keep],
+                                       rtol=EVAL_BOX_RTOL, atol=BOX_ATOL)
+            np.testing.assert_allclose(b[1][keep], a[1][keep], rtol=0,
+                                       atol=PROB_ATOL)
+            worst = max(worst, float(np.abs(b[0][keep] - a[0][keep]).max()
+                                     if keep.any() else 0.0))
+        log("[dp] server over {} replicas (--max_batch 8, f32): 16 "
+            "concurrent frames in {} batches get the one-replica server's "
+            "replies ({} batches; boxes within {:.3e} px)".format(
+                DP_RANKS, b2, b1, worst))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    log("[dp] phase 11 took {:.1f} s".format(time.perf_counter() - t_phase))
+    return k1, child
+
+
 def main():
     import_port()
     import torch
@@ -2208,6 +2532,21 @@ def main():
     log("[int8] path: K1 launches {}, K2 launches {}".format(
         int8["k1"], int8["k2"]))
     int8_layer_table(qdet, det16, card)
+    del qdet, det16
+    torch.cuda.empty_cache()
+
+    # data parallelism: counts from 0 just before it; the ranks, in their
+    # own processes, report theirs
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    want_k1, ranks = phase_data_parallel(card, weights)
+    if ff.LAUNCHES != want_k1 or fg.LAUNCHES != 0:
+        raise AssertionError("data parallelism: K1 launches {}, expected {}; "
+                             "K2 launches {}".format(ff.LAUNCHES, want_k1,
+                                                     fg.LAUNCHES))
+    dp = {"k1": ff.LAUNCHES + ranks["k1"], "k2": fg.LAUNCHES + ranks["k2"]}
+    log("[dp] path: K1 launches {} ({} in this process, {} on the ranks), "
+        "K2 launches {} (on the ranks)".format(dp["k1"], ff.LAUNCHES,
+                                               ranks["k1"], dp["k2"]))
 
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
@@ -2215,7 +2554,7 @@ def main():
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
-        + backbones["k1"] + int8["k1"],
+        + backbones["k1"] + int8["k1"] + dp["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **k1,
     }, {
@@ -2223,7 +2562,7 @@ def main():
         "route": "cuda",
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
-        "launches": train["k2"] + loop["k2"] + backbones["k2"],
+        "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"],
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "backbone_shapes": k2_rows,

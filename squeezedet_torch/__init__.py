@@ -16,8 +16,10 @@ of eligible convs in a second hand-written kernel,
 ``ops/filter_grad.py``, and the optimizer in ``optim.py``).  The train
 CLI (``train.py``), the eval daemon with KITTI and VOC scoring
 (``eval.py``, ``data/kitti.py``, ``native/``), the demo (``demo.py``) and
-the HTTP server (``serve.py``) drive them.  Every constructor and entry
-point takes an explicit ``device``.
+the HTTP server (``serve.py``) drive them, on one device or data-parallel
+over several (``parallel/``: one training process per device over
+``torch.distributed``, one replica per device in eval and serve).  Every
+constructor and entry point takes an explicit ``device``.
 """
 
 from squeezedet_torch.config import (  # noqa: F401

@@ -22,9 +22,18 @@ host-resize readers (:meth:`Imdb.read_batch`,
 readers of ``--device_augment`` and ``--device_dataset`` (eval's
 :meth:`Imdb.read_image_rows` among them) run without cv2 and PIL.
 
-Not ported here, each raising ``NotImplementedError``: host and data
-sharding over several devices, with eval's shard-major batch plan
-(ROADMAP Queue 1 item 13), and the C++ native loader (item 17).
+Data parallelism shards the sampler two ways in the JAX package:
+:meth:`Imdb.shard_hosts` gives each host a strided shard of the split
+(the port's train CLI does not call it: every rank draws one global
+batch from one seed and keeps its rows), and :meth:`Imdb.shard_data`
+partitions the split into one strided shard per data-parallel device
+for a sharded ``--device_dataset``, whose batches are drawn shard-major
+so that each device gathers only from its own shard
+(:meth:`Imdb.load_canvas_shards`, and eval's
+:meth:`Imdb.eval_shard_batches`).
+
+Not ported here, raising ``NotImplementedError``: the C++ native loader
+(ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -62,6 +71,13 @@ class BatchPlan:
     augment: Optional[List[Tuple[Tuple[int, int], bool]]]
     state: Dict[str, np.ndarray]
 
+    def select(self, rows: slice) -> "BatchPlan":
+        """The plan of the batch's slots ``rows`` (a data-parallel rank's
+        share), with the whole batch's draws and post-draw state."""
+        return BatchPlan(self.seq, self.batch_idx[rows],
+                         None if self.augment is None else self.augment[rows],
+                         self.state)
+
 
 @functools.lru_cache(maxsize=None)
 def _opencv():
@@ -88,12 +104,6 @@ def read_frame(path: str) -> np.ndarray:
     if im is None:
         raise ValueError("{}: OpenCV cannot read it".format(path))
     return im
-
-
-def _multi_device(what: str):
-    return NotImplementedError(
-        "{} spreads the data over several devices or hosts: ROADMAP "
-        "Queue 1 item 13".format(what))
 
 
 class Imdb:
@@ -202,12 +212,86 @@ class Imdb:
         self._cur_idx = 0
 
     def shard_hosts(self, process_index: int, process_count: int) -> None:
-        if process_count > 1:
-            raise _multi_device("shard_hosts")
+        """Keep only process ``process_index``'s strided shard of the
+        image list, so that ``process_count`` processes with their own
+        seeds feed disjoint batches.  The canvas extents are pinned to the
+        whole list first: every process must ship the same canvas."""
+        if process_count <= 1:
+            return
+        with self._lock:
+            self.canvas_size()
+            self._image_idx = self._image_idx[process_index::process_count]
+            if not self._image_idx:
+                raise ValueError("host shard {}/{} is empty: fewer images "
+                                 "than processes".format(process_index,
+                                                         process_count))
+            self._shuffle_image_idx()
 
-    def shard_data(self, num_shards: int) -> None:
-        if num_shards > 1:
-            raise _multi_device("shard_data")
+    def shard_data(self, num_shards: int,
+                   batch_size: Optional[int] = None) -> None:
+        """Draw batches shard-major for a canvas stack sharded over
+        ``num_shards`` data-parallel devices: shard s is ``images[s::D]``,
+        and each batch is the concatenation, in shard order, of
+        ``batch_size / D`` draws from each shard's own epoch permutation.
+        Slot group s then references only shard s, so device s gathers
+        its canvas rows from its own block.  The stream depends on the
+        seed and ``num_shards`` only.
+
+        ``batch_size`` is the effective batch the plan is drawn at (the
+        global train batch, or eval's batch), ``mc.batch_size`` when
+        omitted; it must divide by ``num_shards``.  Sharding again the
+        same way keeps the live stream; another way raises.
+        """
+        if num_shards <= 1:
+            return
+        batch_size = self.mc.batch_size if batch_size is None else batch_size
+        with self._lock:
+            shards = getattr(self, "_data_shards", None)
+            if shards is not None:
+                if len(shards) == num_shards and \
+                        batch_size == self._shard_batch:
+                    return
+                raise ValueError(
+                    "imdb is already sharded {} ways at batch {}; cannot "
+                    "shard {} ways at batch {} (the stream is a function "
+                    "of the sharding: build a fresh imdb)".format(
+                        len(shards), self._shard_batch, num_shards,
+                        batch_size))
+            if batch_size % num_shards:
+                raise ValueError(
+                    "batch {} is not divisible by the {} data shards"
+                    .format(batch_size, num_shards))
+            self.canvas_size()  # pinned over the whole list
+            shards = [self._image_idx[s::num_shards]
+                      for s in range(num_shards)]
+            per = batch_size // num_shards
+            for s, shard in enumerate(shards):
+                if per > len(shard):
+                    raise ValueError(
+                        "per-shard batch {} exceeds the {} images of data "
+                        "shard {}/{}".format(per, len(shard), s, num_shards))
+            self._data_shards = shards
+            self._shard_batch = batch_size
+            # the padded row stride of the shard-major canvas stack
+            self._shard_rows = max(len(s) for s in shards)
+            if hasattr(self, "_dataset_pos"):
+                del self._dataset_pos
+            self._shard_perm_order = [None] * num_shards
+            self._shard_perm_idx = [None] * num_shards
+            self._shard_cur = [0] * num_shards
+            for s in range(num_shards):
+                self._shuffle_shard(s)
+
+    @property
+    def num_data_shards(self) -> int:
+        return len(getattr(self, "_data_shards", None) or ()) or 1
+
+    def _shuffle_shard(self, s: int) -> None:
+        shard = self._data_shards[s]
+        perm = self._rng.permutation(np.arange(len(shard)))
+        self._shard_perm_order[s] = perm
+        self._shard_perm_idx[s] = [shard[i] for i in perm]
+        self._shard_cur[s] = 0
 
     def sampler_state(self) -> Dict[str, np.ndarray]:
         """Snapshot of the input-stream position as plain arrays: the
@@ -223,7 +307,7 @@ class Imdb:
     def _sampler_state_locked(self) -> Dict[str, np.ndarray]:
         key, pos, has_gauss, cached = self._rng.get_state()[1:]
         perm = getattr(self, "_perm_order", None)
-        return {
+        state = {
             "perm_order": (np.asarray(perm, np.int64)
                            if perm is not None
                            else np.zeros((0,), np.int64)),
@@ -233,12 +317,19 @@ class Imdb:
             "rng_has_gauss": np.asarray(has_gauss, np.int64),
             "rng_cached_gaussian": np.asarray(cached, np.float64),
         }
+        if getattr(self, "_data_shards", None):
+            d = len(self._data_shards)
+            perm2 = np.full((d, self._shard_rows), -1, np.int64)
+            for s in range(d):
+                p = self._shard_perm_order[s]
+                perm2[s, :len(p)] = p
+            state["shard_perm_order"] = perm2
+            state["shard_cur"] = np.asarray(self._shard_cur, np.int64)
+        return state
 
     def set_sampler_state(self, state: Dict[str, np.ndarray]) -> None:
-        """Restore a :meth:`sampler_state` snapshot (inverse op)."""
-        if "shard_perm_order" in state and \
-                np.asarray(state["shard_perm_order"]).size:
-            raise _multi_device("a data-sharded sampler state")
+        """Restore a :meth:`sampler_state` snapshot (inverse op).  A
+        data-sharded snapshot needs an imdb sharded the same way."""
         with self._lock:
             perm = np.asarray(state["perm_order"], np.int64)
             if perm.size:
@@ -250,10 +341,47 @@ class Imdb:
                 self._perm_order = perm
                 self._perm_idx = [self._image_idx[i] for i in perm]
             self._cur_idx = int(state["cur_idx"])
+            self._set_shard_state_locked(state)
             self._rng.set_state(
                 ("MT19937", np.asarray(state["rng_key"], np.uint32),
                  int(state["rng_pos"]), int(state["rng_has_gauss"]),
                  float(state["rng_cached_gaussian"])))
+
+    def _set_shard_state_locked(self, state) -> None:
+        sharded = getattr(self, "_data_shards", None)
+        has_shard_state = "shard_perm_order" in state and \
+            np.asarray(state["shard_perm_order"]).size
+        if sharded and not has_shard_state:
+            raise ValueError(
+                "this imdb is data-sharded {} ways but the sampler state is "
+                "unsharded: resume on as many data-parallel devices as the "
+                "run was checkpointed on".format(len(sharded)))
+        if not has_shard_state:
+            return
+        if not sharded:
+            raise ValueError("sampler state is data-sharded; call "
+                             "shard_data() before restoring it")
+        perm2 = np.asarray(state["shard_perm_order"], np.int64)
+        if perm2.shape[0] != len(sharded):
+            raise ValueError(
+                "sampler state has {} data shards, this imdb has {}: resume "
+                "on as many data-parallel devices as the run was "
+                "checkpointed on".format(perm2.shape[0], len(sharded)))
+        for s in range(perm2.shape[0]):
+            p = perm2[s][perm2[s] >= 0]
+            if p.size != len(sharded[s]):
+                raise ValueError("sampler-state shard {} has {} rows, this "
+                                 "imdb's shard has {}".format(
+                                     s, p.size, len(sharded[s])))
+            self._shard_perm_order[s] = p
+            self._shard_perm_idx[s] = [sharded[s][i] for i in p]
+        cur = [int(c) for c in np.asarray(state["shard_cur"])]
+        for s, c in enumerate(cur):
+            if not 0 <= c <= len(sharded[s]):
+                raise ValueError("sampler-state shard {} cursor {} is out of "
+                                 "range for its {}-image shard".format(
+                                     s, c, len(sharded[s])))
+        self._shard_cur = cur
 
     def reset_cursor(self) -> None:
         """Rewind the sequential read cursor to the start of the image
@@ -267,6 +395,17 @@ class Imdb:
 
     def _next_batch_idx_locked(self, shuffle: bool) -> List[str]:
         mc = self.mc
+        if shuffle and getattr(self, "_data_shards", None):
+            # per-shard windows, concatenated shard-major (shard_data)
+            per = self._shard_batch // len(self._data_shards)
+            batch_idx: List[str] = []
+            for s, shard in enumerate(self._data_shards):
+                if self._shard_cur[s] + per >= len(shard):
+                    self._shuffle_shard(s)
+                batch_idx.extend(self._shard_perm_idx[s][
+                    self._shard_cur[s]:self._shard_cur[s] + per])
+                self._shard_cur[s] += per
+            return batch_idx
         if shuffle:
             # the epoch window is a straight slice of the permutation, so
             # a batch may not exceed the image list
@@ -457,7 +596,46 @@ class Imdb:
         return pos, aug, scales
 
     def eval_shard_batches(self, batch_size: int):
-        raise _multi_device("eval_shard_batches")
+        """The shard-major sequential plan of device-resident eval over
+        :meth:`shard_data`'s D shards: batch t's slot group s covers shard
+        s's rows [t*per, (t+1)*per), so replica s gathers only from its
+        own block of the canvas stack.
+
+        Yields (pos [B] i32 padded rows of the stack, aug [B, 5] f32
+        zero-drift rows, scales list of per-slot (x_scale, y_scale),
+        image_indices [B] i64 into ``image_idx``, -1 marking a pad slot).
+        Pad slots (past the end of a shard) re-read the shard's row 0 and
+        are to be dropped; every image appears exactly once.
+        """
+        shards = getattr(self, "_data_shards", None)
+        if not shards:
+            raise ValueError("eval_shard_batches requires shard_data()")
+        mc = self.mc
+        d = len(shards)
+        if batch_size % d:
+            raise ValueError("batch {} is not divisible by the {} data "
+                             "shards".format(batch_size, d))
+        per = batch_size // d
+        index_of = {idx: i for i, idx in enumerate(self._image_idx)}
+        rows = self._shard_rows
+        for t in range(-(-rows // per)):
+            pos = np.zeros((batch_size,), np.int32)
+            aug = np.zeros((batch_size, 5), np.float32)
+            img_is = np.full((batch_size,), -1, np.int64)
+            scales = []
+            for s, shard in enumerate(shards):
+                for k in range(per):
+                    b = s * per + k
+                    r = t * per + k
+                    valid = r < len(shard)
+                    idx = shard[r if valid else 0]
+                    pos[b] = s * rows + (r if valid else 0)
+                    w, h = self._image_size(idx)
+                    aug[b] = (0.0, 0.0, 0.0, float(w), float(h))
+                    scales.append((mc.image_width / w, mc.image_height / h))
+                    if valid:
+                        img_is[b] = index_of[idx]
+            yield pos, aug, scales, img_is
 
     def evaluate_detections(self, eval_dir, global_step, all_boxes):
         raise NotImplementedError
@@ -663,8 +841,11 @@ class Imdb:
     def load_canvas_dataset(self) -> np.ndarray:
         """Decode every image of the split once into one uint8 canvas
         stack [N, H0, W0, 3] (top-left anchored, like the
-        :meth:`read_batch_canvas` rows), for ``--device_dataset``."""
+        :meth:`read_batch_canvas` rows), for ``--device_dataset``; under
+        :meth:`shard_data`, every shard's padded block in shard order."""
         h0, w0 = self.canvas_size()
+        if getattr(self, "_data_shards", None):
+            return self.load_canvas_shards(range(len(self._data_shards)))
         n = len(self._image_idx)
         out = np.zeros((n, h0, w0, 3), np.uint8)
         for i, idx in enumerate(self._image_idx):
@@ -676,13 +857,39 @@ class Imdb:
         return out
 
     def load_canvas_shards(self, shard_ids) -> np.ndarray:
-        raise _multi_device("load_canvas_shards")
+        """The canvas stack of the given :meth:`shard_data` shards,
+        shard-major, each padded to ``_shard_rows`` rows: the block a
+        data-parallel device holds.  Each process decodes only its own
+        shards."""
+        shards = getattr(self, "_data_shards", None)
+        if not shards:
+            raise ValueError("load_canvas_shards requires shard_data()")
+        h0, w0 = self.canvas_size()
+        shard_ids = list(shard_ids)
+        out = np.zeros((len(shard_ids) * self._shard_rows, h0, w0, 3),
+                       np.uint8)
+        for block, s in enumerate(shard_ids):
+            for i, idx in enumerate(shards[s]):
+                im = self._imread(idx)
+                out[block * self._shard_rows + i,
+                    :im.shape[0], :im.shape[1]] = im
+                self._size_cache[idx] = (im.shape[1], im.shape[0])
+        return out
 
     def dataset_position(self, idx: str) -> int:
-        """Row of ``idx`` in :meth:`load_canvas_dataset`'s stack."""
+        """Row of ``idx`` in :meth:`load_canvas_dataset`'s stack (under
+        :meth:`shard_data`, ``shard * _shard_rows + row_in_shard``)."""
         if not hasattr(self, "_dataset_pos"):
-            self._dataset_pos = {
-                image_id: i for i, image_id in enumerate(self._image_idx)}
+            shards = getattr(self, "_data_shards", None)
+            if shards:
+                self._dataset_pos = {
+                    image_id: s * self._shard_rows + i
+                    for s, shard in enumerate(shards)
+                    for i, image_id in enumerate(shard)}
+            else:
+                self._dataset_pos = {
+                    image_id: i
+                    for i, image_id in enumerate(self._image_idx)}
         return self._dataset_pos[idx]
 
     def read_batch_plan_rows(self, shuffle: bool = True, max_gt: int = 48,

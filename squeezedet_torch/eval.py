@@ -16,10 +16,15 @@ runs the K1 kernel (``ops/fused_frontend.py``) on the card.
 calibrated on the split's first ``--calib_batches`` batches
 (:func:`quantize_on_split`).
 
-One device, so no mesh and no spatial partitioning: the JAX package
-takes those only with several devices (ROADMAP Queue 1 item 13).  Flags
-whose port is still to come raise, naming the ROADMAP item that brings
-each.
+Over several devices the forward runs data-parallel, as the JAX
+package's eval does on a mesh: one replica of the detector per device
+(``--num_devices``; by default as many visible devices as divide the
+batch), each on its rows of every batch, with no collective; under
+``--device_dataset`` each replica holds its own shard of the split
+(``Imdb.shard_data``, ``Imdb.eval_shard_batches``).  Spatial
+partitioning, and with it the JAX package's spatial int8 path, is ROADMAP
+Queue 1 item 21.  Flags whose port is still to come raise, naming the
+ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -51,6 +56,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument('--device', default='cuda',
                    help='torch device to evaluate on; never falls back.')
     p.add_argument('--eval_batch_size', type=int, default=1)
+    p.add_argument('--num_devices', type=int, default=0,
+                   help='Replicas of the detector, each on its rows of '
+                        'every batch (0 = the most visible devices that '
+                        'divide the batch). More replicas than cards '
+                        'share them.')
     p.add_argument('--compute_dtype', default='')
     p.add_argument('--skip_analysis', action='store_true',
                    help='Skip the detection error-type analysis pass.')
@@ -114,6 +124,23 @@ def resolve_device_postprocess(args) -> bool:
     return args.device_postprocess or args.eval_batch_size > 1
 
 
+def resolve_mesh(args, device):
+    """The replicas' devices: ``--num_devices``, or with 0 the most
+    visible devices that divide the batch (the JAX eval's ``auto_mesh``);
+    None for one.  The batch must divide over them."""
+    from squeezedet_torch.parallel.mesh import auto_mesh, make_mesh
+    if args.num_devices == 0:
+        return auto_mesh(args.eval_batch_size, device) \
+            if args.eval_batch_size > 1 else None
+    if args.eval_batch_size % args.num_devices:
+        raise SystemExit('--eval_batch_size {} is not divisible by '
+                         '--num_devices {}: each replica takes an equal '
+                         'share of a batch'.format(args.eval_batch_size,
+                                                    args.num_devices))
+    return make_mesh(args.num_devices, device) \
+        if args.num_devices > 1 else None
+
+
 def quantize_on_split(det, imdb, calib_batches: int, percentile=None):
     """The int8 twin of ``det`` (``quant.py``), calibrated on the first
     ``calib_batches`` batches of the split (unshuffled, the reader's
@@ -133,35 +160,47 @@ def quantize_on_split(det, imdb, calib_batches: int, percentile=None):
     return qdet
 
 
-def _eval_stack(imdb, device):
-    """The split's uint8 canvas stack on ``device``: uploaded once and
-    cached on the imdb, keyed by the device, so a poll on the same device
-    reuses it and a changed placement uploads again."""
+def _eval_stacks(imdb, devices, sharded: bool):
+    """The split's uint8 canvas stack on each replica's device: the
+    whole split on one device, or under ``sharded`` replica k's padded
+    shard (``Imdb.shard_data``).  Uploaded once and cached on the imdb, keyed
+    by the placement, so a poll on the same devices reuses them and a
+    changed placement uploads again."""
     import torch
-    key = str(device)
+    key = ", ".join(str(d) for d in devices) + (" sharded" if sharded
+                                                else "")
     cached = getattr(imdb, '_eval_stack_dev', None)
     if cached is not None and cached[0] == key:
         return cached[1]
     h0, w0 = imdb.canvas_size()
-    gib = len(imdb.image_idx) * h0 * w0 * 3 / 2**30
+    rows = imdb._shard_rows if sharded else len(imdb.image_idx)
+    gib = rows * h0 * w0 * 3 / 2**30
     if gib > DEVICE_DATASET_GIB:
         raise ValueError(
             '--device_dataset eval: the {}-image split is {:.1f} GiB per '
             'device as a uint8 canvas stack (more than {} GiB next to the '
-            'params on one device) — evaluate without --device_dataset, or '
-            'split the image set'.format(len(imdb.image_idx), gib,
-                                        DEVICE_DATASET_GIB))
-    stack = torch.from_numpy(imdb.load_canvas_dataset()).to(device)
-    print('Device-resident eval split: {} images, {:.2f} GiB, uploaded '
-          'once'.format(len(imdb.image_idx), gib))
-    imdb._eval_stack_dev = (key, stack)
-    return stack
+            'params on one device) — evaluate without --device_dataset, use '
+            'more devices, or split the image set'.format(
+                len(imdb.image_idx), gib, DEVICE_DATASET_GIB))
+    if sharded:
+        stacks = [torch.from_numpy(imdb.load_canvas_shards([k])).to(d)
+                  for k, d in enumerate(devices)]
+    else:
+        (device,) = devices
+        stacks = [torch.from_numpy(imdb.load_canvas_dataset()).to(device)]
+    print('Device-resident eval split: {} images, {:.2f} GiB per device'
+          '{}, uploaded once'.format(
+              len(imdb.image_idx), gib,
+              ' (sharded {} ways)'.format(len(devices)) if sharded else ''))
+    imdb._eval_stack_dev = (key, stacks)
+    return stacks
 
 
 def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
-               device_dataset: bool = False):
+               device_dataset: bool = False, mesh=None):
     """Run detection over the whole split with ``det``'s weights, on its
-    device.
+    device, or over ``mesh`` (devices, ``parallel.mesh.make_mesh``): one
+    replica per device, each on its rows of every batch.
 
     The default is the reference protocol: the host reader resizes, the
     forward returns the raw interpretation, and the host's numpy
@@ -173,6 +212,9 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
     uint8 canvas stack (:func:`_eval_stack`) and gathers, resizes and
     normalizes each batch there (``augment_resize_normalize`` with zero
     drift and no flip); each batch sends only row positions and extents.
+    Over a mesh each replica's device holds its shard of the split, and
+    the batches follow the shard-major plan (``eval_shard_batches``),
+    whose pad slots are dropped.
 
     The sequential reader wraps past the end of the split; the wrapped
     tail repeats images already scored and is dropped.  The ``im_detect``
@@ -187,6 +229,8 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
     from squeezedet_torch.data.device_pipeline import \
         augment_resize_normalize
     from squeezedet_torch.ops.postprocess import device_results_to_lists
+    from squeezedet_torch.parallel.mesh import (replicate, run_replicas,
+                                                shard_slices)
     from squeezedet_torch.utils.util import Timer, bbox_transform
 
     if imdb.mc.batch_size != batch_size:
@@ -194,48 +238,72 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
         raise ValueError("batch_size {} but the imdb reads {} images a "
                          "batch".format(batch_size, imdb.mc.batch_size))
     cfg = det.cfg
-    device = det.anchors.device
     num_images = len(imdb.image_idx)
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(imdb.num_classes)]
     timers = {'im_detect': Timer(), 'im_read': Timer(), 'misc': Timer()}
-    stack = _eval_stack(imdb, device) if device_dataset else None
+    replicas = replicate(det, mesh) if mesh else [det]
+    devices = [d.anchors.device for d in replicas]
+    slices = shard_slices(batch_size, len(replicas))
+    if len(replicas) > 1:
+        print('Evaluating data-parallel over {} replicas ({})'.format(
+            len(replicas), ', '.join(str(d) for d in devices)))
+    sharded = device_dataset and len(replicas) > 1
+    if sharded:
+        imdb.shard_data(len(replicas), batch_size)
+    stacks = _eval_stacks(imdb, devices, sharded) if device_dataset \
+        else None
+    shard_rows = imdb._shard_rows if sharded else 0
 
-    # an int8 detector (quantize_on_split) runs its int8 program
-    forward = det.predict_quant_normalized if det.quantized else det.predict
-
-    def predict(images):
+    def predict(d, images):
+        # an int8 detector (quantize_on_split) runs its int8 program
+        forward = d.predict_quant_normalized if d.quantized else d.predict
         interp = forward(images)
         if device_postprocess:
-            return det.postprocess_device(interp)
+            return d.postprocess_device(interp)
         return interp.det_boxes, interp.det_probs, interp.det_class
+
+    def predict_rows(d, stack, pos, aug):
+        canvas = stack.index_select(0, pos)
+        return predict(d, augment_resize_normalize(
+            canvas, aug, cfg.image_height, cfg.image_width, cfg.bgr_means))
 
     num_detection = 0.0
     imdb.reset_cursor()
+    plan = list(imdb.eval_shard_batches(batch_size)) if sharded else None
     done_images = 0
-    for bt in range(-(-num_images // batch_size)):
+    for bt in range(len(plan) if sharded else
+                    -(-num_images // batch_size)):
         start = bt * batch_size
         timers['im_read'].tic()
-        if device_dataset:
+        if sharded:
+            pos, aug, scales, img_is = plan[bt]
+        elif device_dataset:
             pos, aug, scales = imdb.read_image_rows()
+            img_is = np.arange(start, start + len(scales))
         else:
             images, scales = imdb.read_image_batch(shuffle=False)
-        img_is = np.arange(start, start + len(scales))
+            img_is = np.arange(start, start + len(scales))
         img_is = np.where(img_is < num_images, img_is, -1)
         timers['im_read'].toc()
 
         timers['im_detect'].tic()
         with torch.inference_mode():
             if device_dataset:
-                canvas = stack.index_select(
-                    0, torch.from_numpy(pos).to(device, torch.long))
-                x = augment_resize_normalize(
-                    canvas, torch.from_numpy(aug).to(device),
-                    cfg.image_height, cfg.image_width, cfg.bgr_means)
+                # each replica's rows of its own stack (its shard's block)
+                outs = run_replicas(predict_rows, replicas, [
+                    (stacks[k], torch.from_numpy(
+                        pos[sl].astype(np.int64) - k * shard_rows).to(dev),
+                     torch.from_numpy(aug[sl]).to(dev))
+                    for k, (sl, dev) in enumerate(zip(slices, devices))])
             else:
-                x = torch.from_numpy(np.stack(images)).to(device)
+                x = np.stack(images)
+                outs = run_replicas(predict, replicas, [
+                    (torch.from_numpy(x[sl]).to(dev),)
+                    for sl, dev in zip(slices, devices)])
             # a copy: the boxes are rescaled in place below
-            out = [np.array(o.cpu()) for o in predict(x)]
+            out = [np.concatenate([o[i].numpy() for o in outs])
+                   for i in range(len(outs[0]))]
         timers['im_detect'].toc()
 
         timers['misc'].tic()
@@ -270,11 +338,13 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
 def eval_checkpoint(det, imdb, global_step, *, eval_dir, batch_size=1,
                     summary_writer=None, skip_analysis=False, plot_pr=False,
                     quantize='', calib_batches=4, calib_percentile=None,
-                    device_postprocess=False, device_dataset=False):
+                    device_postprocess=False, device_dataset=False,
+                    mesh=None):
     """Score ``det``'s weights as step ``global_step``: detect, write and
     score the det files, print and write the summaries, and analyse the
     errors.  With ``quantize='int8'`` the int8 twin of ``det`` is scored
-    (:func:`quantize_on_split`).  Returns (aps, ap_names, mAP)."""
+    (:func:`quantize_on_split`).  ``mesh``: as :func:`detect_all`.
+    Returns (aps, ap_names, mAP)."""
     if quantize:
         if quantize != 'int8':
             raise ValueError('quantize must be int8, got {!r}'.format(
@@ -285,7 +355,7 @@ def eval_checkpoint(det, imdb, global_step, *, eval_dir, batch_size=1,
                                 percentile=calib_percentile)
     all_boxes, num_detection, timers = detect_all(
         det, imdb, batch_size, device_postprocess=device_postprocess,
-        device_dataset=device_dataset)
+        device_dataset=device_dataset, mesh=mesh)
     print('Evaluating detections...')
     aps, ap_names = imdb.evaluate_detections(eval_dir, global_step,
                                              all_boxes)
@@ -357,6 +427,7 @@ def main(argv=None):
     det = get_model(args.net, cfg, device=device)
     imdb = imdb_for_dataset(args.dataset, args.image_set, args.data_path,
                             cfg, year=args.year)
+    mesh = resolve_mesh(args, device)
     os.makedirs(args.eval_dir, exist_ok=True)
     writer = SummaryWriter(args.eval_dir)
 
@@ -390,7 +461,8 @@ def main(argv=None):
                             calib_percentile=args.calib_percentile,
                             device_postprocess=resolve_device_postprocess(
                                 args),
-                            device_dataset=args.device_dataset)
+                            device_dataset=args.device_dataset,
+                            mesh=mesh)
             if args.run_once:
                 return
     finally:

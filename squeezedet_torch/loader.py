@@ -11,6 +11,9 @@ sampler snapshot taken right after its own draws.  ``consumed_state()``
 is the snapshot of the last item handed out; checkpointing it makes
 resume exact.
 
+``rows`` keeps only those slots of each drawn batch (a data-parallel
+rank's share); the draws, and so the stream, are the whole batch's.
+
 Items, by mode: ``(images f32, Targets)`` (host targets);
 ``(images, gt, labels, num_gt)`` (device matcher); ``(canvas, aug, gt,
 labels, num_gt)`` (``device_augment``); ``(pos, aug, gt, labels,
@@ -36,8 +39,10 @@ class PrefetchLoader:
                  device_targets: bool = False, max_gt: int = 48,
                  uint8_images: bool = False,
                  device_augment: bool = False,
-                 device_dataset: bool = False):
+                 device_dataset: bool = False,
+                 rows: Optional[slice] = None):
         mc = imdb.mc
+        self._rows = rows
         self._imdb = imdb
         self._shuffle = shuffle
         self._device_targets = device_targets
@@ -86,7 +91,8 @@ class PrefetchLoader:
         try:
             while not self._stop.is_set():
                 plan = self._imdb.draw_batch_plan(shuffle=self._shuffle)
-                item = self._read(plan)
+                item = self._read(plan if self._rows is None
+                                  else plan.select(self._rows))
                 # ticketed enqueue: wait for this plan's turn, so batches
                 # reach the queue in draw order
                 with self._enq_cv:

@@ -217,20 +217,29 @@ class Detector(nn.Module):
     # -- loss ---------------------------------------------------------------
     def loss(self, images: torch.Tensor, targets: Targets,
              generator: Optional[torch.Generator] = None,
-             train: bool = True) -> LossBreakdown:
+             train: bool = True, *, num_objects=None, batch_size=None,
+             weight_decay: bool = True) -> LossBreakdown:
         """Forward (with dropout when training) + interpretation + the
-        3-term loss plus weight decay on the trainable conv weights."""
+        3-term loss plus weight decay on the trainable conv weights.
+
+        A data-parallel rank passes the global ``num_objects`` and
+        ``batch_size`` (``detection_loss``), ``generator`` as
+        ``layers.BatchRows`` (the global batch's dropout draws), and
+        ``weight_decay`` on one rank only, so that the decay enters the
+        summed gradient once."""
         cfg = self.cfg
         interp = self.interpret(self(images, train=train,
                                      generator=generator))
-        wd = L.weight_decay_loss(self.backbone, cfg.weight_decay)
+        wd = L.weight_decay_loss(self.backbone, cfg.weight_decay) \
+            if weight_decay else 0.0
         return detection_loss(
             interp, targets, num_anchors=cfg.anchors,
             loss_coef_class=cfg.loss_coef_class,
             loss_coef_conf_pos=cfg.loss_coef_conf_pos,
             loss_coef_conf_neg=cfg.loss_coef_conf_neg,
             loss_coef_bbox=cfg.loss_coef_bbox,
-            epsilon=cfg.epsilon, weight_decay_term=wd)
+            epsilon=cfg.epsilon, weight_decay_term=wd,
+            num_objects=num_objects, batch_size=batch_size)
 
     # -- postprocess ---------------------------------------------------------
     def filter_prediction(self, boxes, probs, cls_idx):

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -515,8 +515,20 @@ def max_pool(x: torch.Tensor, size: int, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+class BatchRows(NamedTuple):
+    """A dropout generator for rows ``[start, start + B)`` of a
+    ``global_batch`` batch: each mask is drawn for the whole batch and
+    the rows kept, so a data-parallel rank masks its rows as one device
+    running the global batch masks them, and the ranks' generators stay
+    in step."""
+
+    generator: torch.Generator
+    global_batch: int
+    start: int
+
+
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: Optional[torch.Generator],
+            generator: Union[torch.Generator, BatchRows, None],
             train: bool) -> torch.Tensor:
     """Inverted dropout: keep each element with probability keep_prob and
     scale the kept ones by 1/keep_prob.
@@ -524,21 +536,29 @@ def dropout(x: torch.Tensor, keep_prob: float,
     When keep_prob is q/256 (0.5 is), one uint8 per element is drawn and
     kept where it is below q, as the JAX layer draws it; otherwise one
     f32 uniform per element.  ``generator`` lives on x's device; the two
-    frameworks draw different bits from a seed.
+    frameworks draw different bits from a seed.  A :class:`BatchRows`
+    draws for its global batch.
     """
     if not train or keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on "
                          "the activations' device")
+    shape, rows = x.shape, None
+    if isinstance(generator, BatchRows):
+        rows = slice(generator.start, generator.start + x.shape[0])
+        shape = (generator.global_batch,) + tuple(x.shape[1:])
+        generator = generator.generator
     q = round(keep_prob * 256)
     if 0 < q < 256 and abs(q - keep_prob * 256) < 1e-9:
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+        bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                              device=x.device, generator=generator)
         keep = bits < q
     else:
-        keep = torch.rand(x.shape, device=x.device,
+        keep = torch.rand(shape, device=x.device,
                           generator=generator) < keep_prob
+    if rows is not None:
+        keep = keep[rows]
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

@@ -121,7 +121,8 @@ def detection_loss(interp: Interpretation, targets: Targets, *,
                    num_anchors: int, loss_coef_class: float,
                    loss_coef_conf_pos: float, loss_coef_conf_neg: float,
                    loss_coef_bbox: float, epsilon: float = 1e-16,
-                   weight_decay_term=0.0) -> LossBreakdown:
+                   weight_decay_term=0.0, num_objects=None,
+                   batch_size=None) -> LossBreakdown:
     """The 3-term squeezeDet loss (class, confidence, box) plus the
     weight-decay term, as the JAX function computes it:
 
@@ -132,10 +133,21 @@ def detection_loss(interp: Interpretation, targets: Targets, *,
       batch gives zero class and box losses instead of NaN;
     * the confidence target IoU is detached;
     * the negative-anchor denominator is ``max(A - num_objects, 1)``.
+
+    On a data-parallel rank ``targets`` are the rank's rows of the global
+    batch: ``num_objects`` is then the global ``sum(mask)`` (all-reduced)
+    and ``batch_size`` the global batch, so that each term is this rank's
+    part of the global batch's term and the ranks' losses, and their
+    gradients, sum to the one-device values.  Omitted, both are this
+    batch's own.
     """
     mask = targets.input_mask
     mask3 = mask[..., None]
-    num_objects = mask.sum().clamp(min=1.0)
+    if num_objects is None:
+        num_objects = mask.sum()
+    num_objects = num_objects.clamp(min=1.0)
+    if batch_size is None:
+        batch_size = mask.shape[0]
 
     if interp.pred_class_logits is not None:
         logits = interp.pred_class_logits
@@ -167,8 +179,9 @@ def detection_loss(interp: Interpretation, targets: Targets, *,
     conf_weight = (mask * loss_coef_conf_pos / num_objects
                    + (1 - mask) * loss_coef_conf_neg
                    / (num_anchors - num_objects).clamp(min=1.0))
-    conf_loss = torch.mean(torch.sum(
-        torch.square(ious - interp.pred_conf) * conf_weight, dim=1))
+    conf_loss = torch.sum(torch.sum(
+        torch.square(ious - interp.pred_conf) * conf_weight, dim=1)
+    ) / batch_size
 
     bbox_loss = torch.sum(loss_coef_bbox * torch.square(
         mask3 * (interp.pred_box_delta - targets.box_delta_input))

@@ -19,8 +19,10 @@ or a caffe pickle, loaded as the demo loads them; without it the weights
 are seeded random.  ``--quantize int8`` serves the int8 program of those
 weights, calibrated on ``--calib_images`` (``quant.py``).  ``--artifact``
 serves an exported artifact (``squeezedet-torch-export``) instead, with
-no model code, on the device it was traced on.  ``--num_devices`` other
-than 1 raises, naming the ROADMAP item that brings it.
+no model code, on the device it was traced on.  ``--num_devices N`` serves
+each micro-batch over N replicas of the checkpoint's model, each on its
+``max_batch / N`` rows (``serving.mesh_inference_fn``); 0 takes every
+visible device.  An artifact is one device's program.
 """
 
 from __future__ import annotations
@@ -69,8 +71,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='How long the micro-batcher waits for more '
                         'requests after the first of a batch arrives.')
     p.add_argument('--num_devices', type=int, default=1,
-                   help='Data-parallel serving over several GPUs (only 1 '
-                        'is ported yet).')
+                   help='Data-parallel serving: 1 (default) serves on one '
+                        'device; N>1 runs each micro-batch over N replicas '
+                        '(--max_batch divisible by N; more replicas than '
+                        'cards share them); 0 uses every visible device. '
+                        'Checkpoint-backed only: an artifact is one '
+                        "device's program.")
     p.add_argument('--max_queue', type=int, default=None,
                    help='Reject /detect with 503 when this many '
                         'requests are already queued for the '
@@ -155,13 +161,21 @@ class MicroBatcher:
             self.batches_run += 1
 
 
+def _resolve_num_devices(args, device) -> int:
+    """0 -> every visible device; the micro-batch must divide over the
+    replicas."""
+    from squeezedet_torch.parallel.mesh import visible_devices
+    n = args.num_devices or visible_devices(device)
+    if n > 1 and args.max_batch % n:
+        raise SystemExit(
+            "--max_batch {} is not divisible by --num_devices {}: the "
+            "micro-batch splits evenly over the replicas".format(
+                args.max_batch, n))
+    return n
+
+
 def _reject_unported(args) -> None:
-    """Options of the JAX server whose port is still to come, and the
-    combinations it refuses."""
-    if args.num_devices != 1:
-        raise SystemExit("--num_devices {} is not ported yet: multi-GPU "
-                         "serving arrives with ROADMAP Queue 1 item "
-                         "13".format(args.num_devices))
+    """The combinations the JAX server refuses."""
     if args.artifact and args.quantize:
         raise SystemExit(
             "--quantize does not apply to --artifact (an artifact bakes its "
@@ -179,15 +193,15 @@ def _build_from_checkpoint(args, cfg=None):
     (boxes, probs, classes, keep).  ``cfg`` overrides the net's canonical
     config (tests serve a tiny geometry).
     """
-    import numpy as np
-    import torch
-
     from squeezedet_torch.config import config_for_net
     from squeezedet_torch.models import get_model
+    from squeezedet_torch.parallel.mesh import make_mesh
+    from squeezedet_torch.serving import mesh_inference_fn
     from squeezedet_torch.utils.util import resolve_device
 
     _reject_unported(args)
     device = resolve_device(args.device, "the server")
+    n_dev = _resolve_num_devices(args, device)
     cfg = (cfg or config_for_net(args.net)).replace(
         batch_size=args.max_batch, load_pretrained_model=False,
         compute_dtype=args.compute_dtype)
@@ -197,26 +211,23 @@ def _build_from_checkpoint(args, cfg=None):
         load_params(det, args.checkpoint)
     else:
         print("WARNING: no --checkpoint/--artifact; serving random init")
-    predict = det.predict_raw_postprocessed
     if args.quantize:
         from squeezedet_torch.quant import calib_batch_from_images
         calib = calib_batch_from_images(
             args.calib_images, cfg.image_width, cfg.image_height)
         print("Quantizing (int8 PTQ, {} calibration frames)...".format(
             len(calib)))
-        predict = det.quantize(
-            [calib], percentile=args.calib_percentile
-        ).predict_quant_postprocessed
+        det = det.quantize([calib], percentile=args.calib_percentile)
     meta = {"class_names": list(cfg.class_names),
             "image_height": cfg.image_height,
             "image_width": cfg.image_width,
             "plot_prob_thresh": cfg.plot_prob_thresh}
-
-    def run(images_u8):
-        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-        return tuple(o.cpu().numpy() for o in predict(x))
-
-    return run, meta
+    mesh = make_mesh(n_dev, device)
+    if n_dev > 1:
+        print("serving mesh: {} replicas x batch {} ({} rows each) on "
+              "{}".format(n_dev, args.max_batch, args.max_batch // n_dev,
+                          ", ".join(str(d) for d in mesh)))
+    return mesh_inference_fn(det, args.max_batch, mesh), meta
 
 
 def _build_from_artifact(args):
@@ -229,6 +240,11 @@ def _build_from_artifact(args):
     from squeezedet_torch.utils.util import resolve_device
 
     _reject_unported(args)
+    if _resolve_num_devices(args, args.device) > 1:
+        raise SystemExit(
+            "--num_devices > 1 needs --checkpoint: an exported artifact is "
+            "one device's program; serve the checkpoint for data-parallel "
+            "serving")
     fn, meta = load_exported(args.artifact,
                              resolve_device(args.device, "the server"))
     if not meta.get("postprocess", True):

@@ -1,5 +1,5 @@
-"""The exported inference artifact (counterpart of the export half of
-``squeezedet_tpu/serving.py``).
+"""The exported inference artifact and the data-parallel serving
+program (counterpart of ``squeezedet_tpu/serving.py``).
 
 :func:`export_model` traces the whole inference program of a detector,
 weights included, with ``torch.export`` on the detector's device and
@@ -13,9 +13,8 @@ artifact launches the kernel on the card; an int8 artifact holds the int8
 program (``quant.py``) of a quantized detector.
 
 The JAX package's layout-negotiated entry (``negotiated_inference_fn``)
-is an XLA mechanism and stays out of the port (ROADMAP Queue 1 item 14);
-the data-parallel ``mesh_inference_fn`` comes with multi-GPU serving
-(item 13).
+is an XLA mechanism and stays out of the port (ROADMAP Queue 1 item 14).
+:func:`mesh_inference_fn` serves a micro-batch over several replicas.
 """
 
 from __future__ import annotations
@@ -23,10 +22,42 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import torch
 from torch import nn
 
 from squeezedet_torch.data.device_pipeline import normalize_images
+
+def mesh_inference_fn(det, batch_size: int, mesh):
+    """The uint8 -> detections program over ``mesh`` (devices,
+    ``parallel.mesh.make_mesh``): one replica of ``det`` per device, each
+    running the whole program (int8 for a quantized ``det``) on its
+    ``batch_size / D`` rows on its own device and stream.  Inference has
+    no term across images, so the replicas share nothing.
+
+    Returns ``run``: a uint8 [batch_size, H, W, 3] numpy batch -> numpy
+    (boxes, probs, classes, keep) of the whole batch.
+    """
+    from squeezedet_torch.parallel.mesh import (replicate, run_replicas,
+                                                shard_slices)
+    slices = shard_slices(batch_size, len(mesh))
+    replicas = replicate(det, mesh)
+
+    def program(d, images_u8):
+        if d.quantized:
+            return d.predict_quant_postprocessed(images_u8)
+        return d.predict_raw_postprocessed(images_u8)
+
+    def run(images_u8):
+        x = np.ascontiguousarray(images_u8)
+        outs = run_replicas(program, replicas, [
+            (torch.from_numpy(x[sl]).to(d.anchors.device),)
+            for sl, d in zip(slices, replicas)])
+        return tuple(np.concatenate([o[i].numpy() for o in outs])
+                     for i in range(len(outs[0])))
+
+    return run
+
 
 PROGRAM_FILE = "model.pt2"
 METADATA_FILE = "metadata.json"

@@ -10,6 +10,19 @@ CPU), auto-resumes from ``--train_dir``, writes checkpoints, sampler
 snapshots, ``model_metrics.txt`` and (when ``tensorboard`` imports)
 event files there.  Flags whose port is still to come raise, naming the
 ROADMAP item that brings each.
+
+Data parallelism, one process (rank) per device:
+
+    torchrun --nproc_per_node 4 -m squeezedet_torch.train ...  # any hosts
+    squeezedet-torch-train --num_devices 4 ...   # spawns 4 ranks here
+
+``--batch_size`` is the global batch in every layout: every rank, on
+one host or several, draws the same batch from one seed and trains on
+its share of it (``train_dir`` must be on storage that every host
+shares).  The JAX CLI's batch is per host across hosts, so its run on H
+hosts at ``--batch_size b`` is this CLI's at ``--batch_size H*b``.  With
+``--num_devices 0`` (the default) the CLI takes as many of the visible
+cards as divide the batch, as the JAX CLI takes its devices.
 """
 
 from __future__ import annotations
@@ -47,7 +60,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Checkpoints retained in train_dir (with their '
                         'sampler snapshots); 0 keeps all.')
     p.add_argument('--num_devices', type=int, default=0,
-                   help='Devices for data parallelism (only 1 is ported).')
+                   help='Data-parallel ranks, one process each (0 = the '
+                        'most visible devices that divide the batch; '
+                        'under torchrun, its world size). More ranks '
+                        'than cards share them.')
     p.add_argument('--device', default='cuda',
                    help='torch device to train on; never falls back.')
     p.add_argument('--seed', type=int, default=0,
@@ -135,10 +151,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     """Flags of the JAX CLI whose port is still to come, or stays out."""
-    if args.num_devices > 1:
-        raise SystemExit('--num_devices {} is not ported yet: multi-GPU '
-                         'training arrives with ROADMAP Queue 1 item '
-                         '13'.format(args.num_devices))
     if args.native_loader:
         raise SystemExit('--native_loader is not ported yet: the C++ '
                          'loader is ROADMAP Queue 1 item 17')
@@ -204,35 +216,92 @@ def config_from_args(args):
     return cfg
 
 
+def resolve_num_devices(args, batch_size: int) -> int:
+    """The ranks to spawn on this host: ``--num_devices``, or with 0 the
+    most visible devices that divide the batch.  The batch must divide
+    over them."""
+    from squeezedet_torch.parallel.mesh import data_axis_size, auto_mesh
+    n = args.num_devices or data_axis_size(auto_mesh(batch_size,
+                                                     args.device))
+    if batch_size % n:
+        raise SystemExit('--batch_size {} is not divisible by --num_devices '
+                         '{}: every rank trains on an equal share of the '
+                         'batch'.format(batch_size, n))
+    return n
+
+
 def main(argv=None):
-    """Train as the flags say; returns the final TrainState."""
+    """Train as the flags say; returns the final TrainState (None when
+    the ranks ran in spawned processes)."""
+    import sys
+
+    from squeezedet_torch.parallel import distributed
+    from squeezedet_torch.utils.util import resolve_device
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
     _reject_unported(args)
+    resolve_device(args.device, "training")
+    if distributed.launched_by_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        if args.num_devices not in (0, world):
+            raise SystemExit('--num_devices {} under a launcher of {} '
+                             'ranks'.format(args.num_devices, world))
+        return _rank_main(argv)
+    n = resolve_num_devices(args, config_from_args(args).batch_size)
+    if n > 1:
+        distributed.spawn(_rank_main, n, argv)
+        return None
+    return _train(args, None)
+
+
+def _rank_main(argv):
+    """One data-parallel rank: join the group, train, leave it."""
+    from squeezedet_torch.parallel import distributed
+    args = build_arg_parser().parse_args(argv)
+    dp = distributed.init_data_parallel(args.device)
+    try:
+        return _train(args, dp)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, dp):
+    """The run on this process's device, as rank ``dp`` of a
+    data-parallel job or alone (``dp`` None)."""
     import torch
 
     from squeezedet_torch.data import imdb_for_dataset
     from squeezedet_torch.models import get_model
+    from squeezedet_torch.parallel import distributed
     from squeezedet_torch.summary import SummaryWriter
     from squeezedet_torch.trainer import train
     from squeezedet_torch.utils.util import resolve_device
 
-    device = resolve_device(args.device, "training")
+    device = dp.device if dp is not None else \
+        resolve_device(args.device, "training")
     cfg = config_from_args(args)
     max_steps = 1000000 if args.max_steps is None else args.max_steps
     det = get_model(args.net, cfg, device=device,
                     generator=torch.Generator().manual_seed(args.seed))
+    # every rank, on one host or several, draws the same global batch
+    # from one seed and trains on its rows of it
     imdb = imdb_for_dataset(args.dataset, args.image_set, args.data_path,
                             cfg, year=args.year,
                             rng=np.random.RandomState(args.seed))
 
-    if args.fresh_start and os.path.isdir(args.train_dir):
+    primary = distributed.is_primary_process()
+    if args.fresh_start and os.path.isdir(args.train_dir) and primary:
         import shutil
         shutil.rmtree(args.train_dir)
+    if dp is not None:
+        dp.barrier()  # no rank writes while rank 0 empties the directory
     os.makedirs(args.train_dir, exist_ok=True)
-    writer = SummaryWriter(args.train_dir)
+    # one event file per job
+    writer = SummaryWriter(args.train_dir) if primary else None
 
     step_tracer = None
-    if args.profile_steps:
+    if args.profile_steps and primary:
         from squeezedet_torch.utils.profiling import StepTracer
         start, stop = (int(x) for x in args.profile_steps.split(':'))
         step_tracer = StepTracer(os.path.join(args.train_dir, 'profile'),
@@ -241,7 +310,8 @@ def main(argv=None):
         return train(det, imdb, train_dir=args.train_dir,
                      max_steps=max_steps, summary_step=args.summary_step,
                      checkpoint_step=args.checkpoint_step, seed=args.seed,
-                     resume=not args.no_resume, summary_writer=writer,
+                     dp=dp, resume=not args.no_resume,
+                     summary_writer=writer,
                      viz_step=args.summary_step, step_tracer=step_tracer,
                      device_assign=args.device_assign,
                      histogram_step=args.histogram_step,
@@ -252,7 +322,8 @@ def main(argv=None):
                      device_augment=args.device_augment,
                      device_dataset=args.device_dataset)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == '__main__':

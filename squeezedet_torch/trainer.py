@@ -13,25 +13,37 @@ summary and checkpoint cadences with the NaN gate, checkpoints with the
 input-stream snapshot for exact resume, ``model_metrics.txt``, and the
 summary-step histograms and detection images.
 
+Data parallelism (``dp``, a ``parallel.distributed.DataParallel``):
+one process per device, each training on its rows of the global batch.
+The JAX step computes the loss of the global batch, whose terms do not
+split into per-rank means, so each rank computes its *part* of the
+global loss (the all-reduced object count and the global batch as
+normalisers, weight decay on rank 0 only, dropout drawn for the global
+batch and sliced: ``layers.BatchRows``), the gradients are summed over
+the ranks, and every rank then clips and updates identically.  The D-rank
+step equals the one-device step at the same global batch.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: meshes (13), the scanned multi-step dispatch (16, as CUDA
-graphs), activation summaries (19); ``rng_impl`` stays out (14).
+Queue 1 item: the scanned multi-step dispatch (16, as CUDA graphs),
+activation summaries (19); ``rng_impl`` stays out (14).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
 from dataclasses import dataclass
 from datetime import datetime
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from squeezedet_torch.data.device_pipeline import ingest_and_assign
 from squeezedet_torch.models import Detector
+from squeezedet_torch.models import layers as L
 from squeezedet_torch.models.skeleton import LossBreakdown, Targets
 from squeezedet_torch.optim import Momentum, build_optimizer, learning_rate_at
 
@@ -65,29 +77,70 @@ class TrainState:
                              "{}".format(int(tree["step"]), self.opt.step))
 
 
+def _rank_loss(det: Detector, images: torch.Tensor, targets: Targets,
+               generator: Optional[torch.Generator], dp=None) -> LossBreakdown:
+    """The train loss of the batch, or with ``dp`` (a ``DataParallel``)
+    this rank's part of the loss of the ``cfg.batch_size`` global batch
+    whose rows it holds: the all-reduced object count and the global
+    batch as normalisers, weight decay on rank 0 only, and dropout drawn
+    for the global batch and sliced to the rank's rows."""
+    if dp is None:
+        return det.loss(images, targets, generator, train=True)
+    batch = det.cfg.batch_size
+    # the mask is a target (no gradient): one all-reduce of its count
+    num_objects = dp.all_reduce_(targets.input_mask.sum())
+    rows = None if generator is None else L.BatchRows(
+        generator, batch, dp.rank * (batch // dp.world))
+    return det.loss(images, targets, rows, train=True,
+                    num_objects=num_objects, batch_size=batch,
+                    weight_decay=dp.primary)
+
+
+def _sum_over_ranks(dp, grads: Sequence[torch.Tensor]) -> list:
+    """The ranks' gradients summed, leaf by leaf, in one all-reduce of
+    their concatenation."""
+    flat = dp.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    return [part.view_as(g) for g, part in
+            zip(grads, flat.split([g.numel() for g in grads]))]
+
+
 def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
-                  generator: Optional[torch.Generator]) -> LossBreakdown:
+                  generator: Optional[torch.Generator],
+                  dp=None) -> LossBreakdown:
     """Forward + backward + optimizer update, shared by every step
     builder.  Frozen parameters (``requires_grad=False``) get no
-    gradient, and nothing is differentiated through them."""
+    gradient, and nothing is differentiated through them.
+
+    With ``dp`` (a ``DataParallel``) this rank's rows are part of the
+    global batch: the gradients of the rank's part of the global loss
+    are summed over the ranks before the update, and the returned terms
+    are the global batch's (summed over the ranks)."""
     state.opt.zero_grad()
-    lb = state.det.loss(images, targets, generator, train=True)
+    lb = _rank_loss(state.det, images, targets, generator, dp)
     lb.total.backward()
-    state.opt.update()
-    return LossBreakdown(*(t.detach() for t in lb))
+    if dp is not None:
+        grads = [p.grad for p in state.opt.params.values()]
+        for g, total in zip(grads, _sum_over_ranks(dp, grads)):
+            g.copy_(total)
+    state.opt.update()  # clips the summed gradient, alike on every rank
+    if dp is None:
+        return LossBreakdown(*(t.detach() for t in lb))
+    return LossBreakdown(*dp.all_reduce_(
+        torch.stack([t.detach() for t in lb])).unbind())
 
 
-def make_train_step(state: TrainState):
+def make_train_step(state: TrainState, dp=None):
     """Step on dense targets: ``(images, targets, generator) ->
-    LossBreakdown``, with mean-subtracted images."""
+    LossBreakdown``, with mean-subtracted images.  ``dp``: as
+    :func:`make_train_step_device`."""
     def step_fn(images, targets: Targets, generator=None):
-        return _apply_update(state, images, targets, generator)
+        return _apply_update(state, images, targets, generator, dp)
     return step_fn
 
 
 def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
                            device_augment: bool = False,
-                           device_dataset: bool = False, mesh=None):
+                           device_dataset: bool = False, dp=None):
     """Step with the anchor matcher on the device.
 
     Signature: ``(images, gt_boxes, gt_labels, num_gt, generator) ->
@@ -99,31 +152,41 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     is ``(dataset, pos, aug, gt_boxes, gt_labels, num_gt, generator)``;
     the step gathers its canvas rows ``pos`` from the uint8 stack
     ``dataset`` [N, H0, W0, 3] on the device, then augments as above.
+
+    ``dp``, a ``DataParallel``: the step takes this rank's rows of the
+    global batch (``dp.rows``) and returns the global loss terms; under
+    ``device_dataset`` over several ranks ``dataset`` is this rank's
+    shard block and ``pos`` the global rows
+    (``parallel.mesh.local_shard_gather``).
     """
-    if mesh is not None:
-        raise NotImplementedError("meshes: ROADMAP Queue 1 item 13")
+    from squeezedet_torch.parallel.mesh import local_shard_gather
     det = state.det
+    sharded = dp is not None and dp.world > 1
+
+    def update(images, targets, generator):
+        return _apply_update(state, images, targets, generator, dp)
 
     if device_dataset:
         def step_fn(dataset, pos, aug, gt_boxes, gt_labels, num_gt,
                     generator=None):
-            canvas = torch.index_select(dataset, 0, pos.long())
+            canvas = local_shard_gather(dp.rank, dataset, pos) \
+                if sharded else torch.index_select(dataset, 0, pos.long())
             images, targets = ingest_and_assign(
                 det, canvas, gt_boxes, gt_labels, num_gt, uint8_ingest,
                 aug=aug)
-            return _apply_update(state, images, targets, generator)
+            return update(images, targets, generator)
     elif device_augment:
         def step_fn(images, aug, gt_boxes, gt_labels, num_gt,
                     generator=None):
             images, targets = ingest_and_assign(
                 det, images, gt_boxes, gt_labels, num_gt, uint8_ingest,
                 aug=aug)
-            return _apply_update(state, images, targets, generator)
+            return update(images, targets, generator)
     else:
         def step_fn(images, gt_boxes, gt_labels, num_gt, generator=None):
             images, targets = ingest_and_assign(
                 det, images, gt_boxes, gt_labels, num_gt, uint8_ingest)
-            return _apply_update(state, images, targets, generator)
+            return update(images, targets, generator)
     return step_fn
 
 
@@ -135,9 +198,14 @@ def make_train_step_device_scan(*args, **kwargs):
         "graphs on the card): ROADMAP Queue 1 item 16")
 
 
-def _sampler_ckpt_path(train_dir: str, step: int) -> str:
-    """Input-stream snapshot path of a checkpoint step."""
-    return os.path.join(train_dir, "sampler.ckpt-{}.npz".format(step))
+def _sampler_ckpt_path(train_dir: str, step: int, dp=None) -> str:
+    """Input-stream snapshot path of a checkpoint step: one file per rank
+    (``.p<rank>``) when several ranks train, as the JAX package keeps one
+    per controller."""
+    suffix = "" if dp is None or dp.world == 1 else \
+        ".p{}".format(dp.rank)
+    return os.path.join(train_dir, "sampler.ckpt-{}{}.npz".format(step,
+                                                                  suffix))
 
 
 def _write_loss_summaries(summary_writer, cfg, step: int, lb) -> None:
@@ -155,7 +223,8 @@ def _write_loss_summaries(summary_writer, cfg, step: int, lb) -> None:
 
 def _dispatch_cadences(covered, lb, *, start_time, cfg, log_every,
                        summary_step, summary_writer, checkpoint_step,
-                       max_steps, force_materialize=False):
+                       max_steps, force_materialize=False,
+                       batch_size=None, quiet=False):
     """The log, loss-summary and checkpoint cadences over the steps
     ``covered`` by one dispatch, and the NaN gate.
 
@@ -163,6 +232,8 @@ def _dispatch_cadences(covered, lb, *, start_time, cfg, log_every,
     ``force_materialize``): quiet steps stay asynchronous, so host work
     overlaps the device.  Returns ``(summary_due, checkpoint_due,
     totals)``, ``totals`` the per-step losses (None when nothing fired).
+    ``batch_size`` is the images a step trains on (``cfg.batch_size``
+    when omitted); ``quiet`` prints no log line.
     """
     last = covered[-1]
     do_log = any(s % log_every == 0 for s in covered)
@@ -182,14 +253,14 @@ def _dispatch_cadences(covered, lb, *, start_time, cfg, log_every,
                 '{}, bbox {}, class {}'.format(
                     covered[0], last, totals, terms["conf_loss"],
                     terms["bbox_loss"], terms["class_loss"]))
-    if do_log:
+    if do_log and not quiet:
         duration = time.time() - start_time
         k = len(covered)
         per = ('%.3f sec/batch' % duration) if k == 1 else \
             ('%.3f sec/%d-step dispatch' % (duration, k))
         print('%s: step %d, loss = %.2f (%.1f images/sec; %s)' % (
             datetime.now(), last, float(totals[-1]),
-            cfg.batch_size * k / duration, per))
+            (batch_size or cfg.batch_size) * k / duration, per))
         sys.stdout.flush()
     if do_summary:
         lb_last = LossBreakdown(*(float(t.detach().reshape(-1)[-1])
@@ -200,7 +271,7 @@ def _dispatch_cadences(covered, lb, *, start_time, cfg, log_every,
 
 def _save_checkpoint(ckpt, train_dir: str, imdb, loader, generator,
                      state: TrainState, *, next_step: int, max_steps: int,
-                     totals) -> None:
+                     totals, dp=None) -> None:
     """Divergence-gated checkpoint + input-stream snapshot, saved under
     the last covered step (``next_step - 1``).  The manager copies the
     state to the CPU before the background write starts (the next step
@@ -209,16 +280,20 @@ def _save_checkpoint(ckpt, train_dir: str, imdb, loader, generator,
     The snapshot is the consumed batch's sampler state (carried through
     the prefetch queue with each item), so resume redraws exactly the
     batches after the last one trained on, and the dropout generator's
-    state, so its draws continue too.
+    state, so its draws continue too.  Under ``dp`` rank 0 writes the
+    checkpoint and every rank its own snapshot (the dropout generator's
+    state is the same on every rank).
     """
     totals = np.asarray(totals)
     if not np.isfinite(totals).all():
         raise FloatingPointError(
             'Model diverged (losses = {}); refusing to checkpoint at step '
             '{}'.format(totals, next_step - 1))
-    ckpt.save(next_step - 1, state.as_tree(), wait=next_step == max_steps)
+    if dp is None or dp.primary:
+        ckpt.save(next_step - 1, state.as_tree(),
+                  wait=next_step == max_steps)
     stream_state = loader.consumed_state() or imdb.sampler_state()
-    np.savez(_sampler_ckpt_path(train_dir, next_step - 1),
+    np.savez(_sampler_ckpt_path(train_dir, next_step - 1, dp),
              torch_rng_state=generator.get_state().numpy(), **stream_state)
 
 
@@ -273,21 +348,45 @@ def write_histograms(summary_writer, params, grads, step: int) -> None:
                 leaf.detach().float().cpu().numpy(), step)
 
 
-def trainable_grads(det: Detector, images, targets: Targets, generator):
+def trainable_grads(det: Detector, images, targets: Targets, generator,
+                    dp=None):
     """Gradients of the train loss at ``det``'s current parameters, for
     the trainable leaves only (frozen conv1 is not differentiated, so
     K1's CUDA path, which refuses a gradient, stays usable); ``.grad``
-    fields are left alone."""
+    fields are left alone.  With ``dp`` every rank calls it on its rows
+    of the global batch, and each gets the global batch's gradient."""
     params = {n: p for n, p in det.backbone.named_parameters()
               if p.requires_grad}
-    total = det.loss(images, targets, generator, train=True).total
+    total = _rank_loss(det, images, targets, generator, dp).total
     grads = torch.autograd.grad(total, list(params.values()))
+    if dp is not None:
+        grads = _sum_over_ranks(dp, grads)
     return params, dict(zip(params, grads))
+
+
+def _report_ranks(dp, before, forwards: int, starts) -> None:
+    """Rank 0 prints, for every rank, this run's K1 and K2 launches beside
+    its forwards and steps (the launch counters are per process), the
+    median interval between step starts after the first two (µs) and the
+    device's peak memory (MiB)."""
+    from squeezedet_torch.ops import filter_grad, fused_frontend
+    gaps = np.diff(starts)[2:]
+    peak = torch.cuda.max_memory_allocated(dp.device) \
+        if dp.device.type == "cuda" else 0
+    rows = dp.all_gather_ints([
+        fused_frontend.LAUNCHES - before[0], filter_grad.LAUNCHES - before[1],
+        forwards, len(starts),
+        int(np.median(gaps) * 1e6) if gaps.size else 0, peak >> 20])
+    if dp.primary:
+        keys = ("k1", "k2", "forwards", "steps", "step_us", "peak_mib")
+        print("data-parallel ranks " + json.dumps([
+            dict(zip(keys, (int(v) for v in row))) for row in rows]),
+            flush=True)
 
 
 def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
           summary_step: int = 10, checkpoint_step: int = 1000,
-          seed: int = 0, mesh=None, resume: bool = True,
+          seed: int = 0, dp=None, resume: bool = True,
           summary_writer=None, log_every: int = 10,
           pretrained: Optional[dict] = None,
           viz_step: int = 0, step_tracer=None,
@@ -310,15 +409,29 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     the imdb's own RandomState drives the sampler.  ``pallas_grads``
     routes the eligible 1x1 weight gradients through K2 for this call.
     Returns the final :class:`TrainState`.
+
+    ``dp`` (a ``DataParallel``, ``det`` on its device): this process
+    is one rank of a data-parallel job.  Every rank, on one host or
+    several, passes an imdb with the same seed; the loop trains on this
+    rank's rows of each ``cfg.batch_size`` batch, starts every rank from
+    rank 0's state, writes checkpoints, ``model_metrics.txt``, the log
+    and the histograms of the global batch's gradient from rank 0 (pass
+    ``summary_writer`` there only) and one sampler snapshot per rank.
+    ``pallas_grads`` is ignored over several
+    ranks, as the JAX package ignores it on a mesh.  A sharded
+    ``device_dataset`` keeps each rank's shard of the split on its device.
     """
-    from squeezedet_torch.checkpoint.manager import CheckpointManager
+    from squeezedet_torch.checkpoint.manager import (CheckpointManager,
+                                                     latest_step)
     from squeezedet_torch.loader import PrefetchLoader
     from squeezedet_torch.models import layers
+    from squeezedet_torch.ops import filter_grad, fused_frontend
+    from squeezedet_torch.parallel.mesh import local_shard_gather
     from squeezedet_torch.utils.metrics import write_model_metrics
 
     cfg = det.cfg
-    if mesh is not None:
-        raise NotImplementedError("meshes: ROADMAP Queue 1 item 13")
+    primary = dp is None or dp.primary
+    world = 1 if dp is None else dp.world
     if rng_impl:
         raise NotImplementedError(
             "rng_impl is a JAX PRNG choice and stays out of the port "
@@ -338,8 +451,22 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     if device_augment and not device_assign:
         raise ValueError("--device_augment requires --device_assign (the "
                          "canvas path feeds the on-device matcher)")
+    if world > 1 and pallas_grads:
+        print("WARNING: --pallas_grads routes weight gradients of one "
+              "device; ignoring it over {} data-parallel ranks.".format(
+                  world))
+        pallas_grads = False
+    rows = None if dp is None else dp.rows(cfg.batch_size)
+    sharded_ds = device_dataset and world > 1
+    if sharded_ds:
+        # before the sampler restore below: the snapshot is shard-shaped
+        imdb.shard_data(world, cfg.batch_size)
     writer_on = summary_writer is not None and \
         getattr(summary_writer, "enabled", True)
+    # every rank joins the histogram steps' gradient all-reduce, when
+    # rank 0 writes them
+    hist_on = bool(histogram_step) and (writer_on if world == 1 else bool(
+        dp.all_gather_ints([writer_on])[0, 0]))
     if writer_on and viz_step:
         try:
             import cv2  # noqa: F401
@@ -360,16 +487,28 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     state = TrainState(det, build_optimizer(cfg, det))
     generator = torch.Generator(device=dev).manual_seed(seed)
 
-    write_model_metrics(os.path.join(train_dir, "model_metrics.txt"),
-                        det.tracer)
+    if primary:
+        write_model_metrics(os.path.join(train_dir, "model_metrics.txt"),
+                            det.tracer)
 
     ckpt = CheckpointManager(train_dir, max_to_keep=max_to_keep)
+    if world > 1:
+        # every rank must see the checkpoints rank 0 writes: train_dir
+        # on storage all the job's hosts share
+        latest = latest_step(train_dir)
+        steps = dp.all_gather_ints([-1 if latest is None else latest])
+        if (steps != steps[0]).any():
+            raise RuntimeError(
+                "ranks disagree on the latest checkpoint in {} (per rank: "
+                "{}): data-parallel training needs train_dir on storage "
+                "that every host shares".format(train_dir,
+                                                steps[:, 0].tolist()))
     if resume:
         step, restored = ckpt.restore_latest(state.as_tree())
         if step is not None:
             state.load_tree(restored)
             print("Resumed from step {}".format(state.step))
-            sampler_file = _sampler_ckpt_path(train_dir, step)
+            sampler_file = _sampler_ckpt_path(train_dir, step, dp)
             if os.path.exists(sampler_file):
                 with np.load(sampler_file) as data:
                     data = dict(data)
@@ -379,19 +518,24 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
                     generator.set_state(torch.from_numpy(rng_state))
                 print("Restored input-stream state ({})".format(
                     os.path.basename(sampler_file)))
+    if world > 1:
+        # every rank starts from rank 0's parameters and momentum
+        dp.broadcast_(list(det.backbone.state_dict().values())
+                        + list(state.opt.trace.values()))
 
     if device_assign:
         train_step = make_train_step_device(state, uint8_ingest=uint8_ingest,
                                             device_augment=device_augment,
-                                            device_dataset=device_dataset)
+                                            device_dataset=device_dataset,
+                                            dp=dp)
     else:
-        train_step = make_train_step(state)
+        train_step = make_train_step(state, dp)
 
     dataset_dev = None
     if device_dataset:
         # the guard is computed from the headers, before any decode
         h0, w0 = imdb.canvas_size()
-        n_total = len(imdb.image_idx)
+        n_total = imdb._shard_rows if sharded_ds else len(imdb.image_idx)
         gib = n_total * h0 * w0 * 3 / 2**30
         if gib > DEVICE_DATASET_MAX_GIB:
             raise ValueError(
@@ -400,9 +544,17 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
                 "model on the device; use --device_augment (a per-step "
                 "canvas feed) instead".format(n_total, gib,
                                               DEVICE_DATASET_MAX_GIB))
-        dataset_dev = torch.from_numpy(imdb.load_canvas_dataset()).to(dev)
+        if sharded_ds:
+            # this rank's shard only; its slots gather from it alone
+            dataset_np = imdb.load_canvas_shards([dp.rank])
+        else:
+            dataset_np = imdb.load_canvas_dataset()
+        dataset_dev = torch.from_numpy(dataset_np).to(dev)
+        del dataset_np
         print("Device-resident dataset: {} images, {:.2f} GiB, uploaded "
-              "once".format(n_total, dataset_dev.numel() / 2**30))
+              "once{}".format(n_total, dataset_dev.numel() / 2**30,
+                              " (shard {} of {})".format(dp.rank, world)
+                              if sharded_ds else ""))
 
     def to_dev(x):
         return torch.from_numpy(np.asarray(x)).to(dev)
@@ -418,7 +570,10 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
             if uint8_ingest:
                 return images.astype(np.float32) - cfg.bgr_means_array()
             return images
-        if device_dataset:
+        if sharded_ds:
+            canvas = local_shard_gather(dp.rank, dataset_dev,
+                                        to_dev(host_batch[0]))
+        elif device_dataset:
             canvas = torch.index_select(dataset_dev, 0,
                                         to_dev(host_batch[0]).long())
         else:
@@ -444,17 +599,19 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     loader = PrefetchLoader(imdb, device_targets=device_assign,
                             max_gt=max_gt, uint8_images=uint8_ingest,
                             device_augment=device_augment,
-                            device_dataset=device_dataset).start()
+                            device_dataset=device_dataset,
+                            rows=rows).start()
     prev_mode = layers.filter_grad_mode()
     if pallas_grads:
         layers.set_filter_grad("1x1")
+    launches = fused_frontend.LAUNCHES, filter_grad.LAUNCHES
+    forwards, starts = 0, []
     try:
         for step in range(state.step, max_steps):
             if step_tracer is not None:
                 step_tracer.on_step(step)
             start_time = time.time()
-            hist_due = writer_on and histogram_step and \
-                step % histogram_step == 0
+            hist_due = hist_on and step % histogram_step == 0
             # the histogram gradients replay this step's dropout draws
             step_rng = generator.get_state() if hist_due else None
             host_batch = loader.get()
@@ -471,32 +628,41 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
                                 Targets(*(t.to(dev) for t in targets)),
                                 generator=generator)
 
+            forwards += 1
+            starts.append(start_time)
             do_summary, ckpt_due, totals = _dispatch_cadences(
                 range(step, step + 1), lb, start_time=start_time,
                 cfg=cfg, log_every=log_every, summary_step=summary_step,
                 summary_writer=summary_writer,
-                checkpoint_step=checkpoint_step, max_steps=max_steps)
+                checkpoint_step=checkpoint_step, max_steps=max_steps,
+                batch_size=cfg.batch_size, quiet=not primary)
             viz_due = writer_on and do_summary and viz_step and \
                 step % viz_step == 0
             if viz_due or hist_due:
                 pixels = summary_pixels(host_batch)
                 targets = summary_targets(host_batch)
             if viz_due:
+                forwards += 1
                 summary_writer.image(
                     "sample_detection_results",
                     viz_prediction_images(det, pixels, targets), step,
                     max_outputs=cfg.batch_size)
             if hist_due:
+                forwards += 1
                 # grads at the post-update params of the same batch
                 params, grads = trainable_grads(
                     det, to_dev(pixels), Targets(*(t.to(dev)
                                                    for t in targets)),
-                    torch.Generator(device=dev).set_state(step_rng))
-                write_histograms(summary_writer, params, grads, step)
+                    torch.Generator(device=dev).set_state(step_rng), dp)
+                if writer_on:
+                    write_histograms(summary_writer, params, grads, step)
             if ckpt_due:
                 _save_checkpoint(ckpt, train_dir, imdb, loader, generator,
                                  state, next_step=step + 1,
-                                 max_steps=max_steps, totals=totals)
+                                 max_steps=max_steps, totals=totals,
+                                 dp=dp)
+        if dp is not None:
+            _report_ranks(dp, launches, forwards, starts)
         return state
     finally:
         layers.set_filter_grad(prev_mode)

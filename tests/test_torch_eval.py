@@ -114,17 +114,17 @@ def test_detect_all_device_dataset_matches_jax(kitti_root, params, batch):
     got, got_n, _ = port_eval.detect_all(det, db, batch,
                                          device_postprocess=batch > 1,
                                          device_dataset=True)
-    key, stack = db._eval_stack_dev
+    key, (stack,) = db._eval_stack_dev  # one stack per replica
     assert key == "cpu" and stack.dtype == torch.uint8
     assert stack.shape == (8, 96, 320, 3)
     again, again_n, _ = port_eval.detect_all(det, db, batch,
                                              device_postprocess=batch > 1,
                                              device_dataset=True)
-    assert db._eval_stack_dev[1] is stack
-    db._eval_stack_dev = ("stale-device", stack)
+    assert db._eval_stack_dev[1][0] is stack
+    db._eval_stack_dev = ("stale-device", [stack])
     port_eval.detect_all(det, db, batch, device_dataset=True)
     assert db._eval_stack_dev[0] == "cpu"
-    assert db._eval_stack_dev[1] is not stack
+    assert db._eval_stack_dev[1][0] is not stack
     assert got_n == again_n == want_n > 0
     _assert_same_detections(got, want, 8)
     _assert_same_detections(again, want, 8)

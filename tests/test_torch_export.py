@@ -284,7 +284,7 @@ def test_serve_artifact_answers_concurrent_requests(params, tmp_path):
     (dict(uint8_input=False), [], "float32 input"),
     ({}, ["--max_batch", "2"], "batch_size=1"),
     ({}, ["--quantize", "int8"], "does not apply to --artifact"),
-    ({}, ["--num_devices", "2"], "item 13")])
+    ({}, ["--num_devices", "2", "--max_batch", "2"], "needs --checkpoint")])
 def test_serve_artifact_refusals(params, tmp_path, export_kw, flags, match):
     _, det = _models(params, 1)
     path = str(tmp_path / "art")

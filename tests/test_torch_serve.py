@@ -160,10 +160,14 @@ def test_micro_batcher_rejects_and_propagates_errors():
     assert full.rejects == 1
 
 
-@pytest.mark.parametrize("flag", [["--num_devices", "2"]])
+@pytest.mark.parametrize("flag", [["--num_devices", "2", "--max_batch",
+                                   "3"]])
 def test_unported_options_name_their_roadmap_item(flag):
+    """--num_devices is ported (test_torch_parallel.py serves over two
+    replicas); like the JAX server it refuses a micro-batch that does not
+    split over the replicas."""
     args = serve.build_arg_parser().parse_args(["--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="not divisible"):
         serve.build_server(args, st.tiny_test_config())
 
 

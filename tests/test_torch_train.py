@@ -173,21 +173,64 @@ def test_dense_target_step_equals_device_step(start):
 
 
 def test_unported_paths_raise(start, tmp_path):
-    """What the port leaves out raises, naming its ROADMAP item: meshes
-    (13), rng_impl (14, stays out), the scanned dispatch (16) and
-    activation summaries (19)."""
+    """What the port leaves out raises, naming its ROADMAP item: rng_impl
+    (14, stays out), the scanned dispatch (16) and activation summaries
+    (19).  Data parallelism is ported: test_torch_parallel.py and
+    test_world_one_data_parallel_step_equals_the_plain_step."""
     state = _port_state(start)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step_device(state, mesh=object())
     with pytest.raises(NotImplementedError, match="item 16"):
         make_train_step_device_scan(state, 4)
-    for kw, item in ((dict(mesh=object()), "item 13"),
-                     (dict(rng_impl="rbg"), "item 14"),
+    for kw, item in ((dict(rng_impl="rbg"), "item 14"),
                      (dict(steps_per_dispatch=2), "item 16"),
                      (dict(activation_summary=True), "item 19")):
         with pytest.raises(NotImplementedError, match=item):
             train(state.det, None, train_dir=str(tmp_path), max_steps=1,
                   **kw)
+
+
+@pytest.fixture
+def world_of_one(monkeypatch):
+    """A one-rank gloo group in this process (torchrun's environment)."""
+    from squeezedet_torch.parallel import distributed
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(distributed.free_port())).items():
+        monkeypatch.setenv(k, v)
+    threads = torch.get_num_threads()
+    dp = distributed.init_data_parallel("cpu")
+    try:
+        yield dp
+    finally:
+        distributed.shutdown()
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("dense", [False, True],
+                         ids=["device_targets", "dense_targets"])
+def test_world_one_data_parallel_step_equals_the_plain_step(
+        start, world_of_one, dense):
+    """The data-parallel step of one rank (all-reduced object count and
+    gradients, the dropout draw of the global batch, weight decay on rank
+    0) is the plain step, bit for bit, with dropout on."""
+    batch = list(map(torch.from_numpy, _batch(np.random.RandomState(4),
+                                              False)))
+    results = []
+    for dp in (None, world_of_one):
+        state = _port_state(start)
+        state.det.backbone.keep_prob = 0.5  # dropout on
+        gen = torch.Generator().manual_seed(3)
+        if dense:
+            images, targets = ingest_and_assign(state.det, *batch,
+                                                uint8_ingest=True)
+            lb = make_train_step(state, dp)(images, targets, gen)
+        else:
+            lb = make_train_step_device(state, uint8_ingest=True,
+                                        dp=dp)(*batch, generator=gen)
+        results.append(([float(v) for v in lb],
+                        state.det.backbone.state_dict()))
+    (loss_a, params_a), (loss_b, params_b) = results
+    assert loss_a == loss_b
+    for name, p in params_a.items():
+        assert torch.equal(p, params_b[name]), name
 
 
 def test_dropout_keep_rate_scale_and_determinism():
