@@ -115,7 +115,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--device_dataset``, against one replica's detections; (d) the server
    over two replicas (``--num_devices 2 --max_batch 8``, f32): 16
    concurrent frames get one replica's replies.  K1 launches once per
-   replica per batch, and once per forward on every rank.
+   replica per batch, and once per forward on every rank;
+12. K steps per dispatch as one captured CUDA graph (``trainer.
+   make_train_step_device_scan``): (a) K=4 steps at B=20 bf16, 1248x384,
+   dropout on, ``--device_dataset``-style inputs, mode "1x1", over three
+   dispatches (eager, capture and replay, replay) against the same steps
+   run eagerly from the same weights and generator: loss terms, every
+   parameter and momentum leaf (within DP_STEP_TOL of its update) and the
+   generator's state; the K1 and K2 launches of the last dispatch counted
+   by ``torch.profiler``'s kernel rows (K1 K times, K2 10K times) and by
+   the port's counters, with each dispatch's ms and the device's idle
+   share, eager against replayed; (b) the train CLI at B=20 bf16
+   ``--device_dataset --pallas_grads``, ms/step at K=1 and at
+   ``--steps_per_dispatch 8`` (eight dispatches and an odd tail), then a
+   K=8 run with a checkpoint every 8 steps to step 21 (checkpoints at
+   dispatch boundaries and the tail's steps) and its resume to step 37,
+   which draws a straight run's batches; one NCCL rank (a launcher's
+   environment) at K=4 with ``--pallas_grads``, its all-reduces captured;
+   (c) ``--activation_summary`` at two histogram steps: the
+   ``activations/`` and ``activation_summary/`` tags written and no K1
+   launch in the tape's forwards; (d) the learning check: the recipe's
+   fixture (256 + 75 frames at 1248x384, ``data/synth.make_synth_kitti``)
+   and its large arm (B=128, ``--recipe_batch 128``, seed 0,
+   ``--device_dataset``, K=8, 375 steps), then ``eval --run_once``: val
+   mAP must reach LEARN_MIN_MAP.  K1 launches once per step, forward and
+   eval batch, K2 ten times per backward, replays included.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -273,6 +297,33 @@ INT8_HYBRID_START, EXPORT_BATCH, INT8_EVAL_CALIB = "fire2", 8, 2
 DP_RANKS, DP_STEP_BATCH, DP_CLI_STEPS, DP_IMAGES = 2, 4, 10, 24
 DP_STEP_TOL = 2e-3
 DP_PROFILE_STEPS, DP_EVAL_BATCH = "7:9", 8
+# phase 12: K steps per dispatch as one captured CUDA graph.  (a) K steps,
+# the batch, the canvases they gather from and the dispatches (the first
+# runs eagerly, the second captures and replays, the rest replay), with a
+# warm-up that ends inside the second dispatch; held to phase 6's
+# LOSS_RTOL and phase 11's DP_STEP_TOL.  (b) the train CLI's K, the K=1
+# and K runs' steps (eight dispatches and an odd tail), then a run with a
+# checkpoint every GRAPH_EVERY steps to GRAPH_CKPT_TO and its resume to
+# GRAPH_RESUME_TO; the NCCL rank's K (phase 11's 10 steps); (c) the
+# histogram steps of the --activation_summary run; (d) the learning check:
+# the recipe's fixture (scripts/torch_large_batch_recipe.sh gen) and its
+# large arm at seed 0 with --device_dataset, whose val mAP must reach
+# LEARN_MIN_MAP, below all 11 of the JAX package's per-seed results on
+# this fixture (lowest 0.829, PARITY.md).
+GRAPH_K, GRAPH_BATCH, GRAPH_CANVASES, GRAPH_DISPATCHES = 4, 20, 40, 3
+GRAPH_WARMUP = 6
+GRAPH_CLI_K, GRAPH_K1_STEPS, GRAPH_STEPS = 8, 40, 69
+GRAPH_EVERY, GRAPH_CKPT_TO, GRAPH_RESUME_TO = 8, 21, 37
+NCCL_SCAN_K, ACT_STEPS, ACT_HIST_EVERY = 4, 3, 2
+LEARN_TRAIN, LEARN_VAL, LEARN_FRAME = 256, 75, (384, 1248)
+LEARN_ARGV = ["--image_width", "1248", "--image_height", "384",
+              "--batch_size", "16", "--learning_rate", "0.001",
+              "--max_steps", "375", "--checkpoint_step", "125",
+              "--device_assign", "--uint8_ingest", "--compute_dtype",
+              "bfloat16", "--image_cache_mb", "768", "--seed", "0",
+              "--recipe_batch", "128", "--device_dataset",
+              "--steps_per_dispatch", "8"]
+LEARN_STEPS, LEARN_MIN_MAP = 375, 0.75
 
 
 def log(*a):
@@ -2441,6 +2492,442 @@ def phase_data_parallel(card, weights):
     return k1, child
 
 
+def _kernel_rows(prof, wall_ms):
+    """{kernel name: launches} of a profile's device rows, the sum of
+    their times (ms) and the device's idle share of ``wall_ms``."""
+    import torch
+    rows, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows[e.name] = rows.get(e.name, 0) + 1
+            busy += (e.time_range.end - e.time_range.start) / 1e3
+    return rows, busy, max(0.0, 1.0 - busy / wall_ms)
+
+
+def _rows_named(rows, part):
+    return sum(n for name, n in rows.items() if part in name)
+
+
+def phase_graph_step(card, weights):
+    """Phase 12 (a): K steps per dispatch captured in one CUDA graph
+    against the same K steps run eagerly, from the same weights and
+    generator, over GRAPH_DISPATCHES dispatches of --device_dataset-style
+    inputs (bf16, dropout on, mode "1x1").  Returns the steps run (each
+    launches K1 once and K2 ten times)."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.trainer import (make_train_step_device,
+                                          make_train_step_device_scan)
+    k, b = GRAPH_K, GRAPH_BATCH
+    cfg = kitti_squeezedet_config().replace(
+        compute_dtype="bfloat16", learning_rate=1e-3,
+        lr_warmup_steps=GRAPH_WARMUP)
+    h0, w0 = LOOP_FRAME
+    rs = np.random.RandomState(12)
+    dataset = torch.from_numpy(rs.randint(
+        0, 256, (GRAPH_CANVASES, h0, w0, 3), dtype=np.uint8)).cuda()
+
+    def dispatch_inputs():
+        dx = rs.randint(-cfg.drift_x, cfg.drift_x + 1, (k, b))
+        dy = rs.randint(-cfg.drift_y, cfg.drift_y + 1, (k, b))
+        aug = np.stack([dx, dy, rs.randint(0, 2, (k, b)), w0 - dx, h0 - dy],
+                       axis=-1).astype(np.float32)
+        pos = rs.randint(0, GRAPH_CANVASES, (k, b))
+        gts = [gt_batch(rs, b, cfg) for _ in range(k)]
+        return [torch.from_numpy(pos), torch.from_numpy(aug)] + [
+            torch.stack([g[i] for g in gts]) for i in range(3)]
+
+    inputs = [dispatch_inputs() for _ in range(GRAPH_DISPATCHES)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    L.set_filter_grad("1x1")
+    try:
+        runs = {}
+        for kind in ("eager", "graph"):
+            state = fresh_state(cfg, "cuda", weights)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            if kind == "eager":
+                one = make_train_step_device(state, uint8_ingest=True,
+                                             device_augment=True,
+                                             device_dataset=True)
+
+                def dispatch(*d):
+                    lbs = [one(dataset, *(x[i].cuda() for x in d),
+                               generator=gen) for i in range(k)]
+                    return torch.stack([torch.stack(list(lb))
+                                        for lb in lbs])
+            else:
+                scan = make_train_step_device_scan(
+                    state, k, uint8_ingest=True, device_augment=True,
+                    device_dataset=True)
+
+                def dispatch(*d):
+                    return torch.stack(list(scan(dataset, *d,
+                                                 generator=gen)), dim=1)
+            losses, ms, counts = [], [], []
+            for j, d in enumerate(inputs):
+                before = ff.LAUNCHES, fg.LAUNCHES
+                last = j == GRAPH_DISPATCHES - 1
+                prof = torch.profiler.profile(activities=acts) if last \
+                    else None
+                torch.cuda.synchronize()
+                if prof is not None:
+                    prof.start()
+                t0 = time.perf_counter()
+                losses.append(dispatch(*d))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if prof is not None:
+                    prof.stop()
+                counts.append((ff.LAUNCHES - before[0],
+                               fg.LAUNCHES - before[1]))
+            rows, busy, idle = _kernel_rows(prof, ms[-1])
+            runs[kind] = dict(state=state, gen=gen, losses=torch.stack(
+                losses).cpu(), ms=ms, counts=counts, rows=rows, busy=busy,
+                idle=idle)
+            log("[graph] {} K={} dispatches, bf16 B={} --device_dataset "
+                "dropout {} mode '1x1': ms per dispatch {} (the last "
+                "traced: {} device rows, {:.3f} ms of kernels, device idle "
+                "{:.1%}); K1/K2 launches per dispatch {}; K1 rows {}, K2 "
+                "rows {} in the traced dispatch; on {}".format(
+                    kind, k, b, cfg.keep_prob,
+                    [round(t, 3) for t in ms], sum(rows.values()), busy,
+                    idle, counts, _rows_named(rows, "conv1_pool1"),
+                    _rows_named(rows, "filter_grad_tc_partial"), card))
+        eager, graph = runs["eager"], runs["graph"]
+        for kind in ("eager", "graph"):
+            run = runs[kind]
+            want = [(k, K2_PER_STEP["1x1"] * k)] * GRAPH_DISPATCHES
+            k1_rows = _rows_named(run["rows"], "conv1_pool1")
+            k2_rows = _rows_named(run["rows"], "filter_grad_tc_partial")
+            if run["counts"] != want or \
+                    (k1_rows, k2_rows) != run["counts"][-1]:
+                raise AssertionError(
+                    "{}: launches per dispatch {} (expected {}), profiler "
+                    "rows K1 {} K2 {} in the last".format(
+                        kind, run["counts"], want, k1_rows, k2_rows))
+        if not torch.equal(eager["gen"].get_state(), graph["gen"].get_state()):
+            raise AssertionError("the dropout generator's state after the "
+                                 "replays differs from the eager steps'")
+        if graph["state"].step != eager["state"].step:
+            raise AssertionError("optimizer steps {} vs {}".format(
+                graph["state"].step, eager["state"].step))
+        torch.testing.assert_close(graph["losses"], eager["losses"],
+                                   rtol=LOSS_RTOL, atol=0)
+        params = worst_step_ratio(graph["state"].det.backbone.state_dict(),
+                                  eager["state"].det.backbone.state_dict(),
+                                  weights)
+        momentum = worst_step_ratio(
+            graph["state"].opt.trace, eager["state"].opt.trace,
+            {n: torch.zeros_like(t)
+             for n, t in eager["state"].opt.trace.items()})
+        log("[graph] captured vs eager over {} steps: loss terms max abs "
+            "diff {:.3e}; worst leaf ||diff||/||update||: params {:.3e} "
+            "({}), momentum {:.3e} ({}); generator states equal".format(
+                k * GRAPH_DISPATCHES,
+                float((graph["losses"] - eager["losses"]).abs().max()),
+                *params, *momentum))
+        if params[0] > DP_STEP_TOL or momentum[0] > DP_STEP_TOL:
+            raise AssertionError("captured and eager steps disagree")
+        log("[graph] smoke reading, not a benchmark: a replayed dispatch "
+            "{:.3f} ms ({:.3f} ms/step, device idle {:.1%}) against {} "
+            "eager steps {:.3f} ms ({:.3f} ms/step, idle {:.1%}); on "
+            "{}".format(graph["ms"][-1], graph["ms"][-1] / k, graph["idle"],
+                        k, eager["ms"][-1], eager["ms"][-1] / k,
+                        eager["idle"], card))
+    finally:
+        L.set_filter_grad(False)
+    del runs, dataset
+    torch.cuda.empty_cache()
+    return 2 * k * GRAPH_DISPATCHES
+
+
+def phase_graph_cli(card):
+    """Phase 12 (b) and (c): the train CLI at K=GRAPH_CLI_K against K=1,
+    a checkpointed K run with an odd tail and its resume, an NCCL rank at
+    K=NCCL_SCAN_K, and an --activation_summary run.  Returns the forwards
+    (one K1 launch each) and backwards (ten K2 launches each) in this
+    process, and the NCCL rank's report."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import summary, trainer
+    from squeezedet_torch import train as cli
+    from squeezedet_torch.data.imdb import Imdb, _opencv
+    from squeezedet_torch.data.kitti import Kitti
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.parallel.distributed import free_port
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "graph")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    write_kitti_fixture(root, LOOP_IMAGES, LOOP_FRAME, seed=12)
+    argv = LOOP_ARGV + ["--data_path", root, "--device_dataset",
+                        "--summary_step", "1000"]
+    calls, plans = [], []
+    real_make, real_scan, real_draw = trainer.make_train_step_device, \
+        trainer.make_train_step_device_scan, Imdb.draw_batch_plan
+
+    def timed(fn):
+        def call(*a, **k):
+            calls.append(time.perf_counter())
+            return fn(*a, **k)
+        return call
+
+    def recording_draw(self, shuffle=True):
+        plans.append(real_draw(self, shuffle))
+        return plans[-1]
+
+    def run(name, extra, patch):
+        calls.clear()
+        plans.clear()
+        setattr(trainer, patch.__name__, lambda *a, **k: timed(
+            patch(*a, **k)))
+        launches = ff.LAUNCHES, fg.LAUNCHES
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with contextlib.redirect_stdout(buf):
+                state = cli.main(argv + extra)
+        finally:
+            setattr(trainer, patch.__name__, patch)
+            log(buf.getvalue().rstrip())
+        out = buf.getvalue()
+        logged = {int(s): float(v) for s, v in re.findall(
+            r"step (\d+), loss = (\S+) \(", out)}
+        if not logged or not all(np.isfinite(v) for v in logged.values()):
+            raise AssertionError("{}: logged loss {}".format(name, logged))
+        return (state, out, ff.LAUNCHES - launches[0],
+                fg.LAUNCHES - launches[1], list(calls),
+                sorted(plans, key=lambda p: p.seq))
+
+    Imdb.draw_batch_plan = recording_draw
+    forwards = steps = 0
+    try:
+        # (b) ms per step at K=1 and at K, the same flags, in turns
+        st1, _, k1, k2, calls1, _ = run("K=1", [
+            "--train_dir", os.path.join(work, "k1"), "--max_steps",
+            str(GRAPH_K1_STEPS), "--checkpoint_step", "1000"], real_make)
+        probe = summary.SummaryWriter(os.path.join(work, "probe"))
+        viz = int(_opencv() is not None and probe.enabled)
+        probe.close()
+        if (k1, k2) != (GRAPH_K1_STEPS + viz,
+                        K2_PER_STEP["1x1"] * GRAPH_K1_STEPS):
+            raise AssertionError("K=1 run: K1 {} K2 {}".format(k1, k2))
+        forwards, steps = forwards + k1, steps + GRAPH_K1_STEPS
+        stk, _, k1, k2, callsk, _ = run("K={}".format(GRAPH_CLI_K), [
+            "--train_dir", os.path.join(work, "k8"), "--max_steps",
+            str(GRAPH_STEPS), "--checkpoint_step", "1000",
+            "--steps_per_dispatch", str(GRAPH_CLI_K)], real_scan)
+        if (k1, k2) != (GRAPH_STEPS, K2_PER_STEP["1x1"] * GRAPH_STEPS) or \
+                stk.step != GRAPH_STEPS:
+            raise AssertionError("K={} run: step {}, K1 {} K2 {}".format(
+                GRAPH_CLI_K, stk.step, k1, k2))
+        forwards, steps = forwards + k1, steps + GRAPH_STEPS
+        gaps1 = np.diff(calls1[LOOP_TIMED_FROM:]) * 1e3
+        # the replayed dispatches: the first runs eagerly, the second
+        # captures; the tail's single steps are not counted
+        gapsk = np.diff(callsk[2:]) * 1e3 / GRAPH_CLI_K
+        log("[graph] smoke reading, not a benchmark: train CLI B=20 bf16 "
+            "--device_dataset --pallas_grads, K=1 {:.3f} ms/step (median "
+            "{:.3f}, {} intervals), K={} {:.3f} ms/step (median {:.3f}, "
+            "{} replayed dispatches); peak {:.2f} GiB; on {}".format(
+                gaps1.mean(), float(np.median(gaps1)), len(gaps1),
+                GRAPH_CLI_K, gapsk.mean(), float(np.median(gapsk)),
+                len(gapsk), torch.cuda.max_memory_allocated() / 2**30, card))
+        del st1, stk
+
+        # checkpoints at dispatch boundaries, an odd tail, and a resume
+        ck_dir = os.path.join(work, "ckpt")
+        ck = ["--train_dir", ck_dir, "--checkpoint_step", str(GRAPH_EVERY),
+              "--steps_per_dispatch", str(GRAPH_CLI_K)]
+        _, _, k1, k2, _, _ = run("checkpointed", ck + [
+            "--max_steps", str(GRAPH_CKPT_TO)], real_scan)
+        if (k1, k2) != (GRAPH_CKPT_TO, K2_PER_STEP["1x1"] * GRAPH_CKPT_TO):
+            raise AssertionError("checkpointed run: K1 {} K2 {}".format(k1,
+                                                                      k2))
+        forwards, steps = forwards + k1, steps + GRAPH_CKPT_TO
+        kept = sorted(n for n in os.listdir(ck_dir)
+                      if n.startswith("model.ckpt"))
+        want = ["model.ckpt-{}".format(s) for s in (16, 20)]
+        if kept != want or not os.path.exists(os.path.join(
+                ck_dir, "sampler.ckpt-20.npz")):
+            raise AssertionError("kept {}, expected {} with their sampler "
+                                 "files".format(kept, want))
+        state, out, k1, k2, _, resumed = run("resume", ck + [
+            "--max_steps", str(GRAPH_RESUME_TO)], real_scan)
+        n = GRAPH_RESUME_TO - GRAPH_CKPT_TO
+        if (k1, k2) != (n, K2_PER_STEP["1x1"] * n):
+            raise AssertionError("resume: K1 {} K2 {}".format(k1, k2))
+        forwards, steps = forwards + k1, steps + n
+        if "Resumed from step {}".format(GRAPH_CKPT_TO) not in out or \
+                state.step != GRAPH_RESUME_TO:
+            raise AssertionError("the resume did not run steps {}..{}".format(
+                GRAPH_CKPT_TO, GRAPH_RESUME_TO - 1))
+        cfg = cli.config_from_args(cli.build_arg_parser().parse_args(argv))
+        ref = Kitti("train", root, cfg, rng=np.random.RandomState(0))
+        straight = [real_draw(ref) for _ in range(GRAPH_RESUME_TO)]
+        for got, want in zip(resumed, straight[GRAPH_CKPT_TO:]):
+            if got.batch_idx != want.batch_idx or got.augment != want.augment:
+                raise AssertionError("the resumed K={} run drew {}, a "
+                                     "straight run {}".format(
+                                         GRAPH_CLI_K, got.batch_idx,
+                                         want.batch_idx))
+        log("[graph] K={} checkpoints kept {}; the resume from step {} "
+            "drew a straight run's batches to step {}".format(
+                GRAPH_CLI_K, kept, GRAPH_CKPT_TO, GRAPH_RESUME_TO - 1))
+        del state
+
+        # (c) activation summaries at the histogram steps
+        tags, tape_k1 = [], []
+        real_hist, real_scalar = summary.SummaryWriter.histogram, \
+            summary.SummaryWriter.scalar
+        real_act = trainer.write_activation_summaries
+
+        def hist(self, tag, *a, **k):
+            tags.append(tag)
+            return real_hist(self, tag, *a, **k)
+
+        def scalar(self, tag, *a, **k):
+            tags.append(tag)
+            return real_scalar(self, tag, *a, **k)
+
+        def act(*a, **k):
+            before = ff.LAUNCHES
+            real_act(*a, **k)
+            tape_k1.append(ff.LAUNCHES - before)
+        summary.SummaryWriter.histogram, summary.SummaryWriter.scalar = \
+            hist, scalar
+        trainer.write_activation_summaries = act
+        try:
+            _, _, k1, k2, _, _ = run("activation_summary", [
+                "--train_dir", os.path.join(work, "act"), "--max_steps",
+                str(ACT_STEPS), "--histogram_step", str(ACT_HIST_EVERY),
+                "--activation_summary"], real_make)
+        finally:
+            summary.SummaryWriter.histogram, summary.SummaryWriter.scalar = \
+                real_hist, real_scalar
+            trainer.write_activation_summaries = real_act
+        hist_steps = len(range(0, ACT_STEPS, ACT_HIST_EVERY))
+        need = ["activations/conv1", "activations/fire2",
+                "activations/det_boxes/cx"] + [
+            "activation_summary/conv1/" + s
+            for s in ("sparsity", "mean", "max", "min")]
+        if tape_k1 != [0] * hist_steps or any(t not in tags for t in need) \
+                or k1 != ACT_STEPS + hist_steps + viz or \
+                k2 != K2_PER_STEP["1x1"] * (ACT_STEPS + hist_steps):
+            raise AssertionError("--activation_summary: K1 launches {} in "
+                                 "the tape forwards, {} in all, K2 {}; tags "
+                                 "{}".format(tape_k1, k1, k2,
+                                             sorted(set(tags))))
+        # the histogram steps' gradients run a backward each
+        forwards, steps = forwards + k1, steps + ACT_STEPS + hist_steps
+        log("[graph] --activation_summary: {} histogram steps wrote {} "
+            "activations/ histograms and {} activation_summary/ scalars; "
+            "K1 launched 0 times in the tape forwards".format(
+                hist_steps, sum(t.startswith("activations/") for t in tags),
+                sum(t.startswith("activation_summary/") for t in tags)))
+
+        # an NCCL rank (a launcher's environment): its all-reduces and
+        # K2 are captured with the steps
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()))
+        (row,) = dp_train_cli(root, os.path.join(work, "nccl"), [
+            "--pallas_grads", "--steps_per_dispatch", str(NCCL_SCAN_K)],
+            card, env=env)
+        if row["k2"] != K2_PER_STEP["1x1"] * DP_CLI_STEPS:
+            raise AssertionError("NCCL rank at K={}: {}".format(NCCL_SCAN_K,
+                                                                row))
+    finally:
+        Imdb.draw_batch_plan = real_draw
+        shutil.rmtree(work, ignore_errors=True)
+    log("[graph] (b) and (c) took {:.1f} s".format(
+        time.perf_counter() - t_phase))
+    return forwards, steps, row
+
+
+def phase_learning(card):
+    """Phase 12 (d): the recipe's large arm at seed 0 through the train
+    CLI (K=8, --device_dataset), then the eval CLI on its last
+    checkpoint.  Returns the steps trained (one K1 launch each) and the
+    eval batches (one each)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import eval as eval_cli
+    from squeezedet_torch import train as cli
+    from squeezedet_torch.data.synth import make_synth_kitti
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "learn")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "kitti")
+    h, w = LEARN_FRAME
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda a: make_synth_kitti(
+                data, num_images=a[0], width=w, height=h, image_set=a[1],
+                seed=a[2], start_index=a[3]),
+                [(LEARN_TRAIN, "train", 1, 0), (LEARN_VAL, "val", 7, 1000)]))
+        t_gen = time.perf_counter() - t_phase
+        train_dir = os.path.join(work, "train")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, out = _logged(cli.main, ["--device", "cuda", "--data_path",
+                                        data, "--train_dir", train_dir]
+                             + LEARN_ARGV)
+        t_train = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if state.step != LEARN_STEPS:
+            raise AssertionError("the recipe run ended at step {}".format(
+                state.step))
+        del state
+        torch.cuda.empty_cache()
+        scored = []
+        real = _recorded(eval_cli, "eval_checkpoint", scored)
+        t0 = time.perf_counter()
+        try:
+            _logged(eval_cli.main, [
+                "--device", "cuda", "--data_path", data, "--image_set",
+                "val", "--eval_dir", os.path.join(work, "eval"),
+                "--checkpoint_path", train_dir, "--run_once",
+                "--eval_batch_size", "25", "--image_width", str(w),
+                "--image_height", str(h), "--compute_dtype", "bfloat16"])
+        finally:
+            eval_cli.eval_checkpoint = real
+        aps, names, mAP = scored[0]
+        log("[learn] the recipe's large arm, seed 0, K=8 --device_dataset: "
+            "{} steps at B=128 in {:.1f} s (fixture {:.1f} s, eval {:.1f} s), "
+            "peak {:.2f} GiB; val mAP {:.4f}; APs {}; on {}".format(
+                LEARN_STEPS, t_train, t_gen, time.perf_counter() - t0, peak,
+                mAP, json.dumps({n: round(float(a), 4)
+                                 for n, a in zip(names, aps)}), card))
+        if not np.isfinite(mAP) or mAP < LEARN_MIN_MAP:
+            raise AssertionError("val mAP {:.4f} < {}".format(mAP,
+                                                              LEARN_MIN_MAP))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("[learn] phase 12 (d) took {:.1f} s".format(
+        time.perf_counter() - t_phase))
+    return LEARN_STEPS, -(-LEARN_VAL // 25)
+
+
 def main():
     import_port()
     import torch
@@ -2548,13 +3035,30 @@ def main():
         "K2 launches {} (on the ranks)".format(dp["k1"], ff.LAUNCHES,
                                                ranks["k1"], dp["k2"]))
 
+    # K steps per dispatch as captured CUDA graphs: counts from 0 just
+    # before it; the NCCL rank, in its own process, reports its own
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    steps = phase_graph_step(card, weights)
+    forwards, backwards, nccl = phase_graph_cli(card)
+    learn_steps, eval_batches = phase_learning(card)
+    want_k1 = steps + forwards + learn_steps + eval_batches
+    want_k2 = K2_PER_STEP["1x1"] * (steps + backwards)
+    if ff.LAUNCHES != want_k1 or fg.LAUNCHES != want_k2:
+        raise AssertionError("captured dispatches: K1 launches {}, expected "
+                             "{}; K2 launches {}, expected {}".format(
+                                 ff.LAUNCHES, want_k1, fg.LAUNCHES, want_k2))
+    graph = {"k1": ff.LAUNCHES + nccl["k1"], "k2": fg.LAUNCHES + nccl["k2"]}
+    log("[graph] path: K1 launches {} ({} on the NCCL rank), K2 launches "
+        "{} ({} on the NCCL rank)".format(graph["k1"], nccl["k1"],
+                                          graph["k2"], nccl["k2"]))
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
-        + backbones["k1"] + int8["k1"] + dp["k1"],
+        + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **k1,
     }, {
@@ -2562,7 +3066,8 @@ def main():
         "route": "cuda",
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
-        "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"],
+        "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"]
+        + graph["k2"],
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "backbone_shapes": k2_rows,

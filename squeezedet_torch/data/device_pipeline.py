@@ -3,7 +3,9 @@
 
 Ground truth arrives padded to G boxes per image with a validity count,
 so every shape is static: the matcher runs sequentially over the G slots
-and batched over the images, on the images' device.
+and batched over the images, on the images' device.  Nothing here copies
+from the host (:func:`bgr_means_tensor`), so a train step captured in a
+CUDA graph runs all of it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,16 @@ from squeezedet_torch.models.skeleton import Targets
 from squeezedet_torch.ops.boxes import batch_iou
 
 
+def bgr_means_tensor(bgr_means, device, dtype: torch.dtype) -> torch.Tensor:
+    """``bgr_means`` as a [1, 1, 1, 3] tensor on ``device`` in ``dtype``,
+    each channel filled on the device: no host-to-device copy, which a
+    stream capture would refuse (``torch.tensor`` of a list makes one)."""
+    means = torch.empty((1, 1, 1, 3), dtype=dtype, device=device)
+    for c, m in enumerate(bgr_means):
+        means[..., c].fill_(float(m))
+    return means
+
+
 def normalize_images(images_u8: torch.Tensor, bgr_means,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 BGR [B, H, W, 3] -> mean-subtracted tensor in ``dtype``.
@@ -22,9 +34,8 @@ def normalize_images(images_u8: torch.Tensor, bgr_means,
     subtraction both happen in ``dtype``, as in the JAX package, so only
     the 1-byte image crosses to the device.
     """
-    means = torch.tensor(bgr_means, dtype=dtype,
-                         device=images_u8.device).view(1, 1, 1, 3)
-    return images_u8.to(dtype) - means
+    return images_u8.to(dtype) - bgr_means_tensor(bgr_means,
+                                                  images_u8.device, dtype)
 
 
 def _resample_weights(out_n: int, src_n: int, extent: torch.Tensor,
@@ -67,9 +78,7 @@ def augment_resize_normalize(canvas_u8: torch.Tensor, aug: torch.Tensor,
     wx = _resample_weights(width, w0, ow, dx, flip)
 
     dev = canvas_u8.device
-    means = torch.tensor(bgr_means, dtype=torch.float32,
-                         device=dev).view(1, 1, 1, 3)
-    x = canvas_u8.float() - means
+    x = canvas_u8.float() - bgr_means_tensor(bgr_means, dev, torch.float32)
     ymask = torch.arange(h0, device=dev)[None] < (oh + dy)[:, None]
     xmask = torch.arange(w0, device=dev)[None] < (ow + dx)[:, None]
     x = x * ymask[:, :, None, None] * xmask[:, None, :, None]
@@ -125,7 +134,7 @@ def assign_anchors_device(anchors: torch.Tensor, gt_boxes: torch.Tensor,
         return out[:, :a]
 
     mask = torch.zeros((b, a + 1), device=dev)
-    mask[dense] = 1.0
+    mask[dense] = torch.ones((), device=dev)  # no host scalar: capturable
     onehot = (gt_labels.to(dev)[..., None] ==
               torch.arange(num_classes, device=dev)).float()
     return Targets(input_mask=mask[:, :a],

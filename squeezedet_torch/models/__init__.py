@@ -156,6 +156,35 @@ class Detector(nn.Module):
                                   self.compute_dtype)
         return self.interpret(self.backbone(images).float())
 
+    @torch.inference_mode()
+    def activation_stats(self, images: torch.Tensor, sample: int = 65536
+                         ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Five-stat activation summary data per layer of one eval-mode
+        forward of mean-subtracted ``images``: ``{layer: {'sample',
+        'sparsity', 'mean', 'max', 'min'}}`` as numpy, the layers being
+        the backbone's activation tape (squeezeDet's conv1 before pool1,
+        so that forward runs conv1 and pool1 as two ops, not K1) and the
+        decoded box coordinates ``det_boxes/{cx,cy,w,h}``.  The stats are
+        reduced on the device; ``sample`` is the flattened activation at
+        stride ``max(1, n // sample)``, so at most 2x ``sample`` elements
+        cross to the host at any batch size."""
+        tape: dict = {}
+        preds = self.backbone(images.to(self.compute_dtype).contiguous(),
+                              tape=tape)
+        interp = self.interpret(preds.float())
+        for i, coord in enumerate(("cx", "cy", "w", "h")):
+            tape["det_boxes/" + coord] = interp.det_boxes[..., i]
+        out = {}
+        for name, act in tape.items():
+            flat = act.reshape(-1).float()
+            stride = max(1, flat.shape[0] // sample)
+            out[name] = {"sample": flat[::stride],
+                         "sparsity": torch.mean((flat == 0.0).float()),
+                         "mean": torch.mean(flat), "max": torch.max(flat),
+                         "min": torch.min(flat)}
+        return {name: {k: v.cpu().numpy() for k, v in stats.items()}
+                for name, stats in out.items()}
+
     # -- int8 serving (quant.py) ---------------------------------------------
     @property
     def quantized(self) -> bool:

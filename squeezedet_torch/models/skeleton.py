@@ -157,11 +157,12 @@ def detection_loss(interp: Interpretation, targets: Targets, *,
         s = e.sum(dim=-1, keepdim=True)
         # torch.maximum (not clamp) splits the gradient at a tie, as
         # jnp.maximum does: saturated logits reach the floor exactly
-        log_floor = logits.new_tensor(math.log(epsilon))
+        # new_full fills on the device (no host copy: capturable)
+        log_floor = logits.new_full((), math.log(epsilon))
         log_p = torch.maximum(shifted - torch.log(s), log_floor)
         # log(1 - p_i) = log(sum_{j != i} e_j) - log(sum_j e_j)
         log_1mp = torch.maximum(
-            torch.log(torch.maximum(s - e, logits.new_tensor(epsilon)))
+            torch.log(torch.maximum(s - e, logits.new_full((), epsilon)))
             - torch.log(s), log_floor)
         class_loss = torch.sum(
             (targets.labels * (-log_p) + (1 - targets.labels) * (-log_1mp))

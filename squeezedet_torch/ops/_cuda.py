@@ -94,3 +94,37 @@ def check(name: str, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError("{} failed: CUDA error {} ({})".format(
             what, err, load(name).sdt_error_string(err).decode()))
+
+
+def _counted_wrappers():
+    """The kernel wrappers' modules, each with its ``LAUNCHES`` count."""
+    from squeezedet_torch.ops import filter_grad, fused_frontend
+    return fused_frontend, filter_grad
+
+
+class CapturedLaunches:
+    """The kernels' launches held by a captured CUDA graph.
+
+    A wrapper adds one to its ``LAUNCHES`` where it enqueues its kernel.
+    Under stream capture that enqueue goes into the graph, and the kernel
+    runs at each replay instead.  Entered around a capture, this records
+    how many launches of each kernel the graph holds and takes them back
+    off the counts (the capture ran nothing); :meth:`replayed` adds them
+    once for each replay, so the counts stay launches that ran."""
+
+    def __enter__(self) -> "CapturedLaunches":
+        self._before = [m.LAUNCHES for m in _counted_wrappers()]
+        self.per_replay = None
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        mods = _counted_wrappers()
+        self.per_replay = [m.LAUNCHES - b
+                           for m, b in zip(mods, self._before)]
+        for m, b in zip(mods, self._before):
+            m.LAUNCHES = b
+        return False
+
+    def replayed(self) -> None:
+        for m, n in zip(_counted_wrappers(), self.per_replay):
+            m.LAUNCHES += n

@@ -12,6 +12,10 @@ bridge (``weights.from_jax_opt_state`` / ``to_jax_opt_state``) maps the
 two states onto each other.
 
 The schedule is computed in float32, as the JAX schedule computes it.
+A step captured in a CUDA graph cannot read a host float that changes
+between replays: :meth:`Momentum.update` then takes the step's negated
+rate as a device tensor, staged for a dispatch's steps by
+:meth:`Momentum.dispatch_rates` from the same schedule.
 """
 
 from __future__ import annotations
@@ -65,9 +69,19 @@ class Momentum:
         for p in self.params.values():
             p.grad = None
 
+    def dispatch_rates(self, k: int) -> np.ndarray:
+        """The schedule's rates of the ``k`` steps from :attr:`step`, as a
+        float32 [k] array."""
+        return np.array([self.schedule(self.step + i) for i in range(k)],
+                        np.float32)
+
     @torch.no_grad()
-    def update(self) -> None:
-        neg_lr = -float(self.schedule(self.step))
+    def update(self, neg_lr=None) -> None:
+        """One step at ``-schedule(step)``, or at ``neg_lr``, the negated
+        rate as a 0-d f32 tensor on the parameters' device (a captured
+        step's, which the host fills before each replay)."""
+        if neg_lr is None:
+            neg_lr = -float(self.schedule(self.step))
         for name, p in self.params.items():
             if p.grad is None:
                 raise RuntimeError("no gradient for {}".format(name))

@@ -8,8 +8,11 @@
 Trains on ``--device`` (``cuda`` by default, never falling back to the
 CPU), auto-resumes from ``--train_dir``, writes checkpoints, sampler
 snapshots, ``model_metrics.txt`` and (when ``tensorboard`` imports)
-event files there.  Flags whose port is still to come raise, naming the
-ROADMAP item that brings each.
+event files there.  ``--steps_per_dispatch K`` runs K steps per host
+dispatch, one captured CUDA graph replay on the card;
+``--activation_summary`` adds activation summaries at the histogram
+steps.  ``--native_loader`` (still to come) and the XLA/JAX-only flags
+raise, naming their ROADMAP item.
 
 Data parallelism, one process (rank) per device:
 
@@ -130,7 +133,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         'batch there. Implies --device_augment; requires '
                         '--device_assign.')
     p.add_argument('--steps_per_dispatch', type=int, default=1,
-                   help='Steps per dispatch (only 1 is ported).')
+                   help='Train steps per host dispatch: K > 1 stacks K '
+                        'batches and runs the K steps as one captured '
+                        'CUDA graph replay on the card (eagerly on the '
+                        'CPU). Requires --device_assign; a data-parallel '
+                        'run needs NCCL ranks.')
     p.add_argument('--compilation_cache', default='',
                    help='XLA compilation cache (stays out of the port).')
     p.add_argument('--profile_steps', default='',
@@ -145,7 +152,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Route the eligible 1x1 filter gradients through '
                         'the hand-written K2 kernel (ops/filter_grad.py).')
     p.add_argument('--activation_summary', action='store_true',
-                   help='Activation summaries (not ported yet).')
+                   help='At each --histogram_step step, also write each '
+                        "layer's activation histogram and its sparsity, "
+                        'mean, max and min.')
     return p
 
 
@@ -158,15 +167,6 @@ def _reject_unported(args) -> None:
         raise SystemExit('--compilation_cache and --rng_impl are XLA/JAX '
                          'mechanisms that stay out of the port (ROADMAP '
                          'Queue 1 item 14)')
-    if args.activation_summary:
-        raise SystemExit('--activation_summary is not ported yet: '
-                         'activation summaries arrive with ROADMAP Queue 1 '
-                         'item 19')
-    if args.steps_per_dispatch > 1:
-        raise SystemExit('--steps_per_dispatch {} is not ported yet: the '
-                         'multi-step dispatch arrives as CUDA graphs with '
-                         'ROADMAP Queue 1 item 16'.format(
-                             args.steps_per_dispatch))
 
 
 def config_from_args(args):
@@ -316,6 +316,7 @@ def _train(args, dp):
                      device_assign=args.device_assign,
                      histogram_step=args.histogram_step,
                      activation_summary=args.activation_summary,
+                     steps_per_dispatch=args.steps_per_dispatch,
                      uint8_ingest=args.uint8_ingest,
                      pallas_grads=args.pallas_grads,
                      max_to_keep=args.max_to_keep,

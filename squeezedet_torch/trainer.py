@@ -23,9 +23,13 @@ batch and sliced: ``layers.BatchRows``), the gradients are summed over
 the ranks, and every rank then clips and updates identically.  The D-rank
 step equals the one-device step at the same global batch.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: the scanned multi-step dispatch (16, as CUDA graphs),
-activation summaries (19); ``rng_impl`` stays out (14).
+K steps per dispatch (``--steps_per_dispatch``,
+:func:`make_train_step_device_scan`): on the CPU the K steps run one
+after another; on the card the host stacks K batches, copies them into
+the buffers of one captured CUDA graph that holds all K steps (K1 and K2
+launches, the dropout draws and, on an NCCL rank, the all-reduces
+included) and replays it once.  ``rng_impl`` stays out (ROADMAP Queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -106,10 +110,11 @@ def _sum_over_ranks(dp, grads: Sequence[torch.Tensor]) -> list:
 
 def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
                   generator: Optional[torch.Generator],
-                  dp=None) -> LossBreakdown:
+                  dp=None, neg_lr=None) -> LossBreakdown:
     """Forward + backward + optimizer update, shared by every step
     builder.  Frozen parameters (``requires_grad=False``) get no
-    gradient, and nothing is differentiated through them.
+    gradient, and nothing is differentiated through them.  ``neg_lr``:
+    the step's negated rate as a device tensor (``Momentum.update``).
 
     With ``dp`` (a ``DataParallel``) this rank's rows are part of the
     global batch: the gradients of the rank's part of the global loss
@@ -122,7 +127,7 @@ def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
         grads = [p.grad for p in state.opt.params.values()]
         for g, total in zip(grads, _sum_over_ranks(dp, grads)):
             g.copy_(total)
-    state.opt.update()  # clips the summed gradient, alike on every rank
+    state.opt.update(neg_lr)  # clips the summed gradient, alike on every rank
     if dp is None:
         return LossBreakdown(*(t.detach() for t in lb))
     return LossBreakdown(*dp.all_reduce_(
@@ -144,7 +149,8 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     """Step with the anchor matcher on the device.
 
     Signature: ``(images, gt_boxes, gt_labels, num_gt, generator) ->
-    LossBreakdown``, GT padded to G slots per image.  ``uint8_ingest``:
+    LossBreakdown``, GT padded to G slots per image; a keyword ``neg_lr``
+    (a 0-d device tensor) replaces the schedule's rate.  ``uint8_ingest``:
     images arrive as raw uint8 and are mean-subtracted on the device.
     ``device_augment``: images are a raw uint8 canvas batch and the
     signature gains ``aug`` [B, 5] after ``images``
@@ -163,39 +169,154 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     det = state.det
     sharded = dp is not None and dp.world > 1
 
-    def update(images, targets, generator):
-        return _apply_update(state, images, targets, generator, dp)
+    def update(images, targets, generator, neg_lr):
+        return _apply_update(state, images, targets, generator, dp, neg_lr)
 
     if device_dataset:
         def step_fn(dataset, pos, aug, gt_boxes, gt_labels, num_gt,
-                    generator=None):
+                    generator=None, neg_lr=None):
             canvas = local_shard_gather(dp.rank, dataset, pos) \
                 if sharded else torch.index_select(dataset, 0, pos.long())
             images, targets = ingest_and_assign(
                 det, canvas, gt_boxes, gt_labels, num_gt, uint8_ingest,
                 aug=aug)
-            return update(images, targets, generator)
+            return update(images, targets, generator, neg_lr)
     elif device_augment:
         def step_fn(images, aug, gt_boxes, gt_labels, num_gt,
-                    generator=None):
+                    generator=None, neg_lr=None):
             images, targets = ingest_and_assign(
                 det, images, gt_boxes, gt_labels, num_gt, uint8_ingest,
                 aug=aug)
-            return update(images, targets, generator)
+            return update(images, targets, generator, neg_lr)
     else:
-        def step_fn(images, gt_boxes, gt_labels, num_gt, generator=None):
+        def step_fn(images, gt_boxes, gt_labels, num_gt, generator=None,
+                    neg_lr=None):
             images, targets = ingest_and_assign(
                 det, images, gt_boxes, gt_labels, num_gt, uint8_ingest)
-            return update(images, targets, generator)
+            return update(images, targets, generator, neg_lr)
     return step_fn
 
 
-def make_train_step_device_scan(*args, **kwargs):
-    """K steps per dispatch (``--steps_per_dispatch``); on the card this
-    becomes CUDA-graph capture."""
-    raise NotImplementedError(
-        "the scanned multi-step dispatch (--steps_per_dispatch > 1, CUDA "
-        "graphs on the card): ROADMAP Queue 1 item 16")
+class _ScanStep:
+    """K train steps per dispatch; see :func:`make_train_step_device_scan`.
+
+    On the card the first dispatch runs its K steps eagerly, on a side
+    stream: they are real steps, and they build and load K1 and K2, warm
+    cuDNN's plans and the NCCL communicator, and make the momentum and
+    the mean tensors, none of which may happen under capture.  The second
+    dispatch captures the K steps into one graph over static buffers (the
+    stacked inputs and the K negated rates), with the dropout generator
+    registered so that each replay advances its Philox offset as K eager
+    steps would, and every dispatch from then on copies its inputs into
+    those buffers and replays the graph once.  Parameters and momentum
+    are updated in place at fixed addresses; the gradients live in the
+    graph's memory pool.  A capture or a replay that fails raises.
+    """
+
+    def __init__(self, state: TrainState, k: int, step_fn, device_dataset):
+        self.state, self.k, self.step_fn = state, k, step_fn
+        self.device_dataset = device_dataset
+        self.graph = None
+        self.warm = False
+
+    def _eager(self, head, stacked, generator, neg_rates):
+        lbs = [self.step_fn(*head, *(x[i] for x in stacked),
+                            generator=generator, neg_lr=neg_rates[i])
+               for i in range(self.k)]
+        return LossBreakdown(*(torch.stack(t) for t in zip(*lbs)))
+
+    def __call__(self, *args, generator=None) -> LossBreakdown:
+        opt = self.state.opt
+        dev = self.state.det.anchors.device
+        head = args[:1] if self.device_dataset else ()
+        stacked = args[len(head):]
+        if any(x.shape[0] != self.k for x in stacked):
+            raise ValueError("each input must stack {} steps, got shapes "
+                             "{}".format(self.k, [tuple(x.shape)
+                                                  for x in stacked]))
+        neg_rates = torch.from_numpy(-opt.dispatch_rates(self.k))
+        if dev.type != "cuda":
+            return self._eager(head, [x.to(dev) for x in stacked], generator,
+                               neg_rates.to(dev))
+        if not self.warm:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                lbs = self._eager(head, [x.to(dev) for x in stacked],
+                                  generator, neg_rates.to(dev))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.warm = True
+            return lbs
+        if self.graph is None:
+            self._capture(head, stacked, generator, dev)
+        elif generator is not self.generator or \
+                any(a is not b for a, b in zip(head, self.head)):
+            raise ValueError("a captured dispatch replays with the "
+                             "generator and dataset it was captured with")
+        for buf, x in zip(self.inputs, stacked):
+            buf.copy_(x, non_blocking=True)
+        self.neg_rates.copy_(neg_rates)
+        self.graph.replay()
+        self.launches.replayed()
+        opt.step += self.k
+        return LossBreakdown(*(t.clone() for t in self.outputs))
+
+    def _capture(self, head, stacked, generator, dev) -> None:
+        from squeezedet_torch.ops._cuda import CapturedLaunches
+        opt = self.state.opt
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in stacked]
+        self.neg_rates = torch.empty(self.k, dtype=torch.float32, device=dev)
+        self.generator, self.head = generator, head
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        step = opt.step
+        with CapturedLaunches() as self.launches:
+            with torch.cuda.graph(graph):
+                self.outputs = self._eager(head, self.inputs, generator,
+                                           self.neg_rates)
+        opt.step = step  # the capture ran no step
+        self.graph = graph
+
+
+def make_train_step_device_scan(state: TrainState, k: int, *,
+                                uint8_ingest: bool = False,
+                                device_augment: bool = False,
+                                device_dataset: bool = False, dp=None):
+    """K device-matcher train steps per dispatch (``--steps_per_dispatch``),
+    the counterpart of the JAX package's ``lax.scan`` over K steps.
+
+    Signature: the :func:`make_train_step_device` step's inputs, each
+    stacked over K steps (``images`` or canvases [K, B, ...], ``aug``
+    [K, B, 5] or ``pos`` [K, B], ``gt_boxes`` [K, B, G, 4], ``gt_labels``
+    [K, B, G], ``num_gt`` [K, B]; under ``device_dataset`` the unstacked
+    ``dataset`` first), then ``generator`` -> ``LossBreakdown`` with [K]
+    leaves in step order.  Step i runs at the schedule's rate of
+    ``state.step + i``, staged on the device with the inputs.
+
+    On the CPU the K steps run eagerly, one after another: the plain
+    version of the graph.  On the card one CUDA graph of the K steps is
+    captured at the second dispatch and replayed once per dispatch
+    (:class:`_ScanStep`); the kernels' ``LAUNCHES`` count each replay's.
+    ``dp``: as :func:`make_train_step_device`; an NCCL rank's
+    all-reduces are captured with the steps (gloo's run through the host
+    and cannot be).
+    """
+    if k < 1:
+        raise ValueError("steps per dispatch must be >= 1, got {}".format(k))
+    if dp is not None and dp.backend != "nccl":
+        raise ValueError(_GLOO_SCAN)
+    step_fn = make_train_step_device(state, uint8_ingest=uint8_ingest,
+                                     device_augment=device_augment,
+                                     device_dataset=device_dataset, dp=dp)
+    return _ScanStep(state, k, step_fn, device_dataset)
+
+
+_GLOO_SCAN = ("--steps_per_dispatch > 1 captures the K steps in a CUDA graph, "
+              "and gloo's all-reduce runs through the host, which a graph "
+              "cannot capture: use one NCCL rank per card, or "
+              "--steps_per_dispatch 1 over gloo")
 
 
 def _sampler_ckpt_path(train_dir: str, step: int, dp=None) -> str:
@@ -348,6 +469,24 @@ def write_histograms(summary_writer, params, grads, step: int) -> None:
                 leaf.detach().float().cpu().numpy(), step)
 
 
+def write_activation_summaries(summary_writer, det: Detector, images_np,
+                               step: int) -> None:
+    """Five-stat activation summaries of one eval-mode forward of the
+    mean-subtracted ``images_np``: per tape entry a histogram of its
+    strided sample (``activations/<layer>``) and its sparsity, mean, max
+    and min (``activation_summary/<layer>/<stat>``), reduced on the
+    device (``Detector.activation_stats``)."""
+    dev = det.anchors.device
+    stats = det.activation_stats(torch.from_numpy(np.asarray(images_np))
+                                 .to(dev))
+    for name, s in stats.items():
+        summary_writer.histogram("activations/" + name, s["sample"], step)
+        for stat in ("sparsity", "mean", "max", "min"):
+            summary_writer.scalar(
+                "activation_summary/{}/{}".format(name, stat),
+                float(s[stat]), step)
+
+
 def trainable_grads(det: Detector, images, targets: Targets, generator,
                     dp=None):
     """Gradients of the train loss at ``det``'s current parameters, for
@@ -364,18 +503,19 @@ def trainable_grads(det: Detector, images, targets: Targets, generator,
     return params, dict(zip(params, grads))
 
 
-def _report_ranks(dp, before, forwards: int, starts) -> None:
+def _report_ranks(dp, before, forwards: int, starts, sizes) -> None:
     """Rank 0 prints, for every rank, this run's K1 and K2 launches beside
     its forwards and steps (the launch counters are per process), the
-    median interval between step starts after the first two (µs) and the
+    median time a step, from the intervals between dispatch starts after
+    the first two (µs; ``sizes``: the steps of each dispatch) and the
     device's peak memory (MiB)."""
     from squeezedet_torch.ops import filter_grad, fused_frontend
-    gaps = np.diff(starts)[2:]
+    gaps = (np.diff(starts) / np.asarray(sizes[:-1]))[2:]
     peak = torch.cuda.max_memory_allocated(dp.device) \
         if dp.device.type == "cuda" else 0
     rows = dp.all_gather_ints([
         fused_frontend.LAUNCHES - before[0], filter_grad.LAUNCHES - before[1],
-        forwards, len(starts),
+        forwards, int(sum(sizes)),
         int(np.median(gaps) * 1e6) if gaps.size else 0, peak >> 20])
     if dp.primary:
         keys = ("k1", "k2", "forwards", "steps", "step_us", "peak_mib")
@@ -436,16 +576,28 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
         raise NotImplementedError(
             "rng_impl is a JAX PRNG choice and stays out of the port "
             "(ROADMAP Queue 1 item 14)")
-    if steps_per_dispatch > 1:
-        make_train_step_device_scan()
-    if activation_summary:
-        raise NotImplementedError(
-            "activation summaries (Detector.activation_stats): ROADMAP "
-            "Queue 1 item 19")
     if uint8_ingest and not device_assign:
         raise ValueError("--uint8_ingest requires --device_assign (the "
                          "dense-target path feeds mean-subtracted f32 "
                          "images like the reference)")
+    if steps_per_dispatch > 1 and not device_assign:
+        raise ValueError("--steps_per_dispatch > 1 requires "
+                         "--device_assign (the scanned program fuses "
+                         "the anchor matcher per step)")
+    if steps_per_dispatch > 1 and dp is not None and dp.backend != "nccl":
+        raise ValueError(_GLOO_SCAN)
+    if steps_per_dispatch > 1:
+        skipped = [flag for flag, on in (
+            ("--profile_steps", step_tracer is not None),
+            ("--summary_step viz images", bool(viz_step)),
+            ("--histogram_step", bool(histogram_step))) if on]
+        if skipped and primary:
+            print("WARNING: steps_per_dispatch={} fuses K steps into one "
+                  "device program; per-step host-side summaries are not "
+                  "produced on this path — ignoring: {}. Use "
+                  "--steps_per_dispatch 1 to capture them.".format(
+                      steps_per_dispatch, ", ".join(skipped)))
+        step_tracer, viz_step, histogram_step = None, 0, 0
     if device_dataset:
         device_augment = True  # the same on-device pixel pipeline
     if device_augment and not device_assign:
@@ -605,8 +757,46 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     if pallas_grads:
         layers.set_filter_grad("1x1")
     launches = fused_frontend.LAUNCHES, filter_grad.LAUNCHES
-    forwards, starts = 0, []
+    forwards, starts, sizes = 0, [], []
     try:
+        if steps_per_dispatch > 1:
+            # K steps per dispatch, the cadences over the covered steps;
+            # a tail shorter than K runs as single-step dispatches, and
+            # the per-step loop below then has no step left
+            k = steps_per_dispatch
+            scan_step = make_train_step_device_scan(
+                state, k, uint8_ingest=uint8_ingest,
+                device_augment=device_augment, device_dataset=device_dataset,
+                dp=dp)
+            head = (dataset_dev,) if device_dataset else ()
+            while state.step < max_steps:
+                step = state.step
+                start_time = time.time()
+                if step + k <= max_steps:
+                    batches = [loader.get() for _ in range(k)]
+                    lb = scan_step(*head, *(
+                        torch.from_numpy(np.stack([b[i] for b in batches]))
+                        for i in range(len(batches[0]))),
+                        generator=generator)
+                else:
+                    lb = train_step(*head, *(to_dev(x) for x in loader.get()),
+                                    generator=generator)
+                covered = range(step, state.step)
+                forwards += len(covered)
+                starts.append(start_time)
+                sizes.append(len(covered))
+                _, ckpt_due, totals = _dispatch_cadences(
+                    covered, lb, start_time=start_time, cfg=cfg,
+                    log_every=log_every, summary_step=summary_step,
+                    summary_writer=summary_writer,
+                    checkpoint_step=checkpoint_step, max_steps=max_steps,
+                    force_materialize=True, batch_size=cfg.batch_size,
+                    quiet=not primary)
+                if ckpt_due:
+                    _save_checkpoint(ckpt, train_dir, imdb, loader, generator,
+                                     state, next_step=state.step,
+                                     max_steps=max_steps, totals=totals,
+                                     dp=dp)
         for step in range(state.step, max_steps):
             if step_tracer is not None:
                 step_tracer.on_step(step)
@@ -630,6 +820,7 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
 
             forwards += 1
             starts.append(start_time)
+            sizes.append(1)
             do_summary, ckpt_due, totals = _dispatch_cadences(
                 range(step, step + 1), lb, start_time=start_time,
                 cfg=cfg, log_every=log_every, summary_step=summary_step,
@@ -656,13 +847,16 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
                     torch.Generator(device=dev).set_state(step_rng), dp)
                 if writer_on:
                     write_histograms(summary_writer, params, grads, step)
+                    if activation_summary:
+                        write_activation_summaries(summary_writer, det,
+                                                   pixels, step)
             if ckpt_due:
                 _save_checkpoint(ckpt, train_dir, imdb, loader, generator,
                                  state, next_step=step + 1,
                                  max_steps=max_steps, totals=totals,
                                  dp=dp)
         if dp is not None:
-            _report_ranks(dp, launches, forwards, starts)
+            _report_ranks(dp, launches, forwards, starts, sizes)
         return state
     finally:
         layers.set_filter_grad(prev_mode)

@@ -174,18 +174,17 @@ def test_dense_target_step_equals_device_step(start):
 
 def test_unported_paths_raise(start, tmp_path):
     """What the port leaves out raises, naming its ROADMAP item: rng_impl
-    (14, stays out), the scanned dispatch (16) and activation summaries
-    (19).  Data parallelism is ported: test_torch_parallel.py and
+    (14, stays out).  The scanned dispatch and activation summaries are
+    ported (test_torch_dispatch.py, test_torch_activation_summary.py);
+    a dispatch of fewer than one step is refused.  Data parallelism is
+    ported: test_torch_parallel.py and
     test_world_one_data_parallel_step_equals_the_plain_step."""
     state = _port_state(start)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_train_step_device_scan(state, 4)
-    for kw, item in ((dict(rng_impl="rbg"), "item 14"),
-                     (dict(steps_per_dispatch=2), "item 16"),
-                     (dict(activation_summary=True), "item 19")):
-        with pytest.raises(NotImplementedError, match=item):
-            train(state.det, None, train_dir=str(tmp_path), max_steps=1,
-                  **kw)
+    with pytest.raises(ValueError, match=">= 1"):
+        make_train_step_device_scan(state, 0)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train(state.det, None, train_dir=str(tmp_path), max_steps=1,
+              rng_impl="rbg")
 
 
 @pytest.fixture
