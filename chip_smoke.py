@@ -139,7 +139,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    and its large arm (B=128, ``--recipe_batch 128``, seed 0,
    ``--device_dataset``, K=8, 375 steps), then ``eval --run_once``: val
    mAP must reach LEARN_MIN_MAP.  K1 launches once per step, forward and
-   eval batch, K2 ten times per backward, replays included.
+   eval batch, K2 ten times per backward, replays included;
+13. spatial partitioning on the one card (``squeezedet_torch.models.
+   halo``: height x width tiles with hand-written halo exchanges, the
+   head gathered on the card; every tile shares ``cuda:0``, so nothing
+   here is a scaling figure): (a) squeezeDet at 1248x384 with phase 6's
+   weights (head rescaled as in phase 5), uint8 -> raw preds and ->
+   detections at B=1 in f32 (TF32 off) over 2x1, 3x1, 4x1 and 2x2 tiles
+   against the unsharded forward on the card (boxes rtol/atol 1e-4,
+   probs rtol 1e-4 atol 1e-6, classes and NMS choices equal), K1 once per
+   tile, halo copies made and no tile of the frame's height; bf16 over
+   4x1 tiles within 2 bf16 ulps of the bf16 frame's raw preds;
+   (b) squeezeDet+, VGG16 and ResNet50 at 1242x375 over 2x1 and 2x2 with
+   phase 9's tolerances, K1 0; (c) whole-net int8 over
+   ``spatial_factors(4, 384, 1248)`` tiles, raw preds and int8 tape bit
+   for bit; (d) ``squeezedet_torch.eval.main --run_once
+   --eval_batch_size 1 --num_devices 4`` in f32 and ``--quantize int8``
+   on a fixture of 6 frames: "Evaluating spatially over 4 devices" and
+   the detections and APs of ``--num_devices 1``; (e) the f32 step
+   (dropout on) over (1, 2) tiles at B=2, the data x spatial step of two
+   gloo ranks with 2 tiles each at global B=4, against the unsharded
+   one-process step, and K=4 captured dispatches over the tiles against
+   their eager steps (K1 once per tile a forward, K2 0); (f) K1 against
+   its plain version on every tile window of the 2x1, 4x1 and 2x2 grids
+   at 1248x384 in f32 and bf16 (phase 1's tolerances), then readings:
+   B=1 forward ms at 1, 2 and 4 tiles in f32 and bf16, halo copies and
+   bytes a forward, K1 at a tile's shape beside its bound.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -324,6 +349,43 @@ LEARN_ARGV = ["--image_width", "1248", "--image_height", "384",
               "--recipe_batch", "128", "--device_dataset",
               "--steps_per_dispatch", "8"]
 LEARN_STEPS, LEARN_MIN_MAP = 375, 0.75
+# phase 13: spatial partitioning on the one card (every tile on cuda:0).
+# (a) squeezeDet's tile grids (n_h, n_w) in f32, and the bf16 one, held to
+# tests/test_spatial.py's tolerances (boxes rtol/atol SPATIAL_BOX_TOL,
+# probs rtol SPATIAL_BOX_TOL atol SPATIAL_PROB_ATOL, classes, keep and
+# post-NMS choices equal; the input is the first seeded frame whose
+# unsharded output keeps its ranks and NMS choices MIN_GAP and
+# MIN_IOU_MARGIN clear).  bf16 tiles: each raw pred within
+# SPATIAL_BF16_ULPS bf16 ulps of the bf16 frame's value.  Tile and frame
+# run the same ops on the same rows, so they may differ only where cuDNN
+# picks another summation order for a tile's shape and a rounding flips;
+# on the card they were equal bit for bit (NVIDIA H100 80GB HBM3,
+# 700.00 W, PERF.md section 6).  (b) the other nets'
+# grids, with phase 9's tolerances; (c) the int8 grid of
+# SPATIAL_DEVICES devices (spatial_factors), bit for bit; (d) the eval
+# CLI over SPATIAL_DEVICES tiles on its fixture of SPATIAL_EVAL_IMAGES
+# frames; (e) the f32 step's batch over (1, SPATIAL_TILES) tiles, the
+# data x spatial step's global batch over two gloo ranks of SPATIAL_TILES
+# tiles each, and a K=SPATIAL_SCAN_K captured dispatch over those tiles
+# against its eager steps (SPATIAL_DISPATCHES dispatches), held to phase
+# 6's LOSS_RTOL and phase 11's DP_STEP_TOL.  cuDNN's f32 algorithms at
+# B=2 are not deterministic run to run: two eager runs of those 12 steps
+# differed by up to 9.7e-5 of the loss and 2.4e-3 of a leaf's update,
+# tiled or not, and were bit for bit equal under cudnn.deterministic, as
+# were the captured and eager runs (NVIDIA H100 80GB HBM3, 700.00 W), so
+# that comparison runs deterministic.  (f) K1 against its plain version
+# (phase 1's tolerances) on every tile window of the SPATIAL_K1_GRIDS
+# tilings at 1248x384, at the tile's geometry, in f32 and bf16; then
+# readings at SPATIAL_READ_TILES height tiles.
+SPATIAL_GRIDS = ((2, 1), (3, 1), (4, 1), (2, 2))
+SPATIAL_BF16_GRID, SPATIAL_BACKBONE_GRIDS = (4, 1), ((2, 1), (2, 2))
+SPATIAL_BF16_ULPS = 2
+SPATIAL_K1_GRIDS = ((2, 1), (4, 1), (2, 2))
+SPATIAL_BOX_TOL, SPATIAL_PROB_ATOL = 1e-4, 1e-6
+SPATIAL_DEVICES, SPATIAL_EVAL_IMAGES, SPATIAL_TILES = 4, 6, 2
+SPATIAL_STEP_BATCH, SPATIAL_DP_BATCH = 2, 4
+SPATIAL_SCAN_K, SPATIAL_DISPATCHES = 4, 3
+SPATIAL_READ_TILES = (1, 2, 4)
 
 
 def log(*a):
@@ -366,12 +428,13 @@ def bound(nbytes, flops, peak):
                                        else "operations")
 
 
-def k1_bound(b, h, w, f32=False):
+def k1_bound(b, h, w, f32=False, geo=None):
     """K1 (bf16 on the tensor cores, or f32 on the CUDA cores): read the
     images once, write the pooled output once; 27 multiply-adds for each
-    of the 64 channels of each conv output."""
+    of the 64 channels of each conv output.  ``geo``: a tile's geometry
+    (``fused_frontend.tile_geometry``) over its h x w window."""
     from squeezedet_torch.ops import fused_frontend as ff
-    hc, wc, hp, wp = ff.geometry(h, w)[:4]
+    hc, wc, hp, wp = (geo or ff.geometry(h, w))[:4]
     size, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
     return bound(size * (b * h * w * 3 + b * hp * wp * 64),
                  2 * 27 * 64 * b * hc * wc, peak)
@@ -462,13 +525,27 @@ def k1_inputs(b, h, w, dtype, seed):
     return x, k.cuda(), bias.cuda()
 
 
-def check_k1(b, h, w, dtype, seed):
+def bf16_ulp(p):
+    """The bf16 ulp of each value of the f32 tensor ``p`` (0 at 0)."""
+    import torch
+    _, exp = torch.frexp(p.abs())
+    return torch.where(p == 0, torch.zeros_like(p),
+                       torch.ldexp(torch.ones_like(p), exp - 8))
+
+
+def check_k1(b, h, w, dtype, seed, window=None, geo=None):
+    """K1 against its plain version on seeded b x h x w images, or on
+    their ``window`` ((r0, r1), (c0, c1)) at a tile's ``geo``
+    (``fused_frontend.tile_geometry``).  Returns the max abs error."""
     import torch
 
     from squeezedet_torch.ops import fused_frontend as ff
     x, k, bias = k1_inputs(b, h, w, dtype, seed)
-    got = ff.conv1_pool1(x, k, bias)
-    want = ff.conv1_pool1_reference(x, k, bias)
+    if window is not None:
+        (r0, r1), (c0, c1) = window
+        x = x[:, r0:r1, c0:c1].contiguous()
+    got = ff.conv1_pool1(x, k, bias, geo)
+    want = ff.conv1_pool1_reference(x, k, bias, geo)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != dtype:
         raise AssertionError("K1 shape/dtype {} {} vs plain {}".format(
@@ -479,15 +556,14 @@ def check_k1(b, h, w, dtype, seed):
     err = (g - p).abs()
     allowed = K1_F32_ATOL + K1_F32_RTOL * p.abs()
     if dtype == torch.bfloat16:
-        _, exp = torch.frexp(p.abs())
-        ulp = torch.where(p == 0, torch.zeros_like(p),
-                          torch.ldexp(torch.ones_like(p), exp - 8))
-        allowed = torch.maximum(allowed, K1_BF16_ULPS * ulp)
+        allowed = torch.maximum(allowed, K1_BF16_ULPS * bf16_ulp(p))
     worst = (err / allowed).max().item()
     max_err = err.max().item()
-    log("[k1] {}x{}x{} {}: max abs err {:.3e}, worst err/tolerance "
-        "{:.3f}".format(b, h, w, str(dtype).replace("torch.", ""), max_err,
-                        worst))
+    log("[k1] {}x{}x{} {}{}: max abs err {:.3e}, worst err/tolerance "
+        "{:.3f}".format(b, h, w, str(dtype).replace("torch.", ""),
+                        "" if window is None else
+                        ", window {} at geometry {}".format(window, geo),
+                        max_err, worst))
     if worst > 1.0:
         raise AssertionError("K1 disagrees with its plain version")
     return max_err
@@ -2928,6 +3004,570 @@ def phase_learning(card):
     return LEARN_STEPS, -(-LEARN_VAL // 25)
 
 
+def _tiling(grid, device="cuda"):
+    from squeezedet_torch.parallel.mesh import make_mesh_spatial
+    return make_mesh_spatial(*grid, device=device).tiling()
+
+
+def spatial_forward(det, u8, grid):
+    """uint8 -> (raw preds, interpretation, detections) of ``det`` on the
+    card over the tiles of ``grid`` (None: unsharded), with the K1
+    launches, halo copies and bytes of the forward and its tile trace."""
+    import torch
+
+    from squeezedet_torch.data.device_pipeline import normalize_images
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.models import halo
+    tiling = None if grid is None else _tiling(grid)
+    before = ff.LAUNCHES, halo.COPIES, halo.BYTES
+    with torch.inference_mode(), halo.trace() as ops:
+        preds = det.run_backbone(normalize_images(
+            u8, det.cfg.bgr_means, det.compute_dtype), spatial=tiling)
+        interp = det.interpret(preds.float())
+        out = det.postprocess_device(interp)
+    torch.cuda.synchronize()
+    return (preds.float(), interp, out, ff.LAUNCHES - before[0],
+            halo.COPIES - before[1], halo.BYTES - before[2], ops)
+
+
+def _check_tiles_kept(ops, grid, tag):
+    """Every tiled op's tiles hold fewer rows than the frame (no tile of
+    a height split ever holds the whole frame before the head), and each
+    tile's extent is its bounds'."""
+    for op in ops:
+        heights = [h for row in op["heights"] for h in row]
+        want = [op["rows"][i + 1] - op["rows"][i]
+                for i in range(len(op["rows"]) - 1)
+                for _ in range(len(op["cols"]) - 1)]
+        if heights != want or (grid[0] > 1 and
+                               max(heights) >= op["rows"][-1]):
+            raise AssertionError("{} {}: tile heights {} at {} of bounds "
+                                 "{}".format(tag, grid, heights, op["op"],
+                                             op["rows"]))
+
+
+def _assert_same_outputs(got, want, tag, box_rtol=SPATIAL_BOX_TOL,
+                         box_atol=SPATIAL_BOX_TOL,
+                         prob_atol=SPATIAL_PROB_ATOL):
+    """The raw interpretation and the detections of ``got`` against
+    ``want`` (spatial_forward's), tests/test_spatial.py's tolerances."""
+    import torch
+    gi, wi = got[1], want[1]
+    torch.testing.assert_close(gi.det_boxes, wi.det_boxes, rtol=box_rtol,
+                               atol=box_atol, msg=tag)
+    torch.testing.assert_close(gi.det_probs, wi.det_probs,
+                               rtol=SPATIAL_BOX_TOL, atol=prob_atol, msg=tag)
+    if not torch.equal(gi.det_class, wi.det_class):
+        raise AssertionError("{}: classes differ".format(tag))
+    boxes, probs, classes, keep = got[2]
+    torch.testing.assert_close(boxes, want[2][0], rtol=box_rtol,
+                               atol=box_atol, msg=tag)
+    torch.testing.assert_close(probs, want[2][1], rtol=SPATIAL_BOX_TOL,
+                               atol=prob_atol, msg=tag)
+    if not (torch.equal(classes, want[2][2]) and
+            torch.equal(keep, want[2][3])):
+        raise AssertionError("{}: post-NMS classes or keep differ".format(
+            tag))
+
+
+def _separated_frame(det, shape):
+    """The first seeded uint8 frame (on the card) whose unsharded f32
+    output keeps its top-65 scores MIN_GAP apart and its same-class
+    IoUs MIN_IOU_MARGIN from nms_thresh, and that output."""
+    import numpy as np
+    import torch
+    for seed in range(1, 65):
+        u8 = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, 256, shape, dtype=np.uint8)).cuda()
+        want = spatial_forward(det, u8, None)
+        iou = _same_class_iou(want[2][0].cpu(), want[2][2].cpu())
+        margin = (iou - det.cfg.nms_thresh).abs().min().item() \
+            if iou.numel() else 1.0
+        if _top_gap(want[1].det_probs) >= MIN_GAP and \
+                margin >= MIN_IOU_MARGIN:
+            return seed, u8, want
+    raise AssertionError("no seeded frame with separated top-64 ranks")
+
+
+def phase_spatial_forward(card, weights):
+    """Phase 13 (a)-(c): squeezeDet's float and bf16 tile grids, the
+    other nets' and the int8 grid, each against the unsharded forward on
+    the card.  Returns the K1 launches made."""
+    import torch
+
+    from squeezedet_torch.config import (config_for_net,
+                                         kitti_squeezedet_config)
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.parallel.mesh import spatial_factors
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = kitti_squeezedet_config().replace(batch_size=1)
+    shape = (1, cfg.image_height, cfg.image_width, 3)
+    det = get_model("squeezeDet", cfg, device="cuda")
+    det.backbone.load_state_dict(weights)
+    det = rescaled_detector_from(det, shape)
+    k1 = 1
+    seed, u8, want = _separated_frame(det, shape)
+    k1 += seed
+    for grid in SPATIAL_GRIDS:
+        got = spatial_forward(det, u8, grid)
+        k1 += got[3]
+        _assert_same_outputs(got, want, "f32 {}".format(grid))
+        _check_tiles_kept(got[6], grid, "f32")
+        tiles = grid[0] * grid[1]
+        if got[3] != tiles or got[4] == 0:
+            raise AssertionError("f32 {}: K1 launches {} for {} tiles, {} "
+                                 "halo copies".format(grid, got[3], tiles,
+                                                      got[4]))
+        log("[spatial] squeezeDet f32 B=1 {}x{} over {}x{} tiles on the "
+            "card (input seed {}): preds, detections and NMS choices equal "
+            "the unsharded forward's (max |box diff| {:.3e} px, max |prob "
+            "diff| {:.3e}); K1 {} launches; {} halo copies, {} bytes a "
+            "forward; {} tiled ops".format(
+                cfg.image_width, cfg.image_height, *grid, seed,
+                float((got[1].det_boxes - want[1].det_boxes).abs().max()),
+                float((got[1].det_probs - want[1].det_probs).abs().max()),
+                got[3], got[4], got[5], len(got[6])))
+
+    det16 = get_model("squeezeDet", cfg.replace(compute_dtype="bfloat16"),
+                      device="cuda")
+    det16.load_state_dict(det.state_dict())
+    whole16 = spatial_forward(det16, u8, None)
+    tiles16 = spatial_forward(det16, u8, SPATIAL_BF16_GRID)
+    k1 += whole16[3] + tiles16[3]
+    bf16_noise = float((whole16[0] - want[0]).abs().max())
+    tile_err = (tiles16[0] - whole16[0]).abs()
+    tile_ulps = float((tile_err / bf16_ulp(whole16[0])).nan_to_num(
+        posinf=float("inf")).max())
+    log("[spatial] squeezeDet bf16 B=1 over {}x{} tiles: max |raw pred "
+        "diff| to the bf16 frame {:.3e} ({:.3g} bf16 ulps of the frame's "
+        "value at most; limit {}), the bf16 frame's to the f32 frame "
+        "{:.3e}; K1 {} launches".format(
+            *SPATIAL_BF16_GRID, float(tile_err.max()), tile_ulps,
+            SPATIAL_BF16_ULPS, bf16_noise, tiles16[3]))
+    if tile_ulps > SPATIAL_BF16_ULPS or tiles16[3] != \
+            SPATIAL_BF16_GRID[0] * SPATIAL_BF16_GRID[1] or \
+            not torch.isfinite(tiles16[0]).all():
+        raise AssertionError("bf16 tiles disagree with the bf16 frame")
+
+    # (b) the other nets at their published configurations, B=1
+    for net in BACKBONES:
+        ncfg = config_for_net(net).replace(batch_size=1)
+        nshape = (1, ncfg.image_height, ncfg.image_width, 3)
+        ndet = rescaled_detector_from(get_model(net, ncfg, device="cuda"),
+                                      nshape)
+        nseed, nu8, nwant = _separated_frame(ndet, nshape)
+        for grid in SPATIAL_BACKBONE_GRIDS:
+            got = spatial_forward(ndet, nu8, grid)
+            torch.testing.assert_close(got[0], nwant[0], rtol=PRED_RTOL,
+                                       atol=PRED_ATOL)
+            _assert_same_outputs(got, nwant, "{} {}".format(net, grid),
+                                 box_rtol=BACKBONE_BOX_RTOL,
+                                 box_atol=BOX_ATOL, prob_atol=PROB_ATOL)
+            _check_tiles_kept(got[6], grid, net)
+            if got[3] != 0 or got[4] == 0:
+                raise AssertionError("{} {}: K1 {}, {} halo copies".format(
+                    net, grid, got[3], got[4]))
+            log("[spatial] {} f32 B=1 {}x{} over {}x{} tiles (input seed "
+                "{}): preds within phase 9's tolerances of the unsharded "
+                "forward (max |pred diff| {:.3e}, max |box diff| {:.3e} px); "
+                "{} halo copies, {} bytes".format(
+                    net, ncfg.image_width, ncfg.image_height, *grid, nseed,
+                    float((got[0] - nwant[0]).abs().max()),
+                    float((got[1].det_boxes - nwant[1].det_boxes)
+                          .abs().max()), got[4], got[5]))
+        del ndet
+        torch.cuda.empty_cache()
+
+    # (c) whole-net int8 over the int8 eval's grid of SPATIAL_DEVICES
+    import numpy as np
+    rs = np.random.RandomState(13)
+    calib = [torch.from_numpy(rs.randint(0, 256, (2,) + shape[1:],
+                                         dtype=np.uint8)).cuda()
+             for _ in range(INT8_CALIB_BATCHES)]
+    qdet = det.quantize(calib)
+    grid = spatial_factors(SPATIAL_DEVICES, cfg.image_height,
+                           cfg.image_width)
+    xq = qdet.quant_input(u8)
+    want_tape, tape = {}, {}
+    with torch.inference_mode():
+        want_q = qdet.run_backbone(xq, tape=want_tape)
+        got_q = qdet.run_backbone(xq, spatial=_tiling(grid), tape=tape)
+    same = torch.equal(got_q, want_q) and set(tape) == set(want_tape) and \
+        all(torch.equal(tape[n], want_tape[n]) for n in want_tape)
+    log("[spatial] whole-net int8 B=1 over spatial_factors({}, {}, {}) = "
+        "{}x{} tiles: raw preds and the {}-entry int8 tape {} the unsharded "
+        "int8 forward's bit for bit".format(
+            SPATIAL_DEVICES, cfg.image_height, cfg.image_width, *grid,
+            len(tape), "equal" if same else "DIFFER FROM"))
+    if not same:
+        raise AssertionError("int8 tiles differ from the int8 frame")
+    log("[spatial] (a)-(c) in {:.1f} s on {}".format(
+        time.perf_counter() - t_phase, card))
+    return k1
+
+
+def rescaled_detector_from(det, shape):
+    """``det`` with its head rescaled as :func:`rescaled_detector` does,
+    from one seeded uint8 batch of ``shape`` (one forward on the card)."""
+    import numpy as np
+    import torch
+    u8 = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, shape, dtype=np.uint8)).cuda()
+    with torch.no_grad():
+        spread = det.predict_raw(u8).pred_box_delta.std().item()
+        det.layers()[-1].weight.mul_(HEAD_SPREAD / spread)
+    return det
+
+
+def phase_spatial_eval(card, weights):
+    """Phase 13 (d): the eval CLI at batch 1 over SPATIAL_DEVICES tiles
+    of the one card, f32 and int8, against --num_devices 1.  Returns the
+    K1 launches made."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import eval as eval_cli
+    from squeezedet_torch.checkpoint.manager import CheckpointManager
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "spatial_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    write_kitti_fixture(root, SPATIAL_EVAL_IMAGES, LOOP_FRAME, seed=7,
+                        image_set="val", boxes=EVAL_BOXES)
+    cfg = kitti_squeezedet_config()
+    cpu = get_model("squeezeDet", cfg, device="cpu")
+    cpu.backbone.load_state_dict(weights)
+    with torch.no_grad():
+        u8 = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (1, cfg.image_height, cfg.image_width, 3), np.uint8))
+        spread = cpu.predict_raw(u8).pred_box_delta.std().item()
+        cpu.backbone.conv12.weight.mul_(HEAD_SPREAD / spread)
+    ckpt_dir = os.path.join(work, "train")
+    CheckpointManager(ckpt_dir).save(EVAL_STEP,
+                                     {"params": cpu.backbone.state_dict()})
+    real_detect_all, real_eval = eval_cli.detect_all, eval_cli.eval_checkpoint
+    runs = {}
+
+    def recording_detect_all(*a, **k):
+        runs[key]["detect"] = real_detect_all(*a, **k)
+        return runs[key]["detect"]
+
+    def recording_eval(*a, **k):
+        runs[key]["aps"] = real_eval(*a, **k)
+        return runs[key]["aps"]
+
+    k1 = 0
+    eval_cli.detect_all, eval_cli.eval_checkpoint = (recording_detect_all,
+                                                     recording_eval)
+    try:
+        for quant in ("", "int8"):
+            for n in (SPATIAL_DEVICES, 1):
+                key = (quant, n)
+                runs[key] = {}
+                before = ff.LAUNCHES
+                t0 = time.perf_counter()
+                _, out = _logged(eval_cli.main, [
+                    "--device", "cuda", "--data_path", root, "--image_set",
+                    "val", "--checkpoint_path", ckpt_dir, "--eval_dir",
+                    os.path.join(work, "eval_{}_{}".format(quant or "f32",
+                                                            n)),
+                    "--run_once", "--eval_batch_size", "1", "--num_devices",
+                    str(n)] + (["--quantize", "int8", "--calib_batches",
+                                str(INT8_EVAL_CALIB)] if quant else []))
+                runs[key].update(s=time.perf_counter() - t0, out=out,
+                                 k1=ff.LAUNCHES - before)
+                k1 += runs[key]["k1"]
+    finally:
+        eval_cli.detect_all, eval_cli.eval_checkpoint = (real_detect_all,
+                                                         real_eval)
+    for quant in ("", "int8"):
+        tiled, one = runs[(quant, SPATIAL_DEVICES)], runs[(quant, 1)]
+        banner = "Evaluating spatially over {} devices".format(
+            SPATIAL_DEVICES)
+        want_k1 = 0 if quant else SPATIAL_EVAL_IMAGES
+        if banner not in tiled["out"] or "spatially" in one["out"] or \
+                tiled["k1"] != SPATIAL_DEVICES * want_k1 or \
+                one["k1"] != want_k1:
+            raise AssertionError("{} eval: banner {}, K1 {} and {}".format(
+                quant or "f32", banner in tiled["out"], tiled["k1"],
+                one["k1"]))
+        got, want = tiled["detect"][0], one["detect"][0]
+        for c in range(len(want)):
+            for i in range(SPATIAL_EVAL_IMAGES):
+                a = np.asarray(sorted(map(tuple, want[c][i])))
+                b = np.asarray(sorted(map(tuple, got[c][i])))
+                if a.shape != b.shape:
+                    raise AssertionError("{} class {} image {}: {} "
+                                         "detections tiled, {} on one "
+                                         "device".format(quant or "f32", c,
+                                                         i, len(b), len(a)))
+                if a.size:
+                    np.testing.assert_allclose(b, a, rtol=EVAL_BOX_RTOL,
+                                               atol=EVAL_BOX_ATOL)
+        if tiled["aps"][0] != one["aps"][0]:
+            raise AssertionError("{} eval APs {} tiled, {} on one "
+                                 "device".format(quant or "f32",
+                                                 tiled["aps"][0],
+                                                 one["aps"][0]))
+        log("[spatial] eval CLI {} B=1 --num_devices {}: '{}', the same "
+            "detections image by image and the same APs (mAP {:.6f}) as "
+            "--num_devices 1; K1 {} and {}; {:.1f} s and {:.1f} s".format(
+                quant or "f32", SPATIAL_DEVICES, banner, tiled["aps"][2],
+                tiled["k1"], one["k1"], tiled["s"], one["s"]))
+    shutil.rmtree(work, ignore_errors=True)
+    log("[spatial] (d) in {:.1f} s on {}".format(
+        time.perf_counter() - t_phase, card))
+    return k1
+
+
+def phase_spatial_train(card, weights):
+    """Phase 13 (e): the f32 step over (1, SPATIAL_TILES) tiles, the data
+    x spatial step over two gloo ranks, and a captured K-step dispatch
+    over the tiles, against unsharded steps.  Returns the K1 launches in
+    this process and the K1 and K2 launches the ranks reported."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.parallel import dryrun
+    from squeezedet_torch.parallel.mesh import make_mesh_2d
+    from squeezedet_torch.trainer import (make_train_step_device,
+                                          make_train_step_device_scan)
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "spatial_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    k1 = 0
+    child = {"k1": 0, "k2": 0}
+
+    def check(got, want, tag, ranks=None):
+        torch.testing.assert_close(got["loss"], want["loss"],
+                                   rtol=LOSS_RTOL, atol=0)
+        zeros = {n: torch.zeros_like(t) for n, t in want["momentum"].items()}
+        params = worst_step_ratio(got["params"], want["params"], weights)
+        momentum = worst_step_ratio(got["momentum"], want["momentum"],
+                                    zeros)
+        tiles = SPATIAL_TILES
+        log("[spatial] {} vs the unsharded one-process step: loss {} vs "
+            "{}; worst leaf ||diff||/||update||: params {:.3e} ({}), "
+            "momentum {:.3e} ({}); K1 {}, K2 {}".format(
+                tag, [round(float(v), 6) for v in got["loss"]],
+                [round(float(v), 6) for v in want["loss"]], *params,
+                *momentum, got["k1"], got["k2"]))
+        if params[0] > DP_STEP_TOL or momentum[0] > DP_STEP_TOL or \
+                got["k1"] != tiles or got["k2"] != 0:
+            raise AssertionError("{} disagrees".format(tag))
+
+    for batch, world in ((SPATIAL_STEP_BATCH, 1), (SPATIAL_DP_BATCH, 2)):
+        cfg = kitti_squeezedet_config().replace(batch_size=batch)
+        det = get_model("squeezeDet", cfg, device="cpu")
+        det.backbone.load_state_dict(weights)
+        rs = np.random.RandomState(21 + batch)
+        u8 = rs.randint(0, 256, (batch, cfg.image_height, cfg.image_width,
+                                 3), dtype=np.uint8)
+        path = os.path.join(work, "case{}.pt".format(batch))
+        dryrun.write_case(path, det, [u8] + [
+            t.numpy() for t in gt_batch(rs, batch, cfg)], seed=5,
+            device="cuda", spatial=SPATIAL_TILES)
+        case = dryrun.load_case(path)
+        want = dryrun.one_step(dict(case, spatial=1))
+        k1 += want["k1"]
+        if world == 1:
+            got = dryrun.one_step(case)
+            k1 += got["k1"]
+            check(got, want, "f32 B={} step over (1, {}) tiles".format(
+                batch, SPATIAL_TILES))
+            continue
+        results = dryrun.step_on_ranks(path, os.path.join(work, "out"),
+                                       world)
+        for r, got in enumerate(results):
+            check(got, want, "f32 global B={} data x spatial step, rank {} "
+                  "of {} ({}) over {} tiles".format(
+                      batch, r, world, got["backend"], SPATIAL_TILES))
+            child["k1"] += got["k1"]
+            child["k2"] += got["k2"]
+
+    # a captured K-step dispatch over the tiles against its eager steps
+    k = SPATIAL_SCAN_K
+    cfg = kitti_squeezedet_config().replace(batch_size=SPATIAL_STEP_BATCH)
+    rs = np.random.RandomState(31)
+    inputs = []
+    for _ in range(SPATIAL_DISPATCHES):
+        gts = [gt_batch(rs, SPATIAL_STEP_BATCH, cfg) for _ in range(k)]
+        inputs.append([torch.from_numpy(rs.randint(
+            0, 256, (k, SPATIAL_STEP_BATCH, cfg.image_height,
+                     cfg.image_width, 3), dtype=np.uint8))] +
+            [torch.stack([g[i] for g in gts]) for i in range(3)])
+    tiling = make_mesh_2d(1, SPATIAL_TILES, "cuda").tiling()
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for kind in ("eager", "graph"):
+        state = fresh_state(cfg, "cuda", weights)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        before = ff.LAUNCHES, fg.LAUNCHES
+        t0 = time.perf_counter()
+        if kind == "eager":
+            one = make_train_step_device(state, uint8_ingest=True,
+                                         spatial=tiling)
+            losses = [torch.stack([torch.stack(list(one(
+                *(x[i].cuda() for x in d), generator=gen)))
+                for i in range(k)]) for d in inputs]
+        else:
+            scan = make_train_step_device_scan(state, k, uint8_ingest=True,
+                                               spatial=tiling)
+            losses = [torch.stack(list(scan(*d, generator=gen)), dim=1)
+                      for d in inputs]
+        torch.cuda.synchronize()
+        runs[kind] = dict(state=state, gen=gen,
+                          losses=torch.stack(losses).cpu(),
+                          s=time.perf_counter() - t0,
+                          k1=ff.LAUNCHES - before[0],
+                          k2=fg.LAUNCHES - before[1])
+        k1 += runs[kind]["k1"]
+    torch.backends.cudnn.deterministic = deterministic
+    eager, graph = runs["eager"], runs["graph"]
+    torch.testing.assert_close(graph["losses"], eager["losses"],
+                               rtol=LOSS_RTOL, atol=0)
+    params = worst_step_ratio(graph["state"].det.backbone.state_dict(),
+                              eager["state"].det.backbone.state_dict(),
+                              weights)
+    momentum = worst_step_ratio(
+        graph["state"].opt.trace, eager["state"].opt.trace,
+        {n: torch.zeros_like(t) for n, t in eager["state"].opt.trace.items()})
+    steps = k * SPATIAL_DISPATCHES
+    log("[spatial] K={} captured dispatches over (1, {}) tiles, f32 B={} "
+        "dropout {}, cudnn.deterministic: {} steps against the same steps "
+        "run eagerly: loss "
+        "terms max abs diff {:.3e}; worst leaf ||diff||/||update||: params "
+        "{:.3e} ({}), momentum {:.3e} ({}); K1 {} / {}, K2 {} / {} "
+        "(eager / captured); {:.2f} s / {:.2f} s".format(
+            k, SPATIAL_TILES, SPATIAL_STEP_BATCH, cfg.keep_prob, steps,
+            float((graph["losses"] - eager["losses"]).abs().max()),
+            *params, *momentum, eager["k1"], graph["k1"], eager["k2"],
+            graph["k2"], eager["s"], graph["s"]))
+    if params[0] > DP_STEP_TOL or momentum[0] > DP_STEP_TOL or \
+            not torch.equal(eager["gen"].get_state(),
+                            graph["gen"].get_state()) or \
+            eager["k1"] != SPATIAL_TILES * steps or \
+            graph["k1"] != SPATIAL_TILES * steps or eager["k2"] or \
+            graph["k2"]:
+        raise AssertionError("captured dispatches over tiles disagree with "
+                             "their eager steps")
+    del runs
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    log("[spatial] (e) in {:.1f} s on {}".format(
+        time.perf_counter() - t_phase, card))
+    return k1, child
+
+
+def check_k1_tiles(card):
+    """Phase 13 (f): K1 against its plain version on every tile window
+    of the SPATIAL_K1_GRIDS tilings at 1248x384 (the pool bounds the
+    model's tiled K1 gives each tile), in f32 (TF32 off) and bf16.
+    Returns the max abs error; its launches are not counted."""
+    import torch
+
+    from squeezedet_torch.models import halo
+    from squeezedet_torch.ops import fused_frontend as ff
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 384, 1248
+    hc, wc, hp, wp = ff.geometry(h, w)[:4]
+    err, checked = 0.0, 0
+    with torch.inference_mode():
+        for n_h, n_w in SPATIAL_K1_GRIDS:
+            rows = halo.next_bounds(halo.next_bounds(
+                halo.image_bounds(h, h // 16, n_h), 2, hc), 2, hp)
+            cols = halo.next_bounds(halo.next_bounds(
+                halo.image_bounds(w, w // 16, n_w), 2, wc), 2, wp)
+            for q in zip(rows, rows[1:]):
+                for p in zip(cols, cols[1:]):
+                    win, geo = ff.tile_geometry(h, w, q, p)
+                    for seed, dtype in ((31, torch.float32),
+                                        (32, torch.bfloat16)):
+                        err = max(err, check_k1(1, h, w, dtype, seed,
+                                                window=win, geo=list(geo)))
+                        checked += 1
+    log("[spatial] K1 on {} tile windows of {} at {}x{}: within the K1 "
+        "check's tolerances of its plain version, max abs err {:.3e}; on "
+        "{}".format(checked, SPATIAL_K1_GRIDS, w, h, err, card))
+    return err
+
+
+def spatial_readings(card, weights):
+    """Phase 13 (f), not counted and not held to a limit: B=1 forward ms
+    at SPATIAL_READ_TILES height tiles on the one card (CUDA events; the
+    tiles share the card, so not a scaling figure), each forward's halo
+    copies and bytes, and K1 at the tile shapes beside its bound."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.models import halo
+    cfg = kitti_squeezedet_config().replace(batch_size=1)
+    rs = np.random.RandomState(41)
+    u8 = torch.from_numpy(rs.randint(0, 256, (1, cfg.image_height,
+                                              cfg.image_width, 3),
+                                     dtype=np.uint8)).cuda()
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        det = get_model("squeezeDet", cfg.replace(compute_dtype=dtype),
+                        device="cuda")
+        det.backbone.load_state_dict(weights)
+        for n in SPATIAL_READ_TILES:
+            tiling = _tiling((n, 1)) if n > 1 else None
+            copies, nbytes = halo.COPIES, halo.BYTES
+            det.predict_raw(u8, tiling)
+            copies, nbytes = halo.COPIES - copies, halo.BYTES - nbytes
+            ms = cuda_ms(lambda: det.predict_raw(u8, tiling), 20, warmup=3)
+            rows.append({"dtype": dtype, "tiles": n, "ms": ms,
+                         "halo_copies": copies, "halo_bytes": nbytes})
+            log("[spatial] reading, tiles sharing one card (not a scaling "
+                "figure): squeezeDet {} B=1 uint8 -> interpretation over "
+                "{}x1 tiles: {:.4f} ms a forward; {} halo copies, {} bytes "
+                "a forward; on {}".format(dtype, n, ms, copies, nbytes,
+                                          card))
+    k = torch.from_numpy(rs.randn(3, 3, 3, 64).astype(np.float32)).cuda()
+    b = torch.from_numpy(rs.randn(64).astype(np.float32)).cuda()
+    hp = ff.geometry(cfg.image_height, cfg.image_width)[2]
+    for n in SPATIAL_READ_TILES[1:]:
+        q = (hp // n, 2 * hp // n)  # tile 1's pool rows
+        p = (0, ff.geometry(cfg.image_height, cfg.image_width)[3])
+        (r, c), geo = ff.tile_geometry(cfg.image_height, cfg.image_width,
+                                       q, p)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(1, r[1] - r[0], c[1] - c[0], 3)
+                                 .astype(np.float32)).cuda().to(dtype)
+            ms = cuda_ms(lambda: ff.conv1_pool1(x, k, b, list(geo)), 20)
+            plain = cuda_ms(lambda: ff.conv1_pool1_reference(
+                x, k, b, list(geo)), 20)
+            bound_ms, by = k1_bound(1, x.shape[1], x.shape[2],
+                                    f32=dtype == torch.float32, geo=geo)
+            log("[spatial] K1 on tile 1 of {}x1 ({}x{} input "
+                "window -> {}x{} pooled) {}: {:.4f} ms, plain {:.4f} ms, "
+                "bound {:.4f} ms ({}); on {}".format(
+                    n, x.shape[1], x.shape[2], geo[2], geo[3],
+                    str(dtype).split(".")[1], ms, plain, bound_ms, by, card))
+    return rows
+
+
 def main():
     import_port()
     import torch
@@ -3052,22 +3692,41 @@ def main():
         "{} ({} on the NCCL rank)".format(graph["k1"], nccl["k1"],
                                           graph["k2"], nccl["k2"]))
 
+    # spatial partitioning, every tile on the card: counts from 0 just
+    # before it; the gloo ranks, in their own processes, report theirs
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    want_k1 = phase_spatial_forward(card, weights)
+    want_k1 += phase_spatial_eval(card, weights)
+    step_k1, ranks = phase_spatial_train(card, weights)
+    want_k1 += step_k1
+    if ff.LAUNCHES != want_k1 or fg.LAUNCHES != 0 or ranks["k2"] != 0:
+        raise AssertionError("spatial partitioning: K1 launches {}, expected "
+                             "{}; K2 launches {} here, {} on the "
+                             "ranks".format(ff.LAUNCHES, want_k1,
+                                            fg.LAUNCHES, ranks["k2"]))
+    spatial = {"k1": ff.LAUNCHES + ranks["k1"], "k2": fg.LAUNCHES}
+    log("[spatial] path: K1 launches {} ({} on the gloo ranks), K2 "
+        "launches {}".format(spatial["k1"], ranks["k1"], spatial["k2"]))
+    k1_tile_err = check_k1_tiles(card)
+    spatial_readings(card, weights)
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
-        + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"],
+        + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"]
+        + spatial["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
-        **k1,
+        **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err)),
     }, {
         "name": "filter_grad",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
         "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"]
-        + graph["k2"],
+        + graph["k2"] + spatial["k2"],
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "backbone_shapes": k2_rows,

@@ -18,7 +18,9 @@ CLI (``train.py``), the eval daemon with KITTI and VOC scoring
 (``eval.py``, ``data/kitti.py``, ``native/``), the demo (``demo.py``) and
 the HTTP server (``serve.py``) drive them, on one device or data-parallel
 over several (``parallel/``: one training process per device over
-``torch.distributed``, one replica per device in eval and serve).  Every
+``torch.distributed``, one replica per device in eval and serve), or
+with each image split into height x width tiles over several
+(``models/halo.py``: batch-1 eval, the data x spatial train step).  Every
 constructor and entry point takes an explicit ``device``.
 """
 

@@ -21,10 +21,14 @@ package's eval does on a mesh: one replica of the detector per device
 (``--num_devices``; by default as many visible devices as divide the
 batch), each on its rows of every batch, with no collective; under
 ``--device_dataset`` each replica holds its own shard of the split
-(``Imdb.shard_data``, ``Imdb.eval_shard_batches``).  Spatial
-partitioning, and with it the JAX package's spatial int8 path, is ROADMAP
-Queue 1 item 21.  Flags whose port is still to come raise, naming the
-ROADMAP item that brings each.
+(``Imdb.shard_data``, ``Imdb.eval_shard_batches``).  At batch 1 (the
+reference protocol) over several devices the image is split spatially
+instead, as the JAX eval does: float over ``N x 1`` height tiles, int8
+over the JAX package's ``spatial_factors`` grid (single-device, with
+its message, when that grid is 1 x 1); the backbone runs over the tiles
+with halo exchanges and the head is gathered on ``--device``
+(``models/halo.py``).  Flags whose port is still to come raise, naming
+the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument('--num_devices', type=int, default=0,
                    help='Replicas of the detector, each on its rows of '
                         'every batch (0 = the most visible devices that '
-                        'divide the batch). More replicas than cards '
-                        'share them.')
+                        'divide the batch); at --eval_batch_size 1, tiles '
+                        'of each image (0 = every visible device). More '
+                        'replicas or tiles than cards share them.')
     p.add_argument('--compute_dtype', default='')
     p.add_argument('--skip_analysis', action='store_true',
                    help='Skip the detection error-type analysis pass.')
@@ -127,8 +132,14 @@ def resolve_device_postprocess(args) -> bool:
 def resolve_mesh(args, device):
     """The replicas' devices: ``--num_devices``, or with 0 the most
     visible devices that divide the batch (the JAX eval's ``auto_mesh``);
-    None for one.  The batch must divide over them."""
-    from squeezedet_torch.parallel.mesh import auto_mesh, make_mesh
+    None for one.  The batch must divide over them.  At batch 1, the
+    devices the image is tiled over (:func:`detect_all`):
+    ``--num_devices``, or with 0 every visible device."""
+    from squeezedet_torch.parallel.mesh import (auto_mesh, make_mesh,
+                                                visible_devices)
+    if args.eval_batch_size == 1:
+        n = args.num_devices or visible_devices(device)
+        return make_mesh(n, device) if n > 1 else None
     if args.num_devices == 0:
         return auto_mesh(args.eval_batch_size, device) \
             if args.eval_batch_size > 1 else None
@@ -196,11 +207,35 @@ def _eval_stacks(imdb, devices, sharded: bool):
     return stacks
 
 
+def spatial_tiling(det, devices):
+    """The batch-1 eval's tiling over ``devices`` (the JAX eval's rule):
+    float over ``N x 1`` height tiles, int8 over ``spatial_factors(N, H,
+    W)``; None, with the JAX eval's message, when that grid is 1 x 1."""
+    from squeezedet_torch.models.halo import Tiling
+    from squeezedet_torch.parallel.mesh import spatial_factors
+    n = len(devices)
+    if det.quantized:
+        n_h, n_w = spatial_factors(n, det.cfg.image_height,
+                                   det.cfg.image_width)
+    else:
+        n_h, n_w = n, 1
+    if n_h * n_w == 1:
+        print('int8 spatial partitioning unavailable for this '
+              'geometry (no height x width split of {} devices '
+              'divides every conv stage evenly); evaluating '
+              'single-device'.format(n))
+        return None
+    print('Evaluating spatially over {} devices'.format(n_h * n_w))
+    return Tiling(n_h, n_w, tuple(devices[:n_h * n_w]))
+
+
 def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
                device_dataset: bool = False, mesh=None):
     """Run detection over the whole split with ``det``'s weights, on its
     device, or over ``mesh`` (devices, ``parallel.mesh.make_mesh``): one
-    replica per device, each on its rows of every batch.
+    replica per device, each on its rows of every batch; at batch 1, the
+    tiles of each image over those devices (:func:`spatial_tiling`), the
+    frame resized on ``det``'s device and then tiled.
 
     The default is the reference protocol: the host reader resizes, the
     forward returns the raw interpretation, and the host's numpy
@@ -242,6 +277,9 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
     all_boxes = [[[] for _ in range(num_images)]
                  for _ in range(imdb.num_classes)]
     timers = {'im_detect': Timer(), 'im_read': Timer(), 'misc': Timer()}
+    spatial = None
+    if batch_size == 1 and mesh and len(mesh) > 1:
+        spatial, mesh = spatial_tiling(det, mesh), None
     replicas = replicate(det, mesh) if mesh else [det]
     devices = [d.anchors.device for d in replicas]
     slices = shard_slices(batch_size, len(replicas))
@@ -258,7 +296,7 @@ def detect_all(det, imdb, batch_size: int, device_postprocess: bool = False,
     def predict(d, images):
         # an int8 detector (quantize_on_split) runs its int8 program
         forward = d.predict_quant_normalized if d.quantized else d.predict
-        interp = forward(images)
+        interp = forward(images, spatial)
         if device_postprocess:
             return d.postprocess_device(interp)
         return interp.det_boxes, interp.det_probs, interp.det_class

@@ -7,6 +7,13 @@ the JAX facade it owns its parameters, as an ``nn.Module``; the weight
 bridge (``squeezedet_torch.weights``) loads the JAX package's.  Its int8
 twin is another ``Detector`` (:meth:`Detector.quantize`), whose
 ``predict_quant*`` methods serve it.
+
+Every forward method takes ``spatial``, a ``models.halo.Tiling``: the
+images (on the detector's device) are cut into its height x width tiles
+on the boundaries of the net's output grid, the backbone runs over the
+tiles with halo exchanges (``models/halo.py``), and the head's output
+is gathered on the detector's device, where the interpretation, the loss
+and the postprocess run as they do unsharded.
 """
 
 from __future__ import annotations
@@ -126,14 +133,25 @@ class Detector(nn.Module):
         return mask
 
     # -- forward ------------------------------------------------------------
+    def run_backbone(self, images: torch.Tensor, *, spatial=None,
+                     **kwargs) -> torch.Tensor:
+        """The backbone (``kwargs``: ``train``, ``generator``, ``tape``) on
+        ``images``, or over ``spatial``'s tiles of them, gathered at the
+        head on the images' device."""
+        if spatial is None:
+            return self.backbone(images, **kwargs)
+        tiles = spatial.split(images, self.tracer.height, self.tracer.width)
+        return self.backbone(tiles, **kwargs).gather()
+
     def forward(self, images: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                spatial=None) -> torch.Tensor:
         """Backbone + ConvDet head -> raw preds [B, H, W, APG*(C+5)] f32.
         ``train`` turns dropout on, drawn from ``generator`` (on the
         images' device)."""
         images = images.to(self.compute_dtype).contiguous()
-        return self.backbone(images, train=train,
-                             generator=generator).float()
+        return self.run_backbone(images, spatial=spatial, train=train,
+                                 generator=generator).float()
 
     def interpret(self, preds: torch.Tensor) -> Interpretation:
         cfg = self.cfg
@@ -144,17 +162,19 @@ class Detector(nn.Module):
             exp_thresh=cfg.exp_thresh)
 
     @torch.inference_mode()
-    def predict(self, images: torch.Tensor) -> Interpretation:
+    def predict(self, images: torch.Tensor, spatial=None) -> Interpretation:
         """Inference graph on mean-subtracted images: forward + interpret."""
-        return self.interpret(self(images))
+        return self.interpret(self(images, spatial=spatial))
 
     @torch.inference_mode()
-    def predict_raw(self, images_u8: torch.Tensor) -> Interpretation:
+    def predict_raw(self, images_u8: torch.Tensor,
+                    spatial=None) -> Interpretation:
         """Serving path: uint8 BGR images [B, H, W, 3] -> Interpretation,
         with the mean subtraction on the device."""
         images = normalize_images(images_u8, self.cfg.bgr_means,
                                   self.compute_dtype)
-        return self.interpret(self.backbone(images).float())
+        return self.interpret(self.run_backbone(images,
+                                                spatial=spatial).float())
 
     @torch.inference_mode()
     def activation_stats(self, images: torch.Tensor, sample: int = 65536
@@ -224,30 +244,33 @@ class Detector(nn.Module):
         return images.to(self.compute_dtype).contiguous()
 
     @torch.inference_mode()
-    def predict_quant(self, images_u8: torch.Tensor) -> Interpretation:
+    def predict_quant(self, images_u8: torch.Tensor,
+                      spatial=None) -> Interpretation:
         """int8 serving path: uint8 BGR images -> Interpretation, the
         backbone's convs as int8 GEMMs with int32 accumulation."""
-        return self.interpret(self.backbone(
-            self.quant_input(images_u8)).float())
+        return self.interpret(self.run_backbone(
+            self.quant_input(images_u8), spatial=spatial).float())
 
     @torch.inference_mode()
-    def predict_quant_postprocessed(self, images_u8: torch.Tensor):
+    def predict_quant_postprocessed(self, images_u8: torch.Tensor,
+                                    spatial=None):
         """int8 twin of :meth:`predict_raw_postprocessed`."""
-        return self.postprocess_device(self.predict_quant(images_u8))
+        return self.postprocess_device(self.predict_quant(images_u8,
+                                                          spatial))
 
     @torch.inference_mode()
-    def predict_quant_normalized(self, images: torch.Tensor
-                                 ) -> Interpretation:
+    def predict_quant_normalized(self, images: torch.Tensor,
+                                 spatial=None) -> Interpretation:
         """int8 twin of :meth:`predict` for mean-subtracted float images
         (the eval and demo readers' format)."""
-        return self.interpret(self.backbone(
-            self.quant_input_normalized(images)).float())
+        return self.interpret(self.run_backbone(
+            self.quant_input_normalized(images), spatial=spatial).float())
 
     # -- loss ---------------------------------------------------------------
     def loss(self, images: torch.Tensor, targets: Targets,
              generator: Optional[torch.Generator] = None,
              train: bool = True, *, num_objects=None, batch_size=None,
-             weight_decay: bool = True) -> LossBreakdown:
+             weight_decay: bool = True, spatial=None) -> LossBreakdown:
         """Forward (with dropout when training) + interpretation + the
         3-term loss plus weight decay on the trainable conv weights.
 
@@ -258,7 +281,7 @@ class Detector(nn.Module):
         summed gradient once."""
         cfg = self.cfg
         interp = self.interpret(self(images, train=train,
-                                     generator=generator))
+                                     generator=generator, spatial=spatial))
         wd = L.weight_decay_loss(self.backbone, cfg.weight_decay) \
             if weight_decay else 0.0
         return detection_loss(
@@ -289,17 +312,18 @@ class Detector(nn.Module):
             num_classes=cfg.classes, prob_thresh=cfg.prob_thresh)
 
     @torch.inference_mode()
-    def predict_postprocessed(self, images: torch.Tensor):
+    def predict_postprocessed(self, images: torch.Tensor, spatial=None):
         """Forward + decode + top-K + NMS on mean-subtracted images:
         fixed-shape (boxes [B,K,4], probs [B,K], classes [B,K],
         keep [B,K])."""
-        return self.postprocess_device(self.predict(images))
+        return self.postprocess_device(self.predict(images, spatial))
 
     @torch.inference_mode()
-    def predict_raw_postprocessed(self, images_u8: torch.Tensor):
+    def predict_raw_postprocessed(self, images_u8: torch.Tensor,
+                                  spatial=None):
         """uint8 twin of :meth:`predict_postprocessed`: the whole
         uint8 -> detections program."""
-        return self.postprocess_device(self.predict_raw(images_u8))
+        return self.postprocess_device(self.predict_raw(images_u8, spatial))
 
 
 def get_model(net: str, cfg: Optional[ModelConfig] = None, *, device,

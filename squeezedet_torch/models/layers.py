@@ -21,6 +21,15 @@ on ``"mult" in params``, the float -> int8 boundary, and the int8
 max-pool.  ``record`` fills the activation tape that calibration and
 the quant report read.  fc (which no backbone uses) and the TPU-only
 ``conv2d_s2d`` are not ported.
+
+Spatial partitioning: each layer function also takes a
+:class:`~squeezedet_torch.models.halo.Tiled` activation (the frame as
+height x width tiles, possibly on several devices) and then runs on
+every tile's window (``halo.windowed``): VALID over the window, which is
+padded only at the frame's edges.  Weights and buffers follow the
+activation's device (``.to`` is free on their own device, and on another
+one sums the gradient back into the parameter).  Such a forward never
+routes K2: every conv over a tile window is VALID.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from squeezedet_torch.models import halo
+from squeezedet_torch.models.halo import Tiled
 
 
 def same_padding(size: int, k: int, s: int) -> Tuple[int, int, int]:
@@ -150,7 +162,7 @@ def _conv_nchw(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor], stride: int,
                padding: str) -> torch.Tensor:
     """NHWC x, OIHW weight -> NCHW (channels_last) conv output, with the
-    weight and bias cast to the activation dtype."""
+    weight and bias cast to the activation's dtype on its device."""
     xc = x.permute(0, 3, 1, 2)
     pad = 0
     if padding == "SAME":
@@ -160,8 +172,8 @@ def _conv_nchw(x: torch.Tensor, weight: torch.Tensor,
             pad = (pt, pl)
         else:
             xc = F.pad(xc, (pl, pr, pt, pb))
-    return F.conv2d(xc, weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype),
+    return F.conv2d(xc, weight.to(x.device, x.dtype),
+                    None if bias is None else bias.to(x.device, x.dtype),
                     stride=stride, padding=pad)
 
 
@@ -263,6 +275,10 @@ def conv2d(conv, x: torch.Tensor, stride: int, padding: str = "SAME",
            relu: bool = True) -> torch.Tensor:
     """NHWC conv + bias (+ relu), matching tf.nn.conv2d SAME/VALID.  A
     :class:`QConv` layer takes the int8 path (:func:`qconv`)."""
+    if isinstance(x, Tiled):
+        return halo.windowed(
+            [x], lambda w: conv2d(conv, w, stride, "VALID", relu),
+            conv.weight.shape[2:], stride, padding, 0, conv.name)
     if isinstance(conv, QConv):
         return qconv(conv, [x], stride, padding, relu)
     y = _conv_op(x, conv.weight, conv.bias, stride, padding)
@@ -388,13 +404,14 @@ def qconv(conv: QConv, xs, stride: int, padding: str = "SAME",
     without (the ConvDet head, ResNet's branch2c and projection
     shortcuts) it stays f32.  Returns NHWC."""
     xs = [_quant_boundary(conv, x) for x in xs]
+    dev = xs[0].device
     o, _, kh, kw = conv.weight.shape
     rows, (b, ho, wo) = im2col_int8(xs, kh, kw, stride, padding,
                                     conv.gemm_weight.shape[1])
-    acc = _int_mm(rows, conv.gemm_weight)
+    acc = _int_mm(rows, conv.gemm_weight.to(dev))
     y = (acc if acc.shape[1] == o else acc[:, :o]).float()
-    y.mul_(conv.mult)  # in place, then in place: two roundings, no FMA
-    y.add_(conv.bias)
+    y.mul_(conv.mult.to(dev))  # in place, then in place: two roundings
+    y.add_(conv.bias.to(dev))
     if relu:
         y = torch.clamp_(torch.round_(torch.clamp_(y, min=0.0)), 0, 127) \
             .to(torch.int8)
@@ -405,9 +422,14 @@ def record(tape, name: str, activation) -> None:
     """Store a layer activation in ``tape`` (a dict, or a mapping that
     reduces what it is given, as calibration's does) under ``name``; no-op
     when tape is None.  Concat-free fire pairs are stored as their
-    concat."""
+    concat, and a tiled activation as the frame on its home device."""
     if tape is None:
         return
+    if isinstance(activation, tuple):
+        activation = tuple(a.gather() if isinstance(a, Tiled) else a
+                           for a in activation)
+    elif isinstance(activation, Tiled):
+        activation = activation.gather()
     if isinstance(activation, tuple):
         activation = torch.cat(activation, dim=-1)
     tape[name] = activation
@@ -460,7 +482,8 @@ def init_conv_bn(generator: torch.Generator, tracer: NetTracer, name: str,
 
 
 def conv_bn(layer, x: torch.Tensor, stride: int, *,
-            relu: bool = True, eps: float = 1e-5) -> torch.Tensor:
+            relu: bool = True, eps: float = 1e-5,
+            padding: str = "SAME") -> torch.Tensor:
     """NHWC SAME conv (+ bias), then the frozen-statistics batch norm as an
     affine, gamma * (y - mean) / sqrt(var + eps) + beta, in the JAX
     package's arithmetic: ``inv = gamma * rsqrt(var + eps)`` in f32, then
@@ -469,15 +492,21 @@ def conv_bn(layer, x: torch.Tensor, stride: int, *,
     bf16 differently).  Never routed through K2, as the JAX conv_bn
     calls its conv directly.  A :class:`QConv` (the batch norm folded
     into it at quantize time, ``quant._fold_bn``) takes the int8 path."""
+    if isinstance(x, Tiled):
+        return halo.windowed(
+            [x], lambda w: conv_bn(layer, w, stride, relu=relu, eps=eps,
+                                   padding="VALID"),
+            layer.weight.shape[2:], stride, padding, 0, layer.name)
     if isinstance(layer, QConv):
-        return qconv(layer, [x], stride, "SAME", relu)
-    y = _conv_nchw(x, layer.weight, None, stride, "SAME")
+        return qconv(layer, [x], stride, padding, relu)
+    y = _conv_nchw(x, layer.weight, None, stride, padding)
+    dev, dt = y.device, y.dtype
     if layer.bias is not None:
-        y = y + layer.bias.to(y.dtype).view(1, -1, 1, 1)
+        y = y + layer.bias.to(dev, dt).view(1, -1, 1, 1)
     inv = layer.gamma * torch.rsqrt(layer.var + eps)
     shift = layer.beta - layer.mean * inv
-    y = y * inv.to(y.dtype).view(1, -1, 1, 1) + \
-        shift.to(y.dtype).view(1, -1, 1, 1)
+    y = y * inv.to(dev, dt).view(1, -1, 1, 1) + \
+        shift.to(dev, dt).view(1, -1, 1, 1)
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)
@@ -494,7 +523,13 @@ def max_pool(x: torch.Tensor, size: int, stride: int,
 
     An int8 tensor is pooled in bf16, which holds -128..127 exactly (the
     card's max-pool takes no integer type), and cast back: the same max.
+    A tiled activation's windows are padded with the dtype's lowest value
+    at the frame's edges, which no window's max can take.
     """
+    if isinstance(x, Tiled):
+        return halo.windowed(
+            [x], lambda w: max_pool(w, size, stride, "VALID"), size, stride,
+            padding, halo.lowest(x.dtype), "max_pool")
     if x.dtype == torch.int8:
         return max_pool(x.to(torch.bfloat16), size, stride,
                         padding).to(torch.int8)
@@ -537,29 +572,52 @@ def dropout(x: torch.Tensor, keep_prob: float,
     kept where it is below q, as the JAX layer draws it; otherwise one
     f32 uniform per element.  ``generator`` lives on x's device; the two
     frameworks draw different bits from a seed.  A :class:`BatchRows`
-    draws for its global batch.
+    draws for its global batch.  A tiled activation's mask is drawn for
+    the whole frame on its home device (the generator's) and each tile
+    keeps its part, so the tiles mask as the whole frame is masked.
     """
     if not train or keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on "
                          "the activations' device")
-    shape, rows = x.shape, None
+    tiled = isinstance(x, Tiled)
+    batch = x.batch if tiled else x.shape[0]
+    shape = (batch, x.height, x.width, x.tiles[0][0].shape[3]) if tiled \
+        else tuple(x.shape)
+    rows = None
     if isinstance(generator, BatchRows):
-        rows = slice(generator.start, generator.start + x.shape[0])
-        shape = (generator.global_batch,) + tuple(x.shape[1:])
+        rows = slice(generator.start, generator.start + batch)
+        shape = (generator.global_batch,) + shape[1:]
         generator = generator.generator
+    device = x.home if tiled else x.device
     q = round(keep_prob * 256)
     if 0 < q < 256 and abs(q - keep_prob * 256) < 1e-9:
         bits = torch.randint(0, 256, shape, dtype=torch.uint8,
-                             device=x.device, generator=generator)
+                             device=device, generator=generator)
         keep = bits < q
     else:
-        keep = torch.rand(shape, device=x.device,
+        keep = torch.rand(shape, device=device,
                           generator=generator) < keep_prob
     if rows is not None:
         keep = keep[rows]
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    if not tiled:
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    out = [[None] * (len(x.cols) - 1) for _ in range(len(x.rows) - 1)]
+    for i, j in x.indices():
+        t = x.tiles[i][j]
+        k = keep[:, x.rows[i]:x.rows[i + 1], x.cols[j]:x.cols[j + 1]]
+        out[i][j] = torch.where(k.to(t.device), t / keep_prob,
+                                torch.zeros_like(t))
+    return Tiled(out, x.rows, x.cols, x.home)
+
+
+def pointwise(fn, *xs):
+    """``fn(*xs)`` for elementwise ``fn``: tile by tile when the inputs
+    are tiled (alike), else on the tensors."""
+    if isinstance(xs[0], Tiled):
+        return xs[0].map(fn, *xs[1:])
+    return fn(*xs)
 
 
 def weight_decay_loss(module: nn.Module, wd: float):
@@ -593,16 +651,22 @@ class Fire(nn.Module):
 
 
 def conv2d_pair(conv, xa: torch.Tensor, xb: torch.Tensor,
-                stride: int = 1, relu: bool = True) -> torch.Tensor:
+                stride: int = 1, relu: bool = True,
+                padding: str = "SAME") -> torch.Tensor:
     """Conv over a virtual concat: conv(concat(xa, xb), k) ==
     conv(xa, k[:, :Ca]) + conv(xb, k[:, Ca:]), so fire outputs are never
     concatenated.  A :class:`QConv` takes both halves' taps into one
     int32 accumulator, which equals the JAX package's sum of two."""
+    if isinstance(xa, Tiled):
+        return halo.windowed(
+            [xa, xb], lambda a, b: conv2d_pair(conv, a, b, stride, relu,
+                                               "VALID"),
+            conv.weight.shape[2:], stride, padding, 0, conv.name)
     if isinstance(conv, QConv):
-        return qconv(conv, [xa, xb], stride, "SAME", relu)
+        return qconv(conv, [xa, xb], stride, padding, relu)
     ca = xa.shape[-1]
-    y = _conv_op(xa, conv.weight[:, :ca], conv.bias, stride, "SAME")
-    y = y + _conv_op(xb, conv.weight[:, ca:], None, stride, "SAME")
+    y = _conv_op(xa, conv.weight[:, :ca], conv.bias, stride, padding)
+    y = y + _conv_op(xb, conv.weight[:, ca:], None, stride, padding)
     if relu:
         y = F.relu(y)
     return y.permute(0, 2, 3, 1)

@@ -120,16 +120,19 @@ class ResNet50(nn.Module):
                     shortcut = L.conv_bn(res.branch1, x, stride, relu=False,
                                          eps=eps)
                 elif getattr(res, "shortcut_scale", None) is not None:
-                    shortcut = shortcut.float() * res.shortcut_scale
+                    shortcut = L.pointwise(
+                        lambda s, scale=res.shortcut_scale:
+                        s.float() * scale.to(s.device), shortcut)
                 b2 = res.branch2
                 y = L.conv_bn(b2.branch2a, x, stride, eps=eps)
                 L.record(tape, name + "_branch2a", y)
                 y = L.conv_bn(b2.branch2b, y, 1, eps=eps)
                 L.record(tape, name + "_branch2b", y)
                 y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps)
-                x = F.relu(shortcut + y)
+                x = L.pointwise(lambda s, t: F.relu(s + t), shortcut, y)
                 if getattr(res, "out_scale", None) is not None:
-                    x = L.quantize_activation(x, res.out_scale)
+                    x = L.pointwise(lambda t, scale=res.out_scale:
+                                    L.quantize_activation(t, scale), x)
                 L.record(tape, name, x)
         x = L.dropout(x, self.keep_prob, generator, train)
         out = L.conv2d(self.conv5, x, 1, relu=False)

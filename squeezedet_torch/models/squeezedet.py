@@ -9,7 +9,9 @@ stride-2 SAME; overall stride 16.  A float conv1+pool1 runs through the
 K1 wrapper (:func:`squeezedet_torch.ops.fused_frontend.conv1_pool1`),
 the CUDA kernel on the card and its plain version on the CPU, unless an
 activation tape asks for conv1's output before the pool, which K1 never
-exposes.  An int8 conv1 (``quant.py``, whole-net int8) is a
+exposes.  On a tiled frame (``models.halo.Tiled``) K1 launches once per
+tile that owns a pool output, at the tile's own geometry
+(:func:`conv1_pool1`).  An int8 conv1 (``quant.py``, whole-net int8) is a
 ``layers.QConv`` and the int8 max-pool, as in the JAX package.
 """
 
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from squeezedet_torch.models import halo
 from squeezedet_torch.models import layers as L
 from squeezedet_torch.ops import fused_frontend
 
@@ -33,6 +36,30 @@ _FIRES = [
 ]
 # pools come after these layers
 _POOL_AFTER = {"conv1": "pool1", "fire3": "pool3", "fire5": "pool5"}
+
+
+def conv1_pool1(images, kernel: torch.Tensor, bias: torch.Tensor):
+    """K1 (:func:`fused_frontend.conv1_pool1`) over the frame, or once
+    per tile of a ``halo.Tiled`` frame: each tile's pool outputs (the
+    frame's bounds through the conv and the pool, ``halo.next_bounds``)
+    from its input window at its own geometry
+    (:func:`fused_frontend.tile_geometry`)."""
+    if not isinstance(images, halo.Tiled):
+        return fused_frontend.conv1_pool1(images, kernel, bias)
+    x = images
+    hc, wc, hp, wp = fused_frontend.geometry(x.height, x.width)[:4]
+    rows = halo.next_bounds(halo.next_bounds(x.rows, 2, hc), 2, hp)
+    cols = halo.next_bounds(halo.next_bounds(x.cols, 2, wc), 2, wp)
+
+    def tile(i, j, q, p):
+        (r, c), geo = fused_frontend.tile_geometry(x.height, x.width, q, p)
+        win = x.window(i, j, r[0], r[1], c[0], c[1]).contiguous()
+        if win.data_ptr() % 16:  # the bf16 route's 16-byte loads
+            win = win.clone()
+        dev = win.device
+        return fused_frontend.conv1_pool1(win, kernel.to(dev), bias.to(dev),
+                                          list(geo))
+    return halo.tile_op(x, rows, cols, tile, "conv1_pool1")
 
 
 class SqueezeDet(nn.Module):
@@ -65,9 +92,8 @@ class SqueezeDet(nn.Module):
         receives each stage's activation under its layer name, conv1's
         before pool1, as the JAX backbone records them."""
         if tape is None and not isinstance(self.conv1, L.QConv):
-            x = fused_frontend.conv1_pool1(
-                images, self.conv1.weight.permute(2, 3, 1, 0),
-                self.conv1.bias)
+            x = conv1_pool1(images, self.conv1.weight.permute(2, 3, 1, 0),
+                            self.conv1.bias)
         else:
             x = L.conv2d(self.conv1, images, 2)
             L.record(tape, "conv1", x)

@@ -18,6 +18,18 @@ f32 (sum, bias, ReLU, max), and the result is rounded to the images'
 dtype once.  Padding is TF SAME for the conv and the pool, so any H and
 W are taken.
 
+On a tile of a spatially partitioned frame the kernel is launched with
+the tile's true geometry (``geo``, from :func:`tile_geometry`): the
+kernel takes the whole geometry as arguments (input, conv and pool
+extents and the leading pads), zero-pads input rows outside the window
+it is given and skips conv rows outside the conv extent it is given.
+So a tile's window is the input rows its pool rows read, clamped to the
+frame: an interior tile gets no pads (its neighbours' rows are real
+rows of the window), the frame's first tile the frame's leading pads,
+and its last tile runs off the window's end where the frame ends.  The
+plain version takes the same geometry.  The loop over the tiles is the
+model's (``models/squeezedet.py``).
+
 :func:`conv1_pool1` calls the op ``squeezedet_torch::conv1_pool1``,
 registered here with ``torch.library.custom_op``: its CUDA
 implementation launches the kernel, its CPU one is the plain version,
@@ -32,10 +44,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 
+from squeezedet_torch.models.halo import chain_window
 from squeezedet_torch.models.layers import same_padding
 from squeezedet_torch.ops import _cuda
 
@@ -55,6 +69,17 @@ def geometry(height: int, width: int):
     hp, ppad_t, _ = same_padding(hc, 3, 2)
     wp, ppad_l, _ = same_padding(wc, 3, 2)
     return hc, wc, hp, wp, pad_t, pad_l, ppad_t, ppad_l
+
+
+def tile_geometry(height: int, width: int, rows, cols):
+    """The input window ``((r0, r1), (c0, c1))`` of the tile owning pool
+    rows ``rows`` and columns ``cols`` (pairs) of a ``height x width``
+    frame (``halo.chain_window`` through the conv and the pool), and its
+    kernel geometry in :func:`geometry`'s order."""
+    ops = ((3, 2, "SAME"), (3, 2, "SAME"))
+    win_r, ((hc, pt), (hp, ppt)) = chain_window(rows, height, ops)
+    win_c, ((wc, pl), (wp, ppl)) = chain_window(cols, width, ops)
+    return (win_r, win_c), (hc, wc, hp, wp, pt, pl, ppt, ppl)
 
 
 def _check(images, kernel, bias) -> None:
@@ -103,31 +128,38 @@ def check_no_grad(images, kernel, bias) -> None:
 
 
 def conv1_pool1_reference(images: torch.Tensor, kernel: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch conv1+pool1: [B, H, W, 3] -> [B, Hp, Wp, 64] NHWC."""
+                          bias: torch.Tensor,
+                          geo: Optional[List[int]] = None) -> torch.Tensor:
+    """Plain PyTorch conv1+pool1: [B, H, W, 3] -> [B, Hp, Wp, 64] NHWC.
+    ``geo`` is the kernel's geometry (:func:`geometry`'s order; the
+    frame's TF SAME geometry when None): input rows outside the images
+    are zeros, conv rows outside ``Hc`` x ``Wc`` are skipped."""
     _check(images, kernel, bias)
     dtype = images.dtype
     _, h, w, _ = images.shape
-    _, pt, pb = same_padding(h, 3, 2)
-    _, pl, pr = same_padding(w, 3, 2)
+    hc, wc, hp, wp, pt, pl, ppt, ppl = geometry(h, w) if geo is None \
+        else geo
+    pb, pr = 2 * hc + 1 - pt - h, 2 * wc + 1 - pl - w
     x = F.pad(images.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
     k = kernel.to(dtype).float().permute(3, 2, 0, 1)
     y = F.conv2d(x, k, stride=2) + bias.to(dtype).float().view(1, -1, 1, 1)
     y = F.relu(y)
-    _, pt, pb = same_padding(y.shape[2], 3, 2)
-    _, pl, pr = same_padding(y.shape[3], 3, 2)
-    y = F.max_pool2d(F.pad(y, (pl, pr, pt, pb), value=-math.inf), 3, 2)
+    pb, pr = 2 * hp + 1 - ppt - hc, 2 * wp + 1 - ppl - wc
+    y = F.max_pool2d(F.pad(y, (ppl, pr, ppt, pb), value=-math.inf), 3, 2)
     return y.permute(0, 2, 3, 1).to(dtype).contiguous()
 
 
 def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor,
+                geo: Optional[List[int]] = None) -> torch.Tensor:
     """conv1+pool1: images [B, H, W, 3] (f32 or bf16, contiguous NHWC),
     kernel [3, 3, 3, 64] HWIO, bias [64] -> [B, Hp, Wp, 64] NHWC in the
     images' dtype.  ``out.permute(0, 3, 1, 2)`` is the same tensor as
-    NCHW in ``channels_last`` memory format.  On the card, the kernel
-    through the registered op; on the CPU, the plain version (directly
-    when autograd needs its graph, else through the op)."""
+    NCHW in ``channels_last`` memory format.  ``geo``: a tile's geometry
+    (:func:`tile_geometry`), the frame's TF SAME one when None.  On the
+    card, the kernel through the registered op; on the CPU, the plain
+    version (directly when autograd needs its graph, else through the
+    op)."""
     _check(images, kernel, bias)
     device = images.device.type
     if device not in ("cpu", "cuda", "meta"):
@@ -135,35 +167,36 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
                          "{}".format(images.device))
     if device == "cpu" and torch.is_grad_enabled() and any(
             t.requires_grad for t in (images, kernel, bias)):
-        return conv1_pool1_reference(images, kernel, bias)
+        return conv1_pool1_reference(images, kernel, bias, geo)
     check_no_grad(images, kernel, bias)
     if not 1 <= images.shape[0] <= 65535:
         raise ValueError("batch must be 1..65535 (grid z), got {}".format(
             images.shape[0]))
-    return torch.ops.squeezedet_torch.conv1_pool1(images, kernel, bias)
+    return torch.ops.squeezedet_torch.conv1_pool1(images, kernel, bias, geo)
 
 
 @torch.library.custom_op("squeezedet_torch::conv1_pool1", mutates_args=(),
                          device_types="cpu")
 def _conv1_pool1_op(images: torch.Tensor, kernel: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    return conv1_pool1_reference(images, kernel, bias)
+                    bias: torch.Tensor,
+                    geo: Optional[List[int]] = None) -> torch.Tensor:
+    return conv1_pool1_reference(images, kernel, bias, geo)
 
 
 @_conv1_pool1_op.register_fake
-def _conv1_pool1_fake(images, kernel, bias):
+def _conv1_pool1_fake(images, kernel, bias, geo=None):
     b, h, w, _ = images.shape
-    _, _, hp, wp = geometry(h, w)[:4]
+    _, _, hp, wp = (geometry(h, w) if geo is None else geo)[:4]
     return images.new_empty((b, hp, wp, FILTERS))
 
 
 @_conv1_pool1_op.register_kernel("cuda")
-def _conv1_pool1_cuda(images, kernel, bias):
+def _conv1_pool1_cuda(images, kernel, bias, geo=None):
     """Launch the kernel of csrc/conv1_pool1.cu on the current stream."""
     global LAUNCHES
     check_kernel_layout(images)
     b, h, w, _ = images.shape
-    geo = geometry(h, w)
+    geo = geometry(h, w) if geo is None else tuple(geo)
     dtype = images.dtype
     k = kernel.detach().to(dtype).float().contiguous()
     bs = bias.detach().to(dtype).float().contiguous()

@@ -1,13 +1,18 @@
 """Hermetic data-parallel dry run (counterpart of
 ``squeezedet_tpu/parallel/dryrun.py``).
 
-    python -m squeezedet_torch.parallel.dryrun [N]
+    python -m squeezedet_torch.parallel.dryrun [N] [S]
 
 :func:`run` takes one full data-parallel train step of the tiny config
 (dropout on, on-device ingest and matching) on N gloo CPU ranks spawned
 on this host, and the same step in one process at the same global
 batch, from the same weights, optimizer state, batch and dropout seed:
-the loss terms, the parameters and the momentum must agree.
+the loss terms, the parameters and the momentum must agree.  With
+``n_spatial`` S > 1 it is the data x spatial step of
+``make_mesh_2d(N, S)``: each rank runs its rows' forward over S height
+tiles with halo exchanges (``models/halo.py``), against the same
+unsharded one-process step.  The command runs the 1-D check, then the
+2-D one (S defaults to 2; 1 skips it).
 
 The pieces serve the tests and the card's smoke as well: a *case* file
 (:func:`write_case`) holds a step's start; :func:`step_on_ranks` runs it
@@ -33,19 +38,20 @@ LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-5, 1e-4, 1e-9
 def write_case(path: str, det, batch, *, opt_state: Optional[dict] = None,
                seed: int = 0, uint8_ingest: bool = True,
                device_augment: bool = False, filter_grad=False,
-               device: str = "cpu") -> None:
+               device: str = "cpu", spatial: int = 1) -> None:
     """Save a train step's start: ``det``'s config, net and weights, an
     optimizer state (a fresh one when omitted), the global ``batch``
     (numpy arrays, as ``make_train_step_device`` takes them), the dropout
-    seed, the step's flags, the filter-grad mode of a one-process run and
-    the kind of device the ranks use."""
+    seed, the step's flags, the filter-grad mode of a one-process run,
+    the kind of device the ranks use and the height tiles of each
+    rank's forward (``spatial``; 1 runs it whole)."""
     torch.save({
         "cfg": det.cfg, "net": det.net,
         "weights": {k: v.cpu() for k, v in det.backbone.state_dict().items()},
         "opt_state": opt_state, "batch": [np.asarray(a) for a in batch],
         "seed": seed, "uint8_ingest": uint8_ingest,
         "device_augment": device_augment, "filter_grad": filter_grad,
-        "device": device}, path)
+        "device": device, "spatial": spatial}, path)
 
 
 def load_case(path: str) -> dict:
@@ -57,12 +63,15 @@ def one_step(case: dict, dp=None) -> dict:
     """The case's step on this process's device: alone (``dp`` None, in
     the case's filter-grad mode) or as rank ``dp`` on its rows.  Returns
     the global loss terms, the updated parameters and momentum (on the
-    CPU), this process's K1 and K2 launches and the group's backend."""
+    CPU), this process's K1 and K2 launches and the group's backend.
+    A case with ``spatial`` S > 1 runs its forward over S height tiles
+    (``make_mesh_2d(world, S).tiling(rank)``)."""
     from squeezedet_torch.models import get_model
     from squeezedet_torch.models import layers as L
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.optim import build_optimizer
+    from squeezedet_torch.parallel.mesh import make_mesh_2d
     from squeezedet_torch.trainer import TrainState, make_train_step_device
 
     device = dp.device if dp is not None else torch.device(case["device"])
@@ -75,9 +84,14 @@ def one_step(case: dict, dp=None) -> dict:
     state = TrainState(det, build_optimizer(cfg, det))
     if case["opt_state"] is not None:
         state.opt.load_state_dict(case["opt_state"])
+    spatial = None
+    if case.get("spatial", 1) > 1:
+        world, rank = (1, 0) if dp is None else (dp.world, dp.rank)
+        spatial = make_mesh_2d(world, case["spatial"],
+                               case["device"]).tiling(rank)
     step = make_train_step_device(state, uint8_ingest=case["uint8_ingest"],
                                   device_augment=case["device_augment"],
-                                  dp=dp)
+                                  dp=dp, spatial=spatial)
     rows = slice(None) if dp is None else dp.rows(cfg.batch_size)
     batch = [torch.from_numpy(a[rows]).to(device) for a in case["batch"]]
     generator = torch.Generator(device).manual_seed(case["seed"])
@@ -148,11 +162,12 @@ def agrees(mismatch: dict) -> bool:
         mismatch["momentum"][0] <= STEP_RTOL
 
 
-def tiny_case(path: str, n: int, keep_prob: float = 0.5) -> dict:
+def tiny_case(path: str, n: int, keep_prob: float = 0.5,
+              spatial: int = 1) -> dict:
     """A tiny-config case at global batch 2n: seeded weights and GT, and
     a mid-training optimizer state (step 5, a random momentum of std
     0.05), whose updates stand well above the f32 spacing of the
-    weights."""
+    weights.  ``spatial``: the height tiles of each rank's forward."""
     from squeezedet_torch.config import tiny_test_config
     from squeezedet_torch.models import get_model
     from squeezedet_torch.optim import build_optimizer
@@ -171,19 +186,19 @@ def tiny_case(path: str, n: int, keep_prob: float = 0.5) -> dict:
     batch = [rs.randint(0, 256, (b, 64, 64, 3)).astype(np.uint8), boxes,
              rs.randint(0, cfg.classes, (b, g)).astype(np.int32),
              rs.randint(1, g + 1, (b,)).astype(np.int32)]
-    write_case(path, det, batch, opt_state=opt, seed=1)
+    write_case(path, det, batch, opt_state=opt, seed=1, spatial=spatial)
     return load_case(path)
 
 
-def run(n_ranks: int) -> float:
-    """One data-parallel train step on ``n_ranks`` gloo CPU ranks against
-    the one-process step, which runs with K2's weight gradients (its
-    plain version on the CPU) off and on; returns the (finite) total
-    loss."""
+def run(n_ranks: int, n_spatial: int = 1) -> float:
+    """One data-parallel train step on ``n_ranks`` gloo CPU ranks (each
+    over ``n_spatial`` height tiles) against the unsharded one-process
+    step, which runs with K2's weight gradients (its plain version on
+    the CPU) off and on; returns the (finite) total loss."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "case.pt")
-        case = tiny_case(path, n_ranks)
-        wants = [one_step(dict(case, filter_grad=mode))
+        case = tiny_case(path, n_ranks, spatial=n_spatial)
+        wants = [one_step(dict(case, filter_grad=mode, spatial=1))
                  for mode in (False, True)]
         results = step_on_ranks(path, os.path.join(tmp, "out"), n_ranks)
     for mode, want in zip((False, True), wants):
@@ -191,8 +206,9 @@ def run(n_ranks: int) -> float:
             m = worst_mismatch(got, want, case["weights"])
             if not agrees(m):
                 raise AssertionError(
-                    "rank {} of {} disagrees with the one-process step "
-                    "(filter-grad mode {}): {}".format(r, n_ranks, mode, m))
+                    "rank {} of {} ({} height tiles) disagrees with the "
+                    "one-process step (filter-grad mode {}): {}".format(
+                        r, n_ranks, n_spatial, mode, m))
     total = float(wants[0]["loss"][0])
     if not np.isfinite(total):
         raise AssertionError("the dry run's loss is not finite")
@@ -202,8 +218,12 @@ def run(n_ranks: int) -> float:
 def main() -> None:
     import sys
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    s = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     print("dryrun over {} gloo CPU ranks OK: loss = {:.4f}".format(
         n, run(n)))
+    if s > 1:
+        print("dryrun over {} gloo CPU ranks x {} height tiles OK: loss = "
+              "{:.4f}".format(n, s, run(n, s)))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,32 @@
-"""Data-parallel helpers (counterpart of the data-axis half of
-``squeezedet_tpu/parallel/mesh.py``).
+"""Meshes (counterpart of ``squeezedet_tpu/parallel/mesh.py``).
 
 A JAX mesh is a device array that one jitted program spans.  The port's
-*mesh* is the list of devices of its replicas, one per coordinate of the
-data axis: eval and serve hold one replica of the detector per device in
-one process and run each replica on its rows of the batch
-(:func:`run_replicas`), with no collective; training runs one process per
-coordinate (``parallel/distributed.py``).  Spatial partitioning (the 2-D
-and spatial meshes) is ROADMAP Queue 1 item 21.
+data-parallel *mesh* is the list of devices of its replicas, one per
+coordinate of the data axis: eval and serve hold one replica of the
+detector per device in one process and run each replica on its rows of
+the batch (:func:`run_replicas`), with no collective; training runs one
+process per coordinate (``parallel/distributed.py``).
+
+A :class:`SpatialMesh` (:func:`make_mesh_2d`, :func:`make_mesh_spatial`)
+adds the spatial axes: each data coordinate holds ``n_h x n_w`` tiles of
+its images (:meth:`SpatialMesh.tiling`, a ``halo.Tiling``), whose
+backbone runs tiled with halo exchanges (``models/halo.py``).  The JAX
+package's ``image_sharding`` and ``stacked_image_sharding`` (batch over
+``data``, height over ``spatial``, width over ``spatial_w``) are the
+rows a data coordinate takes (:func:`shard_slices`, or a rank's
+``DataParallel.rows``) and its tiling's ``split`` of them, which each
+forward applies to its own images, a scanned step's included.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from squeezedet_torch.models.halo import Tiling
 
 
 def make_mesh(num_devices: int, device) -> List[torch.device]:
@@ -29,15 +40,68 @@ def make_mesh(num_devices: int, device) -> List[torch.device]:
     return [rank_device(device, i) for i in range(num_devices)]
 
 
-def make_mesh_2d(*args, **kwargs):
-    """Data x spatial meshes, as the JAX package builds them for halo
-    partitioning: not ported."""
-    raise NotImplementedError(
-        "spatial partitioning (halo exchanges per conv, and eval's spatial "
-        "int8 path): ROADMAP Queue 1 item 21")
+@dataclass(frozen=True)
+class SpatialMesh:
+    """``devices[d]``: the ``n_h * n_w`` tile devices (row-major) of data
+    coordinate ``d``."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    n_h: int
+    n_w: int
+
+    @property
+    def n_data(self) -> int:
+        return len(self.devices)
+
+    def tiling(self, coord: int = 0) -> Tiling:
+        """The tiles of data coordinate ``coord``."""
+        return Tiling(self.n_h, self.n_w, self.devices[coord])
 
 
-make_mesh_spatial = make_mesh_2d
+def _spatial_mesh(n_data: int, n_h: int, n_w: int, device) -> SpatialMesh:
+    if min(n_data, n_h, n_w) < 1:
+        raise ValueError("mesh axes must be >= 1, got data {} x height {} "
+                         "x width {}".format(n_data, n_h, n_w))
+    flat = make_mesh(n_data * n_h * n_w, device)
+    per = n_h * n_w
+    return SpatialMesh(tuple(tuple(flat[d * per:(d + 1) * per])
+                             for d in range(n_data)), n_h, n_w)
+
+
+def make_mesh_2d(n_data: int, n_spatial: int, device) -> SpatialMesh:
+    """Data x spatial mesh: ``n_data`` coordinates of the batch, each with
+    its images' height over ``n_spatial`` tiles; devices as
+    :func:`make_mesh` takes them (tiles share cards when there are fewer
+    cards than tiles)."""
+    return _spatial_mesh(n_data, n_spatial, 1, device)
+
+
+def make_mesh_spatial(n_h: int, n_w: int = 1, *, device) -> SpatialMesh:
+    """Pure spatial mesh: the whole batch over ``n_h`` (height) x ``n_w``
+    (width) tiles, the reference's batch-1 eval protocol spread over
+    several devices."""
+    return _spatial_mesh(1, n_h, n_w, device)
+
+
+def spatial_factors(n: int, height: int, width: int,
+                    stride: int = 16) -> tuple:
+    """Largest (n_h, n_w) with n_h * n_w <= n such that every
+    stride-halving conv stage divides evenly over both spatial axes
+    (H % (stride * n_h) == 0 and W % (stride * n_w) == 0); (1, 1) when
+    no multi-device split qualifies.  Ties prefer the larger n_h.  The
+    JAX package's function, which its int8 eval uses (XLA's partitioner
+    mis-types an uneven s8 split): the port's halo exchange takes uneven
+    splits in int8 too, but its int8 eval keeps the JAX geometry."""
+    best = (1, 1)
+    for n_h in range(1, n + 1):
+        if height % (stride * n_h):
+            continue
+        for n_w in range(1, n // n_h + 1):
+            if width % (stride * n_w):
+                continue
+            if n_h * n_w >= best[0] * best[1]:
+                best = (n_h, n_w)
+    return best
 
 
 def visible_devices(device) -> int:

@@ -23,6 +23,18 @@ batch and sliced: ``layers.BatchRows``), the gradients are summed over
 the ranks, and every rank then clips and updates identically.  The D-rank
 step equals the one-device step at the same global batch.
 
+Spatial partitioning (``spatial``, a ``models.halo.Tiling``, e.g.
+``make_mesh_2d(D, S, device).tiling(rank)``): the step's forward runs
+over the tiling's height x width tiles with halo exchanges, the head
+gathered on the detector's device (``Detector.run_backbone``).  The
+tiles' weight gradients land in the detector's parameters (a copy on
+another device sums its gradient back), so they are summed before a
+data-parallel rank's all-reduce, and the update is the unsharded
+step's.  The data x spatial step is ``dp`` and ``spatial`` together:
+each rank holds its tiles in one process.  The train CLI builds no
+spatial mesh (the JAX CLI builds 1-D meshes only); the step is a
+library entry point, as in the JAX package.
+
 K steps per dispatch (``--steps_per_dispatch``,
 :func:`make_train_step_device_scan`): on the CPU the K steps run one
 after another; on the card the host stacks K batches, copies them into
@@ -82,14 +94,17 @@ class TrainState:
 
 
 def _rank_loss(det: Detector, images: torch.Tensor, targets: Targets,
-               generator: Optional[torch.Generator], dp=None) -> LossBreakdown:
+               generator: Optional[torch.Generator], dp=None,
+               spatial=None) -> LossBreakdown:
     """The train loss of the batch, or with ``dp`` (a ``DataParallel``)
     this rank's part of the loss of the ``cfg.batch_size`` global batch
     whose rows it holds: the all-reduced object count and the global
     batch as normalisers, weight decay on rank 0 only, and dropout drawn
-    for the global batch and sliced to the rank's rows."""
+    for the global batch and sliced to the rank's rows.  ``spatial``: the
+    forward's tiling."""
     if dp is None:
-        return det.loss(images, targets, generator, train=True)
+        return det.loss(images, targets, generator, train=True,
+                        spatial=spatial)
     batch = det.cfg.batch_size
     # the mask is a target (no gradient): one all-reduce of its count
     num_objects = dp.all_reduce_(targets.input_mask.sum())
@@ -97,7 +112,7 @@ def _rank_loss(det: Detector, images: torch.Tensor, targets: Targets,
         generator, batch, dp.rank * (batch // dp.world))
     return det.loss(images, targets, rows, train=True,
                     num_objects=num_objects, batch_size=batch,
-                    weight_decay=dp.primary)
+                    weight_decay=dp.primary, spatial=spatial)
 
 
 def _sum_over_ranks(dp, grads: Sequence[torch.Tensor]) -> list:
@@ -110,7 +125,7 @@ def _sum_over_ranks(dp, grads: Sequence[torch.Tensor]) -> list:
 
 def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
                   generator: Optional[torch.Generator],
-                  dp=None, neg_lr=None) -> LossBreakdown:
+                  dp=None, neg_lr=None, spatial=None) -> LossBreakdown:
     """Forward + backward + optimizer update, shared by every step
     builder.  Frozen parameters (``requires_grad=False``) get no
     gradient, and nothing is differentiated through them.  ``neg_lr``:
@@ -119,9 +134,11 @@ def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
     With ``dp`` (a ``DataParallel``) this rank's rows are part of the
     global batch: the gradients of the rank's part of the global loss
     are summed over the ranks before the update, and the returned terms
-    are the global batch's (summed over the ranks)."""
+    are the global batch's (summed over the ranks).  ``spatial``: the
+    forward's tiling; the tiles' gradients are already summed into the
+    parameters when the ranks' all-reduce starts."""
     state.opt.zero_grad()
-    lb = _rank_loss(state.det, images, targets, generator, dp)
+    lb = _rank_loss(state.det, images, targets, generator, dp, spatial)
     lb.total.backward()
     if dp is not None:
         grads = [p.grad for p in state.opt.params.values()]
@@ -134,18 +151,32 @@ def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
         torch.stack([t.detach() for t in lb])).unbind())
 
 
-def make_train_step(state: TrainState, dp=None):
+def _warn_filter_grad(dp, spatial) -> None:
+    """The JAX trainer's warning when K2 routing is on over a spatial
+    mesh, of any size: every conv over a tile window is VALID, which K2
+    does not take, so no weight gradient goes through K2."""
+    if spatial is not None and L.filter_grad_mode():
+        devices = spatial.size * (1 if dp is None else dp.world)
+        print("WARNING: --pallas_grads is single-device only; ignoring it "
+              "on a {}-device mesh.".format(devices))
+
+
+def make_train_step(state: TrainState, dp=None, spatial=None):
     """Step on dense targets: ``(images, targets, generator) ->
-    LossBreakdown``, with mean-subtracted images.  ``dp``: as
-    :func:`make_train_step_device`."""
+    LossBreakdown``, with mean-subtracted images.  ``dp``, ``spatial``:
+    as :func:`make_train_step_device`."""
+    _warn_filter_grad(dp, spatial)
+
     def step_fn(images, targets: Targets, generator=None):
-        return _apply_update(state, images, targets, generator, dp)
+        return _apply_update(state, images, targets, generator, dp,
+                             spatial=spatial)
     return step_fn
 
 
 def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
                            device_augment: bool = False,
-                           device_dataset: bool = False, dp=None):
+                           device_dataset: bool = False, dp=None,
+                           spatial=None):
     """Step with the anchor matcher on the device.
 
     Signature: ``(images, gt_boxes, gt_labels, num_gt, generator) ->
@@ -164,13 +195,21 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     ``device_dataset`` over several ranks ``dataset`` is this rank's
     shard block and ``pos`` the global rows
     (``parallel.mesh.local_shard_gather``).
+
+    ``spatial``, a ``models.halo.Tiling``: the forward runs over its
+    tiles (with ``dp``, the rank's tiles: the data x spatial step).  The
+    ingest, augment and matcher run on the detector's device, before
+    the images are tiled.  K2 routing is ignored, with the JAX
+    trainer's warning.
     """
     from squeezedet_torch.parallel.mesh import local_shard_gather
     det = state.det
     sharded = dp is not None and dp.world > 1
+    _warn_filter_grad(dp, spatial)
 
     def update(images, targets, generator, neg_lr):
-        return _apply_update(state, images, targets, generator, dp, neg_lr)
+        return _apply_update(state, images, targets, generator, dp, neg_lr,
+                             spatial)
 
     if device_dataset:
         def step_fn(dataset, pos, aug, gt_boxes, gt_labels, num_gt,
@@ -283,7 +322,8 @@ class _ScanStep:
 def make_train_step_device_scan(state: TrainState, k: int, *,
                                 uint8_ingest: bool = False,
                                 device_augment: bool = False,
-                                device_dataset: bool = False, dp=None):
+                                device_dataset: bool = False, dp=None,
+                                spatial=None):
     """K device-matcher train steps per dispatch (``--steps_per_dispatch``),
     the counterpart of the JAX package's ``lax.scan`` over K steps.
 
@@ -301,15 +341,24 @@ def make_train_step_device_scan(state: TrainState, k: int, *,
     (:class:`_ScanStep`); the kernels' ``LAUNCHES`` count each replay's.
     ``dp``: as :func:`make_train_step_device`; an NCCL rank's
     all-reduces are captured with the steps (gloo's run through the host
-    and cannot be).
+    and cannot be).  ``spatial``: as :func:`make_train_step_device`; on
+    the card its tiles must share the detector's card, where the halo
+    copies are captured with the steps (copies between cards in a
+    captured graph: ROADMAP Queue 1 item 22).
     """
     if k < 1:
         raise ValueError("steps per dispatch must be >= 1, got {}".format(k))
     if dp is not None and dp.backend != "nccl":
         raise ValueError(_GLOO_SCAN)
+    home = state.det.anchors.device
+    if spatial is not None and home.type == "cuda" and \
+            any(torch.device(d) != home for d in spatial.devices):
+        raise ValueError(_CROSS_CARD_SCAN.format(
+            ", ".join(sorted({str(d) for d in spatial.devices}))))
     step_fn = make_train_step_device(state, uint8_ingest=uint8_ingest,
                                      device_augment=device_augment,
-                                     device_dataset=device_dataset, dp=dp)
+                                     device_dataset=device_dataset, dp=dp,
+                                     spatial=spatial)
     return _ScanStep(state, k, step_fn, device_dataset)
 
 
@@ -317,6 +366,11 @@ _GLOO_SCAN = ("--steps_per_dispatch > 1 captures the K steps in a CUDA graph, "
               "and gloo's all-reduce runs through the host, which a graph "
               "cannot capture: use one NCCL rank per card, or "
               "--steps_per_dispatch 1 over gloo")
+_CROSS_CARD_SCAN = ("--steps_per_dispatch > 1 captures the K steps in one "
+                    "card's CUDA graph, and these tiles lie on other cards "
+                    "({}): copies between cards inside a captured graph are "
+                    "ROADMAP Queue 1 item 22; put the tiles on the "
+                    "detector's card, or run one step per dispatch")
 
 
 def _sampler_ckpt_path(train_dir: str, step: int, dp=None) -> str:

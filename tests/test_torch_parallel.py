@@ -189,9 +189,9 @@ def test_rank_rows_and_global_batch():
     with pytest.raises(ValueError, match="not divisible"):
         hosts.rows(6)
     assert make_mesh(3, "cpu") == [cpu] * 3
-    for fn in (mesh_mod.make_mesh_2d, mesh_mod.make_mesh_spatial):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            fn(2, 2)
+    assert mesh_mod.make_mesh_2d(2, 2, "cpu").devices == ((cpu,) * 2,) * 2
+    assert (mesh_mod.make_mesh_spatial(2, 2, device="cpu").tiling().devices
+            == (cpu,) * 4)
 
 
 def test_two_ranks_equal_one_process_with_dropout():
