@@ -164,7 +164,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plain version on every tile window of the 2x1, 4x1 and 2x2 grids
    at 1248x384 in f32 and bf16 (phase 1's tolerances), then readings:
    B=1 forward ms at 1, 2 and 4 tiles in f32 and bf16, halo copies and
-   bytes a forward, K1 at a tile's shape beside its bound.
+   bytes a forward, K1 at a tile's shape beside its bound;
+14. the host paths, on 24 KITTI-shaped 1242x375 frames: (a) deterministic
+   training (``trainer.deterministic``, the train loop's default): the
+   train CLI at B=20, 1248x384, 4 steps straight against 2 steps and a
+   resume to 4, in f32 and in bf16 with ``--pallas_grads``, at one and at
+   two steps per dispatch: params and momentum equal bit for bit, K1
+   once a forward, K2 ten times a ``--pallas_grads`` step; (b) the native
+   loader (``native/dataloader``): the headers g++ finds and the build,
+   a bf16 ``--native_loader --device_assign --pallas_grads`` train run of
+   8 steps whose every batch the library loads (the Python decoder reads
+   no frame), its batches against the Python reader's on the same frames
+   (pixels within 5e-3, scales within 1e-6, GT equal), host ms a B=20
+   batch for both, alone and with 4 readers, and the eval CLI at B=8 with
+   and without ``--native_loader`` (K1 once a batch, im_read of each);
+   (c) a caffe pickle of seeded weights through ``squeezedet-torch-import``
+   into a port checkpoint, whose f32 B=2 forward on the card equals the
+   in-memory weights' bit for bit.  Then, not counted, (d) the cost of
+   deterministic mode in turns (off; on; on without the NaN fill of new
+   tensors): ms/step of the B=20 bf16 step at K=1 and of the train CLI at
+   K=8 ``--device_dataset --pallas_grads``.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
@@ -373,7 +392,8 @@ LEARN_STEPS, LEARN_MIN_MAP = 375, 0.75
 # differed by up to 9.7e-5 of the loss and 2.4e-3 of a leaf's update,
 # tiled or not, and were bit for bit equal under cudnn.deterministic, as
 # were the captured and eager runs (NVIDIA H100 80GB HBM3, 700.00 W), so
-# that comparison runs deterministic.  (f) K1 against its plain version
+# that comparison runs under trainer.deterministic, as the train loop
+# does.  (f) K1 against its plain version
 # (phase 1's tolerances) on every tile window of the SPATIAL_K1_GRIDS
 # tilings at 1248x384, at the tile's geometry, in f32 and bf16; then
 # readings at SPATIAL_READ_TILES height tiles.
@@ -386,6 +406,43 @@ SPATIAL_DEVICES, SPATIAL_EVAL_IMAGES, SPATIAL_TILES = 4, 6, 2
 SPATIAL_STEP_BATCH, SPATIAL_DP_BATCH = 2, 4
 SPATIAL_SCAN_K, SPATIAL_DISPATCHES = 4, 3
 SPATIAL_READ_TILES = (1, 2, 4)
+
+
+# phase 14: the host paths of the port.  (a) deterministic training: the
+# train CLI at B=20 1248x384 on DET_IMAGES KITTI-shaped frames, DET_STEPS
+# steps straight against DET_SPLIT steps plus a resume, in each DET_MODES
+# mode at each of DET_KS steps per dispatch, params and momentum bit for
+# bit; (b) the native loader: a NATIVE_ARGV train run it feeds, its
+# pixels within NATIVE_PIXEL_ATOL of the Python reader's (the tolerance of
+# tests/test_native_loader.py: the two subtract the means in float32 and
+# float64), and the eval CLI at NATIVE_EVAL_BATCH; (c) the checkpoint
+# import; (d) the cost of deterministic mode, COST_VARIANTS in turns: the
+# step over COST_STEPS (the first COST_WARMUP untimed) and the train CLI
+# at K=COST_CLI_K.
+DET_IMAGES, DET_BATCH, DET_STEPS, DET_SPLIT, DET_KS = 24, 20, 4, 2, (1, 2)
+DET_ARGV = ["--device", "cuda", "--image_width", "1248", "--image_height",
+            "384", "--batch_size", str(DET_BATCH), "--learning_rate",
+            "0.001", "--device_assign", "--uint8_ingest", "--device_augment",
+            "--checkpoint_step", str(DET_SPLIT), "--summary_step", "0"]
+DET_MODES = (("f32", ["--compute_dtype", "float32"]),
+             ("bf16 --pallas_grads", ["--compute_dtype", "bfloat16",
+                                      "--pallas_grads"]))
+NATIVE_ARGV = ["--device", "cuda", "--image_width", "1248",
+               "--image_height", "384", "--batch_size", str(DET_BATCH),
+               "--compute_dtype", "bfloat16", "--learning_rate", "0.001",
+               "--device_assign", "--native_loader", "--pallas_grads",
+               "--max_steps", "8", "--checkpoint_step", "1000",
+               "--summary_step", "0"]
+NATIVE_PIXEL_ATOL, NATIVE_EVAL_BATCH = 5e-3, 8
+COST_STEPS, COST_WARMUP, COST_CLI_K = 13, 3, 8
+COST_VARIANTS = ("off", "on", "on, no fill")
+COST_CLI_ARGV = ["--device", "cuda", "--image_width", "1248",
+                 "--image_height", "384", "--batch_size", str(DET_BATCH),
+                 "--compute_dtype", "bfloat16", "--learning_rate", "0.001",
+                 "--device_assign", "--uint8_ingest", "--device_dataset",
+                 "--pallas_grads", "--steps_per_dispatch", str(COST_CLI_K),
+                 "--max_steps", str(5 * COST_CLI_K), "--checkpoint_step",
+                 "1000", "--summary_step", "0"]
 
 
 def log(*a):
@@ -3344,7 +3401,8 @@ def phase_spatial_train(card, weights):
     from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.parallel import dryrun
     from squeezedet_torch.parallel.mesh import make_mesh_2d
-    from squeezedet_torch.trainer import (make_train_step_device,
+    from squeezedet_torch.trainer import (deterministic,
+                                          make_train_step_device,
                                           make_train_step_device_scan)
     t_phase = time.perf_counter()
     work = os.path.join(HERE, ".chipscratch", "spatial_train")
@@ -3413,32 +3471,30 @@ def phase_spatial_train(card, weights):
             [torch.stack([g[i] for g in gts]) for i in range(3)])
     tiling = make_mesh_2d(1, SPATIAL_TILES, "cuda").tiling()
     runs = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    for kind in ("eager", "graph"):
-        state = fresh_state(cfg, "cuda", weights)
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        before = ff.LAUNCHES, fg.LAUNCHES
-        t0 = time.perf_counter()
-        if kind == "eager":
-            one = make_train_step_device(state, uint8_ingest=True,
-                                         spatial=tiling)
-            losses = [torch.stack([torch.stack(list(one(
-                *(x[i].cuda() for x in d), generator=gen)))
-                for i in range(k)]) for d in inputs]
-        else:
-            scan = make_train_step_device_scan(state, k, uint8_ingest=True,
-                                               spatial=tiling)
-            losses = [torch.stack(list(scan(*d, generator=gen)), dim=1)
-                      for d in inputs]
-        torch.cuda.synchronize()
-        runs[kind] = dict(state=state, gen=gen,
-                          losses=torch.stack(losses).cpu(),
-                          s=time.perf_counter() - t0,
-                          k1=ff.LAUNCHES - before[0],
-                          k2=fg.LAUNCHES - before[1])
-        k1 += runs[kind]["k1"]
-    torch.backends.cudnn.deterministic = deterministic
+    with deterministic():  # as the train loop runs its steps
+        for kind in ("eager", "graph"):
+            state = fresh_state(cfg, "cuda", weights)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            before = ff.LAUNCHES, fg.LAUNCHES
+            t0 = time.perf_counter()
+            if kind == "eager":
+                one = make_train_step_device(state, uint8_ingest=True,
+                                             spatial=tiling)
+                losses = [torch.stack([torch.stack(list(one(
+                    *(x[i].cuda() for x in d), generator=gen)))
+                    for i in range(k)]) for d in inputs]
+            else:
+                scan = make_train_step_device_scan(
+                    state, k, uint8_ingest=True, spatial=tiling)
+                losses = [torch.stack(list(scan(*d, generator=gen)), dim=1)
+                          for d in inputs]
+            torch.cuda.synchronize()
+            runs[kind] = dict(state=state, gen=gen,
+                              losses=torch.stack(losses).cpu(),
+                              s=time.perf_counter() - t0,
+                              k1=ff.LAUNCHES - before[0],
+                              k2=fg.LAUNCHES - before[1])
+            k1 += runs[kind]["k1"]
     eager, graph = runs["eager"], runs["graph"]
     torch.testing.assert_close(graph["losses"], eager["losses"],
                                rtol=LOSS_RTOL, atol=0)
@@ -3450,7 +3506,7 @@ def phase_spatial_train(card, weights):
         {n: torch.zeros_like(t) for n, t in eager["state"].opt.trace.items()})
     steps = k * SPATIAL_DISPATCHES
     log("[spatial] K={} captured dispatches over (1, {}) tiles, f32 B={} "
-        "dropout {}, cudnn.deterministic: {} steps against the same steps "
+        "dropout {}, trainer.deterministic: {} steps against the same steps "
         "run eagerly: loss "
         "terms max abs diff {:.3e}; worst leaf ||diff||/||update||: params "
         "{:.3e} ({}), momentum {:.3e} ({}); K1 {} / {}, K2 {} / {} "
@@ -3568,7 +3624,410 @@ def spatial_readings(card, weights):
     return rows
 
 
+def probe_header(header):
+    """Whether g++ finds ``header`` on its include path."""
+    import shutil
+    import tempfile
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        return False
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "probe.cc")
+        with open(src, "w") as f:
+            f.write("#include <{}>\n".format(header))
+        return subprocess.run([cxx, "-fsyntax-only", src],
+                              capture_output=True).returncode == 0
+
+
+def _final_state(train_dir):
+    """(params, momentum) of a train dir's newest checkpoint."""
+    from squeezedet_torch.checkpoint.manager import (CheckpointManager,
+                                                     latest_step)
+    tree = CheckpointManager(train_dir)._load(latest_step(train_dir))
+    return tree["params"], tree["opt_state"]["momentum"]
+
+
+def _cli(argv, echo=False):
+    """``squeezedet_torch.train.main(argv)`` with its output captured
+    (logged when ``echo``); returns (state, output, K1, K2 launches)."""
+    import contextlib
+    import io
+
+    from squeezedet_torch import train as cli
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    launches = ff.LAUNCHES, fg.LAUNCHES
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state = cli.main(argv)
+    except BaseException:
+        log(buf.getvalue().rstrip())
+        raise
+    if echo:
+        log(buf.getvalue().rstrip())
+    return (state, buf.getvalue(), ff.LAUNCHES - launches[0],
+            fg.LAUNCHES - launches[1])
+
+
+def phase_determinism(card, root, work):
+    """Phase 14 (a): the train CLI straight for DET_STEPS steps against
+    DET_SPLIT steps plus a resume, in each DET_MODES mode at each
+    DET_KS steps per dispatch: params and momentum bit for bit.  Returns
+    the forwards (one K1 launch each) and K2 launches it ran."""
+    import torch
+    forwards = k2_total = 0
+    for k in DET_KS:
+        for name, extra in DET_MODES:
+            argv = DET_ARGV + ["--data_path", root, "--steps_per_dispatch",
+                               str(k)] + extra
+            runs, k1, k2, t0 = {}, 0, 0, time.perf_counter()
+            for tag, steps in (("straight", [DET_STEPS]),
+                               ("resumed", [DET_SPLIT, DET_STEPS])):
+                train_dir = os.path.join(work, "det_{}_{}_{}".format(
+                    k, name.split()[0], tag))
+                for stop in steps:
+                    state, out, a, b = _cli(argv + [
+                        "--train_dir", train_dir, "--max_steps", str(stop)])
+                    k1, k2 = k1 + a, k2 + b
+                    if state.step != stop:
+                        raise AssertionError("{} K={} {} ended at step "
+                                             "{}".format(name, k, tag,
+                                                         state.step))
+                if tag == "resumed" and \
+                        "Resumed from step {}".format(DET_SPLIT) not in out:
+                    raise AssertionError("{} K={}: no resume".format(name,
+                                                                     k))
+                runs[tag] = _final_state(train_dir)
+            differ = [n for want, got in zip(runs["straight"],
+                                             runs["resumed"])
+                      for n in want if not torch.equal(want[n], got[n])]
+            steps = 2 * DET_STEPS
+            per_step = K2_PER_STEP["1x1"] if "--pallas_grads" in extra \
+                else 0
+            log("[determinism] train CLI B={} 1248x384 {} K={}: {} steps "
+                "straight vs {} + a resume to {}: params and momentum "
+                "{}; K1 {} launches for {} forwards, K2 {} ({} a step); "
+                "{:.1f} s on {}".format(
+                    DET_BATCH, name, k, DET_STEPS, DET_SPLIT, DET_STEPS,
+                    "equal bit for bit" if not differ else
+                    "DIFFER in {} leaves ({})".format(len(differ),
+                                                      differ[:4]),
+                    k1, steps, k2, per_step, time.perf_counter() - t0, card))
+            if differ or k1 != steps or k2 != per_step * steps:
+                raise AssertionError("{} K={}: resumed run differs or "
+                                     "launches miscounted".format(name, k))
+            forwards, k2_total = forwards + steps, k2_total + k2
+    return forwards, k2_total
+
+
+def phase_native_loader(card, root, work):
+    """Phase 14 (b): the native loader's build and the header probe, a
+    train CLI run that it feeds, its batches against the Python reader's,
+    host ms a batch for both, and the eval CLI through it.  Returns the
+    forwards (K1) and K2 launches of its runs."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from squeezedet_torch import eval as eval_cli
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data import imdb as imdb_mod
+    from squeezedet_torch.data.kitti import Kitti
+    from squeezedet_torch.native import dataloader
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    probe = {h: probe_header(h) for h in ("opencv2/imgcodecs.hpp", "png.h",
+                                          "zlib.h")}
+    t0 = time.perf_counter()
+    dataloader.load()
+    log("[native] headers on this host: {}; loader built as the zlib PNG "
+        "decoder (no OpenCV) by g++ {} {} in {:.1f} s -> {}".format(
+            probe, " ".join(dataloader.CXX_FLAGS),
+            " ".join(dataloader.LIBS), time.perf_counter() - t0,
+            dataloader.library_path().name))
+
+    # the train CLI: the --device_assign f32 feed, read by the library
+    decodes = []
+    real_read = imdb_mod.read_frame
+
+    def counted(path):
+        decodes.append(path)
+        return real_read(path)
+    imdb_mod.read_frame = counted
+    before = dataloader.BATCHES
+    train_dir = os.path.join(work, "native_train")
+    try:
+        state, out, k1, k2 = _cli(NATIVE_ARGV + [
+            "--data_path", root, "--train_dir", train_dir], echo=True)
+    finally:
+        imdb_mod.read_frame = real_read
+    batches = dataloader.BATCHES - before
+    steps = state.step
+    log("[native] train CLI --native_loader --device_assign --pallas_grads "
+        "B={} bf16: {} steps, the loader loaded {} batches ({} prefetched "
+        "beyond the last step), the Python decoder {} frames; K1 {} "
+        "launches for {} forwards, K2 {} ({} a step)".format(
+            DET_BATCH, steps, batches, batches - steps, len(decodes), k1,
+            steps, k2, K2_PER_STEP["1x1"]))
+    if decodes or batches < steps or k1 != steps or \
+            k2 != K2_PER_STEP["1x1"] * steps:
+        raise AssertionError("the native loader did not feed every batch")
+
+    # a native batch against the Python reader's on the same frames
+    cfg = kitti_squeezedet_config().replace(batch_size=DET_BATCH)
+    py = Kitti("train", root, cfg, rng=np.random.RandomState(3))
+    nat = Kitti("train", root, cfg.replace(use_native_loader=True),
+                rng=np.random.RandomState(3))
+    worst = 0.0
+    for _ in range(2):  # augmented train batches
+        p = py.read_batch_raw_targets(max_gt=MAX_GT)
+        n = nat.read_batch_raw_targets(max_gt=MAX_GT)
+        if not all(np.array_equal(a, b) for a, b in zip(p[2:], n[2:])) or \
+                not np.allclose(p[1], n[1], rtol=1e-5, atol=1e-4):
+            raise AssertionError("native and Python GT targets differ")
+        worst = max(worst, float(np.abs(p[0] - n[0]).max()))
+    p_img, p_sc = py.read_image_batch(shuffle=False)
+    n_img, n_sc = nat.read_image_batch(shuffle=False)
+    worst = max(worst, max(float(np.abs(a - b).max())
+                           for a, b in zip(p_img, n_img)))
+    scale_err = float(np.abs(np.asarray(n_sc) / np.asarray(p_sc) - 1).max())
+    log("[native] B={} batches of 1242x375 PNGs at 1248x384, native vs the "
+        "Python reader (OpenCV): pixels max |diff| {:.3e} (tolerance "
+        "{:.0e}), scales max rel diff {:.3e} (1e-6), GT equal".format(
+            DET_BATCH, worst, NATIVE_PIXEL_ATOL, scale_err))
+    if worst > NATIVE_PIXEL_ATOL or scale_err > 1e-6:
+        raise AssertionError("native pixels or scales off the Python "
+                             "reader's")
+
+    # host ms a batch: one batch alone, and 4 readers in parallel (the
+    # prefetch loader's workers)
+    def per_batch(db, threads, n):
+        t = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda _: db.read_batch_raw_targets(
+                max_gt=MAX_GT), range(n)))
+        return (time.perf_counter() - t) * 1e3 / n
+    ms = {}
+    for name, db in (("python", py), ("native", nat), ("native", nat),
+                     ("python", py)):
+        ms.setdefault(name, []).append((per_batch(db, 1, 2),
+                                        per_batch(db, 4, 8)))
+    log("[native] host ms a B={} 1242x375 -> 1248x384 f32 augmented batch "
+        "(python, native, native, python turns): Python reader (OpenCV) "
+        "{} alone / {} with 4 readers; native loader (4 threads a batch) "
+        "{} alone / {} with 4 readers; on the host of {}".format(
+            DET_BATCH, [round(a, 3) for a, _ in ms["python"]],
+            [round(b, 3) for _, b in ms["python"]],
+            [round(a, 3) for a, _ in ms["native"]],
+            [round(b, 3) for _, b in ms["native"]], card))
+
+    # the eval CLI at B=8, native against the Python reader
+    forwards, reads = steps, {}
+    for name, extra in (("python", []), ("native", ["--native_loader"])):
+        launches = ff.LAUNCHES, fg.LAUNCHES
+        _, eval_out = _logged(eval_cli.main, [
+            "--device", "cuda", "--data_path", root, "--image_set",
+            "train", "--checkpoint_path", train_dir, "--eval_dir",
+            os.path.join(work, "eval_" + name), "--run_once",
+            "--eval_batch_size", str(NATIVE_EVAL_BATCH), "--skip_analysis",
+            "--image_width", "1248", "--image_height", "384"] + extra)
+        batches = -(-DET_IMAGES // NATIVE_EVAL_BATCH)
+        reads[name] = float(re.findall(r"im_read: (\S+)s", eval_out)[-1])
+        k1 = ff.LAUNCHES - launches[0]
+        mean_ap = float(re.findall(r"Mean average precision: (\S+)",
+                                   eval_out)[-1])
+        if k1 != batches or fg.LAUNCHES != launches[1] or \
+                not np.isfinite(mean_ap):
+            raise AssertionError("eval {}: K1 {} for {} batches, mAP "
+                                 "{}".format(name, k1, batches, mean_ap))
+        forwards += batches
+    log("[native] eval CLI B={} on {} frames: im_read {:.3f} ms a batch "
+        "with --native_loader against {:.3f} with the Python reader; K1 "
+        "once a batch".format(NATIVE_EVAL_BATCH, DET_IMAGES,
+                              reads["native"] * 1e3, reads["python"] * 1e3))
+    return forwards, k2
+
+
+def phase_import(card, work):
+    """Phase 14 (c): a caffe pickle of seeded weights through
+    ``squeezedet-torch-import`` into a port checkpoint; the card's forward
+    from it against the forward from the same weights in memory.  Returns
+    the forwards (K1 launches)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from squeezedet_torch import trainer
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.demo import load_params
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.tools import import_checkpoint
+    from squeezedet_torch.weights import pickle_from_jax_params, to_jax_params
+    cfg = kitti_squeezedet_config()
+    weights = get_model("squeezeDet", cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(14)
+                        ).backbone.state_dict()
+    pkl = os.path.join(work, "weights.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(pickle_from_jax_params(to_jax_params(weights)), f)
+    ckpt = os.path.join(work, "imported")
+    _logged(import_checkpoint.main, ["--checkpoint", pkl, "--out_dir", ckpt,
+                                     "--step", "87000"])
+    u8 = torch.from_numpy(np.random.RandomState(14).randint(
+        0, 256, (2, cfg.image_height, cfg.image_width, 3),
+        dtype=np.uint8)).cuda()
+    memory = get_model("squeezeDet", cfg, device="cuda")
+    memory.backbone.load_state_dict(weights)
+    imported, _ = _logged(load_params, get_model("squeezeDet", cfg,
+                                                 device="cuda"), ckpt)
+    before = ff.LAUNCHES
+    with trainer.deterministic():
+        got, want = imported.predict_raw(u8), memory.predict_raw(u8)
+    torch.cuda.synchronize()
+    k1 = ff.LAUNCHES - before
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log("[import] caffe pickle -> squeezedet-torch-import -> {}: the f32 "
+        "B=2 1248x384 forward on the card from it {} the in-memory "
+        "weights' forward; K1 {} launches for 2 forwards".format(
+            os.path.basename(ckpt) + "/model.ckpt-87000",
+            "equals" if same else "DIFFERS from", k1))
+    if not same or k1 != 2:
+        raise AssertionError("the imported checkpoint's forward differs")
+    return 2
+
+
+def determinism_cost(card, root, work):
+    """Phase 14 (d), not counted: the cost of deterministic mode, in turns
+    over COST_VARIANTS (off; on; on without the NaN fill of new tensors,
+    ``torch.utils.deterministic.fill_uninitialized_memory``): the B=20
+    bf16 step at K=1 and the train CLI at K=8 --device_dataset
+    --pallas_grads.  Returns {variant: [ms/step]} of each."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    import torch.utils.deterministic as det_mode
+
+    from squeezedet_torch import trainer
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.models import layers as L
+    decorated = trainer.train
+
+    @contextlib.contextmanager
+    def variant(name):
+        """The variant's mode around a step, and the loop the CLI runs."""
+        fill = det_mode.fill_uninitialized_memory
+        det_mode.fill_uninitialized_memory = name == "on"
+        trainer.train = decorated.__wrapped__ if name == "off" else decorated
+        try:
+            with contextlib.nullcontext() if name == "off" else \
+                    trainer.deterministic():
+                yield
+        finally:
+            det_mode.fill_uninitialized_memory = fill
+            trainer.train = decorated
+
+    cfg = kitti_squeezedet_config().replace(compute_dtype="bfloat16",
+                                            learning_rate=1e-3)
+    weights = get_model("squeezeDet", cfg, device="cpu").backbone.state_dict()
+    rs = np.random.RandomState(15)
+    batches = [[torch.from_numpy(rs.randint(
+        0, 256, (DET_BATCH, 384, 1248, 3), dtype=np.uint8)).cuda()] +
+        [t.cuda() for t in gt_batch(rs, DET_BATCH, cfg)]
+        for _ in range(COST_STEPS)]
+    turns = COST_VARIANTS + COST_VARIANTS[::-1]
+    step_ms = {name: [] for name in COST_VARIANTS}
+    L.set_filter_grad("1x1")
+    try:
+        for name in turns:
+            state = fresh_state(cfg, "cuda", weights)
+            step = trainer.make_train_step_device(state, uint8_ingest=True)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            with variant(name):
+                for b in batches[:COST_WARMUP]:
+                    step(*b, generator=gen)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches[COST_WARMUP:]:
+                    step(*b, generator=gen)
+                torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3 /
+                                 (COST_STEPS - COST_WARMUP))
+    finally:
+        L.set_filter_grad(False)
+    log("[cost] B={} bf16 step at K=1 (make_train_step_device, uint8 "
+        "ingest, mode 1x1, dropout on), ms/step over {} steps, in turns "
+        "{}: {}; on {}".format(
+            DET_BATCH, COST_STEPS - COST_WARMUP, turns,
+            {n: [round(v, 3) for v in ms] for n, ms in step_ms.items()},
+            card))
+
+    # the train CLI at K=8, its dispatches timed
+    calls = []
+    real_scan = trainer.make_train_step_device_scan
+
+    def timed_scan(*a, **k):
+        fn = real_scan(*a, **k)
+
+        def call(*x, **y):
+            calls.append(time.perf_counter())
+            return fn(*x, **y)
+        return call
+    cli_ms = {name: [] for name in COST_VARIANTS}
+    trainer.make_train_step_device_scan = timed_scan
+    try:
+        for i, name in enumerate(turns):
+            calls.clear()
+            with variant(name):
+                _cli(COST_CLI_ARGV + ["--data_path", root, "--train_dir",
+                                      os.path.join(work, "cost{}".format(i))])
+            gaps = np.diff(calls[2:]) * 1e3 / COST_CLI_K
+            cli_ms[name].append(float(gaps.mean()))
+    finally:
+        trainer.make_train_step_device_scan = real_scan
+    log("[cost] train CLI B={} bf16 --device_dataset --pallas_grads at "
+        "K={}, ms/step over the dispatches after the capture, in turns "
+        "{}: {}; on {}".format(
+            DET_BATCH, COST_CLI_K, turns,
+            {n: [round(v, 3) for v in ms] for n, ms in cli_ms.items()},
+            card))
+    return step_ms, cli_ms
+
+
+def phase_host_paths(card):
+    """Phase 14: deterministic training, the native loader and the
+    checkpoint import, on one fixture.  Returns (forwards, K2 launches)
+    of the counted runs; the cost readings follow, not counted."""
+    import shutil
+
+    from squeezedet_torch.data.synth import write_kitti_fixture
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, ".chipscratch", "host_paths")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    write_kitti_fixture(root, DET_IMAGES, LOOP_FRAME, seed=14)
+    try:
+        forwards, k2 = phase_determinism(card, root, work)
+        f, k = phase_native_loader(card, root, work)
+        forwards, k2 = forwards + f, k2 + k
+        forwards += phase_import(card, work)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    log("[host] phase 14 (a)-(c) in {:.1f} s on {}".format(
+        time.perf_counter() - t_phase, card))
+    return forwards, k2, work, root
+
+
 def main():
+    # cuBLAS' deterministic workspace, before anything touches CUDA (the
+    # train paths run under trainer.deterministic, as the train CLI sets)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import_port()
     import torch
     card = phase_device()
@@ -3710,6 +4169,23 @@ def main():
     k1_tile_err = check_k1_tiles(card)
     spatial_readings(card, weights)
 
+    # the host paths (deterministic resume, native loader, import):
+    # counts from 0 just before them; the cost readings after, uncounted
+    import shutil
+    ff.LAUNCHES = fg.LAUNCHES = 0
+    forwards, want_k2, work, root = phase_host_paths(card)
+    host = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    if host["k1"] != forwards or host["k2"] != want_k2:
+        raise AssertionError("host paths: K1 launches {k1} for {0} "
+                             "forwards, K2 launches {k2}, expected {1}".format(
+                                 forwards, want_k2, **host))
+    log("[host] path: K1 launches {}, K2 launches {}".format(host["k1"],
+                                                             host["k2"]))
+    try:
+        determinism_cost(card, root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
@@ -3717,7 +4193,7 @@ def main():
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
         + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"]
-        + spatial["k1"],
+        + spatial["k1"] + host["k1"],
         "tensor_core_instructions": tc["conv1_pool1"],
         **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err)),
     }, {
@@ -3726,7 +4202,7 @@ def main():
         "source": "squeezedet_torch/csrc/filter_grad.cu",
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
         "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"]
-        + graph["k2"] + spatial["k2"],
+        + graph["k2"] + spatial["k2"] + host["k2"],
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "backbone_shapes": k2_rows,

@@ -32,8 +32,13 @@ so that each device gathers only from its own shard
 (:meth:`Imdb.load_canvas_shards`, and eval's
 :meth:`Imdb.eval_shard_batches`).
 
-Not ported here, raising ``NotImplementedError``: the C++ native loader
-(ROADMAP Queue 1 item 17).
+With ``mc.use_native_loader`` (``--native_loader``) the f32 host-resize
+readers, eval's :meth:`Imdb.read_image_batch` and
+:meth:`Imdb.read_batch_raw_targets` without ``uint8_images``, load their
+pixels through the C++ loader (``native/dataloader.py``), the augment
+decisions still drawn here in the reference's RNG order.  The loader is
+never skipped silently: where it cannot build or decode a frame, the
+read raises.
 """
 
 from __future__ import annotations
@@ -111,10 +116,6 @@ class Imdb:
 
     def __init__(self, name: str, mc: ModelConfig,
                  rng: Optional[np.random.RandomState] = None):
-        if getattr(mc, "use_native_loader", False):
-            raise NotImplementedError(
-                "the C++ native loader is not ported: ROADMAP Queue 1 "
-                "item 17")
         self._name = name
         self._classes: Sequence[str] = []
         self._image_set = ""
@@ -551,16 +552,24 @@ class Imdb:
 
         Returns (images, scales): a list of [H, W, 3] f32 mean-subtracted
         arrays at model resolution and the per-image (x_scale, y_scale).
-        Needs cv2 for ``cv2.resize``; :meth:`read_image_rows` (eval's
-        ``--device_dataset``) does not.
+        Needs cv2 for ``cv2.resize``, unless the native loader reads the
+        batch; :meth:`read_image_rows` (eval's ``--device_dataset``) does
+        not.
         """
+        mc = self.mc
+        if mc.use_native_loader:
+            from squeezedet_torch.native import dataloader
+            batch_idx = self._next_batch_idx(shuffle)
+            images, scales = dataloader.load_image_batch(
+                [self._image_path_at(i) for i in batch_idx], mc.image_width,
+                mc.image_height, mc.bgr_means, mc.num_thread)
+            return list(images), [tuple(map(float, s)) for s in scales]
         cv2 = _opencv()
         if cv2 is None:
             raise ImportError(
                 "read_image_batch resizes with OpenCV (cv2), which does not "
                 "import here; evaluate with --device_dataset, whose reader "
                 "(read_image_rows) resizes on the device and needs no cv2")
-        mc = self.mc
         batch_idx = self._next_batch_idx(shuffle)
         images, scales = [], []
         for i in batch_idx:
@@ -747,9 +756,9 @@ class Imdb:
 
         Returns (images [B, H, W, 3] f32 mean-subtracted, or uint8 with
         ``uint8_images``, gt_boxes [B, max_gt, 4] f32, gt_labels
-        [B, max_gt] i32, num_gt [B] i32).
+        [B, max_gt] i32, num_gt [B] i32).  The f32 pixels come from the
+        native loader under ``mc.use_native_loader``.
         """
-        import cv2
         mc = self.mc
         if plan is None:
             plan = self.draw_batch_plan(shuffle)
@@ -759,6 +768,10 @@ class Imdb:
         gt_out = np.zeros((b, max_gt, 4), np.float32)
         labels_out = np.zeros((b, max_gt), np.int32)
         num_gt = np.zeros((b,), np.int32)
+        if mc.use_native_loader and not uint8_images:
+            return self._read_raw_targets_native(plan, max_gt, gt_out,
+                                                 labels_out, num_gt)
+        import cv2
         images = np.zeros((b, mc.image_height, mc.image_width, 3),
                           np.uint8 if uint8_images else np.float32)
         for bi, idx in enumerate(batch_idx):
@@ -780,6 +793,37 @@ class Imdb:
             gt_bbox[:, 1::2] *= mc.image_height / orig_h
             self._padded_gt(bi, idx, labels, gt_bbox, max_gt, gt_out,
                             labels_out, num_gt)
+        return images, gt_out, labels_out, num_gt
+
+    def _read_raw_targets_native(self, plan, max_gt, gt_out, labels_out,
+                                 num_gt):
+        """:meth:`read_batch_raw_targets` through the native loader: the
+        plan's augment decisions (drawn in the reference's order: dy, dx,
+        flip) and the GT box math here, the pixel work in the C++
+        threads."""
+        from squeezedet_torch.native import dataloader
+        mc = self.mc
+        paths, drifts, flips = [], [], []
+        for bi, idx in enumerate(plan.batch_idx):
+            paths.append(self._image_path_at(idx))
+            orig_w, orig_h = (float(v) for v in self._image_size(idx))
+            labels = [box[4] for box in self._rois[idx][:]]
+            gt_bbox = self._gt_boxes_for(idx)
+            dxdy, flip = (0, 0), False
+            if mc.data_augmentation:
+                _, gt_bbox, orig_w, orig_h, dxdy, flip = self._augment(
+                    gt_bbox, orig_w, orig_h, im=None,
+                    plan_aug=plan.augment[bi])
+            drifts.append(dxdy)
+            flips.append(flip)
+            gt_bbox[:, 0::2] *= mc.image_width / orig_w
+            gt_bbox[:, 1::2] *= mc.image_height / orig_h
+            self._padded_gt(bi, idx, labels, gt_bbox, max_gt, gt_out,
+                            labels_out, num_gt)
+        images, _ = dataloader.load_train_batch(
+            paths, mc.image_width, mc.image_height, mc.bgr_means,
+            np.asarray(drifts, np.float32), np.asarray(flips, np.uint8),
+            mc.num_thread)
         return images, gt_out, labels_out, num_gt
 
     def canvas_size(self) -> Tuple[int, int]:

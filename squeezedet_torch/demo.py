@@ -74,8 +74,8 @@ def load_params(det, checkpoint: str):
     ``""`` or ``none``: the seeded random weights ``det`` was built with
     (a pipeline and timing smoke mode).  A directory: the params of its
     newest ``model.ckpt-<step>`` (never the optimizer state).  Else a
-    caffe-layout pickle, through ``Detector.load_pretrained``; a TF1
-    checkpoint raises (ROADMAP Queue 1 item 18)."""
+    caffe-layout pickle or a TF1 checkpoint (``checkpoint/importer.py``),
+    through ``Detector.load_pretrained``."""
     from squeezedet_torch.checkpoint.importer import load_pretrained
     from squeezedet_torch.checkpoint.manager import (CheckpointManager,
                                                      latest_step)

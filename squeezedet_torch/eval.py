@@ -27,8 +27,9 @@ instead, as the JAX eval does: float over ``N x 1`` height tiles, int8
 over the JAX package's ``spatial_factors`` grid (single-device, with
 its message, when that grid is 1 x 1); the backbone runs over the tiles
 with halo exchanges and the head is gathered on ``--device``
-(``models/halo.py``).  Flags whose port is still to come raise, naming
-the ROADMAP item that brings each.
+(``models/halo.py``).  ``--native_loader`` reads each batch through the
+C++ loader (``native/dataloader.py``), built at start.  Flags that stay
+out of the port raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -74,7 +75,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument('--image_height', type=int, default=0,
                    help='Override input height (0 = model default).')
     p.add_argument('--native_loader', action='store_true',
-                   help='The C++ batch loader (not ported yet).')
+                   help='Use the C++ threaded batch loader for image IO '
+                        '(builds squeezedet_torch/native/dataloader on '
+                        'first use); without --device_dataset.')
     p.add_argument('--image_cache_mb', type=int, default=0,
                    help='Decoded-image LRU budget in MiB (0 = off); '
                         'repeated eval polls skip the image decode.')
@@ -111,10 +114,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args) -> None:
-    """Flags of the JAX CLI whose port is still to come, or stays out."""
-    if args.native_loader:
-        raise SystemExit('--native_loader is not ported yet: the C++ '
-                         'loader is ROADMAP Queue 1 item 17')
+    """Flags of the JAX CLI that stay out of the port."""
     if args.compilation_cache:
         raise SystemExit('--compilation_cache is an XLA mechanism that '
                          'stays out of the port (ROADMAP Queue 1 item 14)')
@@ -462,6 +462,17 @@ def main(argv=None):
         cfg = cfg.replace(compute_dtype=args.compute_dtype)
     if args.image_cache_mb:
         cfg = cfg.replace(image_cache_mb=args.image_cache_mb)
+    if args.native_loader:
+        from squeezedet_torch.native import dataloader
+        try:
+            dataloader.load()
+        except RuntimeError as e:
+            raise SystemExit('--native_loader: {}'.format(e))
+        if args.device_dataset:
+            print('WARNING: --native_loader reads the host-resized feed; '
+                  '--device_dataset resizes on the device and reads no '
+                  'pixels per poll.')
+        cfg = cfg.replace(use_native_loader=True)
     det = get_model(args.net, cfg, device=device)
     imdb = imdb_for_dataset(args.dataset, args.image_set, args.data_path,
                             cfg, year=args.year)

@@ -65,14 +65,16 @@ def one_step(case: dict, dp=None) -> dict:
     the global loss terms, the updated parameters and momentum (on the
     CPU), this process's K1 and K2 launches and the group's backend.
     A case with ``spatial`` S > 1 runs its forward over S height tiles
-    (``make_mesh_2d(world, S).tiling(rank)``)."""
+    (``make_mesh_2d(world, S).tiling(rank)``).  The step runs under
+    ``trainer.deterministic``."""
     from squeezedet_torch.models import get_model
     from squeezedet_torch.models import layers as L
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.optim import build_optimizer
     from squeezedet_torch.parallel.mesh import make_mesh_2d
-    from squeezedet_torch.trainer import TrainState, make_train_step_device
+    from squeezedet_torch.trainer import (TrainState, deterministic,
+                                          make_train_step_device)
 
     device = dp.device if dp is not None else torch.device(case["device"])
     if device.type == "cuda":  # f32 convs in f32, on both sides
@@ -100,7 +102,8 @@ def one_step(case: dict, dp=None) -> dict:
                       else False)
     launches = ff.LAUNCHES, fg.LAUNCHES
     try:
-        lb = step(*batch, generator=generator)
+        with deterministic():  # as the train loop runs its steps
+            lb = step(*batch, generator=generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:

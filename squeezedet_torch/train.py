@@ -11,8 +11,12 @@ snapshots, ``model_metrics.txt`` and (when ``tensorboard`` imports)
 event files there.  ``--steps_per_dispatch K`` runs K steps per host
 dispatch, one captured CUDA graph replay on the card;
 ``--activation_summary`` adds activation summaries at the histogram
-steps.  ``--native_loader`` (still to come) and the XLA/JAX-only flags
-raise, naming their ROADMAP item.
+steps.  ``--native_loader`` reads the f32 host-resize feed
+(``--device_assign`` without ``--uint8_ingest``, ``--device_augment``
+or ``--device_dataset``) through the C++ loader, built at start; the
+XLA/JAX-only flags raise, naming their ROADMAP item.  Training runs
+deterministically (``trainer.deterministic``), so a resumed run equals
+a straight one bit for bit.
 
 Data parallelism, one process (rank) per device:
 
@@ -112,7 +116,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument('--no_augmentation', action='store_true',
                    help='Disable drift/flip data augmentation.')
     p.add_argument('--native_loader', action='store_true',
-                   help='The C++ batch loader (not ported yet).')
+                   help='Use the C++ threaded batch loader for image IO '
+                        '(builds squeezedet_torch/native/dataloader on '
+                        'first use); it reads the --device_assign feed '
+                        'of f32 host-resized images.')
     p.add_argument('--image_cache_mb', type=int, default=0,
                    help='Keep up to this many MiB of decoded images in a '
                         'host-RAM LRU (0 = off).')
@@ -159,10 +166,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args) -> None:
-    """Flags of the JAX CLI whose port is still to come, or stays out."""
-    if args.native_loader:
-        raise SystemExit('--native_loader is not ported yet: the C++ '
-                         'loader is ROADMAP Queue 1 item 17')
+    """Flags of the JAX CLI that stay out of the port."""
     if args.compilation_cache or args.rng_impl:
         raise SystemExit('--compilation_cache and --rng_impl are XLA/JAX '
                          'mechanisms that stay out of the port (ROADMAP '
@@ -213,7 +217,26 @@ def config_from_args(args):
         cfg = cfg.replace(image_cache_mb=args.image_cache_mb)
     if args.compute_dtype:
         cfg = cfg.replace(compute_dtype=args.compute_dtype)
+    if args.native_loader:
+        cfg = cfg.replace(use_native_loader=True)
     return cfg
+
+
+def build_native_loader(args, primary: bool = True) -> None:
+    """Build (or find) the native loader for ``--native_loader``, exiting
+    with the build's error where it cannot be built; warn when the feed
+    the flags select is not one the loader reads."""
+    from squeezedet_torch.native import dataloader
+    try:
+        dataloader.load()
+    except RuntimeError as e:
+        raise SystemExit('--native_loader: {}'.format(e))
+    served = args.device_assign and not (
+        args.uint8_ingest or args.device_augment or args.device_dataset)
+    if not served and primary:
+        print('WARNING: --native_loader reads the f32 host-resized feed of '
+              '--device_assign without --uint8_ingest, --device_augment or '
+              '--device_dataset; this run\'s feed is read in Python.')
 
 
 def resolve_num_devices(args, batch_size: int) -> int:
@@ -231,9 +254,15 @@ def resolve_num_devices(args, batch_size: int) -> int:
 
 
 def main(argv=None):
-    """Train as the flags say; returns the final TrainState (None when
-    the ranks ran in spawned processes)."""
+    """Train as the flags say, deterministically (``trainer.
+    deterministic``); returns the final TrainState (None when the ranks
+    ran in spawned processes)."""
     import sys
+
+    from squeezedet_torch.trainer import CUBLAS_WORKSPACE_CONFIG
+
+    # before anything touches CUDA; spawned ranks inherit it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
 
     from squeezedet_torch.parallel import distributed
     from squeezedet_torch.utils.util import resolve_device
@@ -281,6 +310,8 @@ def _train(args, dp):
     device = dp.device if dp is not None else \
         resolve_device(args.device, "training")
     cfg = config_from_args(args)
+    if args.native_loader:
+        build_native_loader(args, distributed.is_primary_process())
     max_steps = 1000000 if args.max_steps is None else args.max_steps
     det = get_model(args.net, cfg, device=device,
                     generator=torch.Generator().manual_seed(args.seed))

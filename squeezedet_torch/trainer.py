@@ -42,10 +42,18 @@ the buffers of one captured CUDA graph that holds all K steps (K1 and K2
 launches, the dropout draws and, on an NCCL rank, the all-reduces
 included) and replays it once.  ``rng_impl`` stays out (ROADMAP Queue 1
 item 14).
+
+Determinism: :func:`train` runs under :func:`deterministic` (cuDNN's
+deterministic algorithms, no autotuning, and
+``torch.use_deterministic_algorithms``), so a run resumed from a
+checkpoint equals a straight run bit for bit on the card as on the CPU,
+as the JAX package's resume does; an op with no deterministic CUDA
+implementation raises instead of drifting.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -62,6 +70,33 @@ from squeezedet_torch.models import Detector
 from squeezedet_torch.models import layers as L
 from squeezedet_torch.models.skeleton import LossBreakdown, Targets
 from squeezedet_torch.optim import Momentum, build_optimizer, learning_rate_at
+
+# cuBLAS' fixed workspace for deterministic results, set before the first
+# cuBLAS handle (``train.main`` sets it when the environment does not)
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run the enclosed work with deterministic kernels: cuDNN's
+    deterministic algorithms without autotuning, and
+    ``torch.use_deterministic_algorithms(True)``, under which an op with
+    no deterministic implementation raises.  The previous settings come
+    back on exit.  On the card cuBLAS also needs ``CUBLAS_WORKSPACE_CONFIG``
+    in the environment before its first handle, or its first call raises.
+    Usable as a decorator."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev[:2]
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+
 
 # the largest uint8 canvas stack --device_dataset keeps on the device
 DEVICE_DATASET_MAX_GIB = 12.0
@@ -578,6 +613,7 @@ def _report_ranks(dp, before, forwards: int, starts, sizes) -> None:
             flush=True)
 
 
+@deterministic()
 def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
           summary_step: int = 10, checkpoint_step: int = 1000,
           seed: int = 0, dp=None, resume: bool = True,
@@ -594,7 +630,8 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
           max_to_keep: int = 5,
           device_augment: bool = False,
           device_dataset: bool = False) -> TrainState:
-    """The train loop, on ``det``'s device, updating ``det`` in place.
+    """The train loop, on ``det``'s device, updating ``det`` in place,
+    under :func:`deterministic` (the caller's settings come back after).
 
     ``pretrained`` (caffe-pickle layout) or the config's
     ``pretrained_model_path`` load before training; a checkpoint in

@@ -204,7 +204,9 @@ def test_caffe_pickle_loads_onto_the_detector(tmp_path, capsys):
     assert "Cannot find conv12" in out and "conv13" in out
     assert torch.equal(fresh.backbone.conv12.weight, before)
     assert torch.equal(fresh.backbone.conv1.weight, src.backbone.conv1.weight)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # a TF1 checkpoint path goes to the TF1 reader (its reads:
+    # test_torch_tf1_checkpoint.py), which names the missing bundle
+    with pytest.raises(FileNotFoundError, match="model.ckpt-87000.index"):
         load_pretrained(str(tmp_path / "model.ckpt-87000"))
     assert from_jax_params(to_jax_params(src.backbone.state_dict())).keys() \
         == src.backbone.state_dict().keys()

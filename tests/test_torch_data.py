@@ -238,11 +238,18 @@ def test_prefetch_loader_stream_and_exact_resume(kitti_root, mode):
 
 
 def test_unported_parts_name_their_roadmap_item(kitti_root):
-    """The native loader names its item; the sharded sampler is ported
-    (its plans against the JAX package's: test_torch_parallel.py)."""
+    """Nothing of the data layer is refused any more: the native loader
+    reads eval's batches (its parity: test_torch_native_loader.py) and
+    the sharded sampler is ported (its plans against the JAX package's:
+    test_torch_parallel.py)."""
+    from squeezedet_torch.native import dataloader
     port, _ = _pair(kitti_root, 0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Kitti("train", kitti_root, port.mc.replace(use_native_loader=True))
+    native = Kitti("train", kitti_root,
+                   port.mc.replace(use_native_loader=True))
+    before = dataloader.BATCHES
+    images, scales = native.read_image_batch(shuffle=False)
+    assert dataloader.BATCHES == before + 1
+    assert len(images) == len(scales) == native.mc.batch_size
     port.shard_data(1)  # one shard is the unsharded sampler
     assert port.num_data_shards == 1
     assert isinstance(imdb_for_dataset("KITTI", "train", kitti_root,

@@ -169,7 +169,9 @@ def test_load_params_from_each_source(params, tmp_path, capsys):
     os.makedirs(str(tmp_path / "empty"))
     with pytest.raises(FileNotFoundError):
         demo.load_params(_detector(), str(tmp_path / "empty"))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # a TF1 checkpoint path goes to the TF1 reader (its reads:
+    # test_torch_tf1_checkpoint.py), which names the missing bundle
+    with pytest.raises(FileNotFoundError, match="model.ckpt-100.index"):
         demo.load_params(_detector(), str(tmp_path / "model.ckpt-100"))
 
 

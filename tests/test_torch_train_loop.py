@@ -278,16 +278,18 @@ def test_recipe_batch_needs_max_steps():
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--num_devices", "2", "--batch_size", "3"], "not divisible"),
-    (["--native_loader"], "ROADMAP"), (["--compilation_cache", "x"],
-                                       "ROADMAP"),
-    (["--rng_impl", "rbg"], "ROADMAP")])
+    pytest.param(["--num_devices", "2", "--batch_size", "3"],
+                 "not divisible", id="flag0-not divisible"),
+    pytest.param(["--compilation_cache", "x"], "ROADMAP",
+                 id="flag2-ROADMAP"),
+    pytest.param(["--rng_impl", "rbg"], "ROADMAP", id="flag3-ROADMAP")])
 def test_unported_flags_name_their_roadmap_item(flag, match, tmp_path):
-    """Flags still to come, or left out, name their ROADMAP item;
-    --num_devices is ported and refuses a batch that does not split over
-    the ranks (its runs: test_torch_multiproc.py).  --steps_per_dispatch
-    and --activation_summary are ported (test_torch_dispatch.py,
-    test_torch_activation_summary.py)."""
+    """Flags left out name their ROADMAP item; --num_devices is ported
+    and refuses a batch that does not split over the ranks (its runs:
+    test_torch_multiproc.py).  --steps_per_dispatch,
+    --activation_summary and --native_loader are ported
+    (test_torch_dispatch.py, test_torch_activation_summary.py,
+    test_torch_native_loader.py)."""
     with pytest.raises(SystemExit, match=match):
         port_cli.main(["--device", "cpu", "--train_dir", str(tmp_path)]
                       + flag)
