@@ -104,7 +104,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    DP_STEP_TOL of its update's norm); (b) the train CLI with ``--num_devices
    2`` (two gloo ranks on the card) at global B=20 in bf16 with
    ``--device_assign --uint8_ingest --device_augment``: 10 steps and a
-   checkpoint, then 10 sharded ``--device_dataset`` steps, then one NCCL
+   checkpoint, then 10 sharded ``--device_dataset`` steps, then the same
+   two ranks at ``--steps_per_dispatch 8`` (48 steps, each rank's K steps
+   a chain of CUDA graphs split at its host all-reduces; ms/step beside
+   the K=1 run's), then one NCCL
    rank (a torchrun environment) with ``--pallas_grads``: finite logged
    loss, one events file, one sampler file per rank, each rank's K1
    launches equal to its forwards and K2 0 (10 a step under
@@ -125,7 +128,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    generator's state; the K1 and K2 launches of the last dispatch counted
    by ``torch.profiler``'s kernel rows (K1 K times, K2 10K times) and by
    the port's counters, with each dispatch's ms and the device's idle
-   share, eager against replayed; (b) the train CLI at B=20 bf16
+   share, eager against replayed; then the same dispatches over two gloo
+   ranks sharing the card, each rank's K steps captured as a chain of
+   graphs split at its host all-reduces, against its steps one at a
+   time, bit for bit (K1 once a forward, K2 0); (b) the train CLI at B=20 bf16
    ``--device_dataset --pallas_grads``, ms/step at K=1 and at
    ``--steps_per_dispatch 8`` (eight dispatches and an odd tail), then a
    K=8 run with a checkpoint every 8 steps to step 21 (checkpoints at
@@ -160,7 +166,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (dropout on) over (1, 2) tiles at B=2, the data x spatial step of two
    gloo ranks with 2 tiles each at global B=4, against the unsharded
    one-process step, and K=4 captured dispatches over the tiles against
-   their eager steps (K1 once per tile a forward, K2 0); (f) K1 against
+   their eager steps (K1 once per tile a forward, K2 0), in one process
+   and over two gloo ranks of 2 tiles each (a chain of graphs split at
+   the host all-reduces, bit for bit); (f) K1 against
    its plain version on every tile window of the 2x1, 4x1 and 2x2 grids
    at 1248x384 in f32 and bf16 (phase 1's tolerances), then readings:
    B=1 forward ms at 1, 2 and 4 tiles in f32 and bf16, halo copies and
@@ -341,6 +349,10 @@ INT8_HYBRID_START, EXPORT_BATCH, INT8_EVAL_CALIB = "fire2", 8, 2
 DP_RANKS, DP_STEP_BATCH, DP_CLI_STEPS, DP_IMAGES = 2, 4, 10, 24
 DP_STEP_TOL = 2e-3
 DP_PROFILE_STEPS, DP_EVAL_BATCH = "7:9", 8
+# the two gloo ranks' train CLI at DP_SCAN_K steps per dispatch beside its
+# K=1 --device_dataset run: DP_SCAN_STEPS steps, six dispatches (eager,
+# captured, four replayed; the median step is read from the last three)
+DP_SCAN_K, DP_SCAN_STEPS = 8, 48
 # phase 12: K steps per dispatch as one captured CUDA graph.  (a) K steps,
 # the batch, the canvases they gather from and the dispatches (the first
 # runs eagerly, the second captures and replays, the rest replay), with a
@@ -356,6 +368,10 @@ DP_PROFILE_STEPS, DP_EVAL_BATCH = "7:9", 8
 # this fixture (lowest 0.829, PARITY.md).
 GRAPH_K, GRAPH_BATCH, GRAPH_CANVASES, GRAPH_DISPATCHES = 4, 20, 40, 3
 GRAPH_WARMUP = 6
+# (a) over two gloo ranks sharing the card: GRAPH_K-step dispatches of the
+# global batch GRAPH_BATCH, GRAPH_DISPATCHES of them, captured as a chain
+# of graphs split at the host all-reduces, against the same steps run one
+# at a time on the same ranks, bit for bit (gloo_scan_check)
 GRAPH_CLI_K, GRAPH_K1_STEPS, GRAPH_STEPS = 8, 40, 69
 GRAPH_EVERY, GRAPH_CKPT_TO, GRAPH_RESUME_TO = 8, 21, 37
 NCCL_SCAN_K, ACT_STEPS, ACT_HIST_EVERY = 4, 3, 2
@@ -405,6 +421,9 @@ SPATIAL_BOX_TOL, SPATIAL_PROB_ATOL = 1e-4, 1e-6
 SPATIAL_DEVICES, SPATIAL_EVAL_IMAGES, SPATIAL_TILES = 4, 6, 2
 SPATIAL_STEP_BATCH, SPATIAL_DP_BATCH = 2, 4
 SPATIAL_SCAN_K, SPATIAL_DISPATCHES = 4, 3
+# (e) also: two gloo ranks of SPATIAL_TILES tiles each at the global batch
+# SPATIAL_DP_BATCH, SPATIAL_DISPATCHES captured K=SPATIAL_SCAN_K dispatches
+# against the same steps run one at a time, bit for bit (gloo_scan_check)
 SPATIAL_READ_TILES = (1, 2, 4)
 
 
@@ -2360,13 +2379,14 @@ def _collective_ms(trace_dir, steps):
     return {k: round(v / steps, 3) for k, v in sorted(per.items())}
 
 
-def dp_train_cli(root, train_dir, extra, card, env=None):
+def dp_train_cli(root, train_dir, extra, card, env=None,
+                 steps=DP_CLI_STEPS):
     """The train CLI in a new process (``--num_devices`` spawns its
     ranks; ``env`` may hold a launcher's rank environment instead) at
     B=20, 1248x384, bf16, with the on-device ingest, matcher and augment,
-    a checkpoint at the last step and the detection images of step 0;
-    returns its per-rank report after checking the run's files and
-    logged loss."""
+    ``steps`` steps, a checkpoint at the last step and the detection
+    images of step 0 (none at K > 1); returns its per-rank report after
+    checking the run's files and logged loss."""
     import re
 
     import numpy as np
@@ -2374,8 +2394,8 @@ def dp_train_cli(root, train_dir, extra, card, env=None):
             "384", "--batch_size", "20", "--compute_dtype", "bfloat16",
             "--learning_rate", "0.001", "--device_assign", "--uint8_ingest",
             "--device_augment", "--data_path", root, "--train_dir",
-            train_dir, "--max_steps", str(DP_CLI_STEPS), "--checkpoint_step",
-            str(DP_CLI_STEPS), "--summary_step", str(DP_CLI_STEPS)] + extra
+            train_dir, "--max_steps", str(steps), "--checkpoint_step",
+            str(steps), "--summary_step", str(steps)] + extra
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "squeezedet_torch.train"]
                           + argv, cwd=HERE, capture_output=True, text=True,
@@ -2396,18 +2416,18 @@ def dp_train_cli(root, train_dir, extra, card, env=None):
     world = len(rows)
     files = sorted(os.listdir(train_dir))
     want_sampler = ["sampler.ckpt-{}{}.npz".format(
-        DP_CLI_STEPS - 1, ".p{}".format(r) if world > 1 else "")
+        steps - 1, ".p{}".format(r) if world > 1 else "")
         for r in range(world)]
     events = [f for f in files if f.startswith("events.out.tfevents")]
     if not losses or not np.isfinite(losses).all() or len(events) != 1 or \
             "model_metrics.txt" not in files or \
-            "model.ckpt-{}".format(DP_CLI_STEPS - 1) not in files or \
+            "model.ckpt-{}".format(steps - 1) not in files or \
             [f for f in files if f.startswith("sampler.ckpt-{}.".format(
-                DP_CLI_STEPS - 1))] != want_sampler:
+                steps - 1))] != want_sampler:
         raise AssertionError("train CLI {}: logged loss {}, files {}".format(
             extra, losses, files))
     for r, row in enumerate(rows):
-        if row["steps"] != DP_CLI_STEPS or row["k1"] != row["forwards"]:
+        if row["steps"] != steps or row["k1"] != row["forwards"]:
             raise AssertionError("rank {}: {}".format(r, row))
         log("[dp] smoke reading of {} rank(s) sharing one card, not a "
             "scaling figure: rank {} {}: {:.3f} ms/step (median after 2), "
@@ -2420,6 +2440,72 @@ def dp_train_cli(root, train_dir, extra, card, env=None):
         "{} in {:.1f} s".format(" ".join(extra), world, losses, len(events),
                                 want_sampler, seconds))
     return rows
+
+
+def gloo_scan_check(work, cfg, weights, k, steps, seed, tag, card,
+                    spatial=1):
+    """Two gloo ranks sharing the card (``parallel/dryrun.py``) each run
+    ``steps`` stacked steps of ``cfg``'s global batch (uint8 frames at
+    1248x384, seeded GT, dropout on) twice from one start: one at a time,
+    and in K-step dispatches (the first eager, the second captured as a
+    chain of CUDA graphs split at the rank's host all-reduces and
+    replayed, the rest replayed), over ``spatial`` height tiles a
+    forward.  Each rank's two runs must be equal bit for bit (loss
+    terms, parameters, momentum, the dropout generator's state), under
+    ``trainer.deterministic`` as the train loop runs them, with K1 once
+    per tile of each forward in both, replays counted, and K2 0.
+    Returns the ranks' K1 launches."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.parallel import dryrun
+    rs = np.random.RandomState(seed)
+    b = cfg.batch_size
+    det = get_model("squeezeDet", cfg, device="cpu")
+    det.backbone.load_state_dict(weights)
+    gts = [gt_batch(rs, b, cfg) for _ in range(steps)]
+    frames = rs.randint(0, 256, (steps, b, cfg.image_height,
+                                 cfg.image_width, 3), dtype=np.uint8)
+    path = os.path.join(work, "gloo_scan.pt")
+    dryrun.write_case(path, det, [frames] + [
+        np.stack([g[i].numpy() for g in gts]) for i in range(3)],
+        seed=seed, device="cuda", spatial=spatial, ks=(1, k))
+    del frames
+    results = dryrun.step_on_ranks(path, os.path.join(work, "gloo_scan"),
+                                   DP_RANKS)
+    os.remove(path)
+    k1 = 0
+    for r, by_k in enumerate(results):
+        eager, graph = by_k[1], by_k[k]
+        worst = {key: max(float((graph[key][n].float() - t.float()).abs()
+                                .max()) for n, t in eager[key].items())
+                 for key in ("params", "momentum")}
+        loss = float((graph["loss"] - eager["loss"]).abs().max())
+        same_gen = torch.equal(graph["generator"], eager["generator"])
+        log("[{}] {} global B={} over {} tile(s) a rank, dropout {}, rank "
+            "{} of {} ({}): {} steps in K={} dispatches (eager, graph chain "
+            "captured and replayed, replayed) against the steps one at a "
+            "time: loss terms max abs diff {:.3e}, params {:.3e}, momentum "
+            "{:.3e}, generator states {}; K1 {} / {}, K2 {} / {} (one at a "
+            "time / dispatches); {:.2f} s / {:.2f} s; on {}".format(
+                tag, cfg.compute_dtype, b, spatial, cfg.keep_prob, r,
+                DP_RANKS, graph["backend"], steps,
+                k, loss, worst["params"], worst["momentum"],
+                "equal" if same_gen else "DIFFER", eager["k1"], graph["k1"],
+                eager["k2"], graph["k2"], eager["seconds"],
+                graph["seconds"], card))
+        want_k1 = spatial * steps
+        if loss or worst["params"] or worst["momentum"] or not same_gen or \
+                graph["step"] != eager["step"] or \
+                graph["backend"] != "gloo" or \
+                (eager["k1"], graph["k1"]) != (want_k1, want_k1) or \
+                eager["k2"] or graph["k2"]:
+            raise AssertionError("{}: gloo rank {}'s captured dispatches "
+                                 "differ from its steps one at a time"
+                                 .format(tag, r))
+        k1 += eager["k1"] + graph["k1"]
+    return k1
 
 
 def _assert_same_detections(got, want, what):
@@ -2537,6 +2623,21 @@ def phase_data_parallel(card, weights):
             "step (torch.profiler over {} steps): {}".format(
                 traced, _collective_ms(os.path.join(dd_dir, "profile"),
                                        traced)))
+        # the same ranks at K steps per dispatch: each rank's K steps a
+        # chain of graphs split at its host all-reduces
+        scan = dp_train_cli(root, os.path.join(work, "tr_scan"), [
+            "--num_devices", str(DP_RANKS), "--device_dataset",
+            "--steps_per_dispatch", str(DP_SCAN_K)], card,
+            steps=DP_SCAN_STEPS)
+        log("[dp] smoke reading of 2 gloo ranks sharing one card, not a "
+            "benchmark: train CLI B=20 bf16 --device_dataset, K=1 {} "
+            "ms/step, K={} {} ms/step (per rank, medians after 2 "
+            "dispatches); peak {} / {} MiB; on {}".format(
+                [r["step_us"] / 1e3 for r in rows[DP_RANKS:]], DP_SCAN_K,
+                [r["step_us"] / 1e3 for r in scan],
+                [r["peak_mib"] for r in rows[DP_RANKS:]],
+                [r["peak_mib"] for r in scan], card))
+        rows += scan
         env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                    LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(free_port()))
@@ -2645,8 +2746,11 @@ def phase_graph_step(card, weights):
     """Phase 12 (a): K steps per dispatch captured in one CUDA graph
     against the same K steps run eagerly, from the same weights and
     generator, over GRAPH_DISPATCHES dispatches of --device_dataset-style
-    inputs (bf16, dropout on, mode "1x1").  Returns the steps run (each
-    launches K1 once and K2 ten times)."""
+    inputs (bf16, dropout on, mode "1x1"); then the same over two gloo
+    ranks, each rank's K steps a chain of graphs split at its host
+    all-reduces (``gloo_scan_check``).  Returns the steps run in this
+    process (each launches K1 once and K2 ten times) and the ranks' K1
+    launches."""
     import numpy as np
     import torch
 
@@ -2777,7 +2881,19 @@ def phase_graph_step(card, weights):
         L.set_filter_grad(False)
     del runs, dataset
     torch.cuda.empty_cache()
-    return 2 * k * GRAPH_DISPATCHES
+    # the same dispatches over two gloo ranks (K2 is not routed over
+    # ranks): a chain of graphs split at the host all-reduces
+    import shutil
+    work = os.path.join(HERE, ".chipscratch", "graph_gloo")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ranks_k1 = gloo_scan_check(work, cfg.replace(batch_size=b), weights,
+                                   k, k * GRAPH_DISPATCHES, 13, "graph",
+                                   card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 2 * k * GRAPH_DISPATCHES, ranks_k1
 
 
 def phase_graph_cli(card):
@@ -3388,8 +3504,10 @@ def phase_spatial_eval(card, weights):
 def phase_spatial_train(card, weights):
     """Phase 13 (e): the f32 step over (1, SPATIAL_TILES) tiles, the data
     x spatial step over two gloo ranks, and a captured K-step dispatch
-    over the tiles, against unsharded steps.  Returns the K1 launches in
-    this process and the K1 and K2 launches the ranks reported."""
+    over the tiles, against unsharded steps; then K-step dispatches of
+    the data x spatial step over two gloo ranks against their steps one
+    at a time.  Returns the K1 launches in this process and the K1 and
+    K2 launches the ranks reported."""
     import shutil
 
     import numpy as np
@@ -3525,7 +3643,15 @@ def phase_spatial_train(card, weights):
                              "their eager steps")
     del runs
     torch.cuda.empty_cache()
-    shutil.rmtree(work, ignore_errors=True)
+    # the data x spatial dispatches: two gloo ranks of SPATIAL_TILES tiles
+    # each, a chain of graphs split at the host all-reduces
+    try:
+        child["k1"] += gloo_scan_check(
+            work, kitti_squeezedet_config().replace(
+                batch_size=SPATIAL_DP_BATCH), weights, k, steps, 32,
+            "spatial", card, spatial=SPATIAL_TILES)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     log("[spatial] (e) in {:.1f} s on {}".format(
         time.perf_counter() - t_phase, card))
     return k1, child
@@ -4137,7 +4263,7 @@ def main():
     # K steps per dispatch as captured CUDA graphs: counts from 0 just
     # before it; the NCCL rank, in its own process, reports its own
     ff.LAUNCHES = fg.LAUNCHES = 0
-    steps = phase_graph_step(card, weights)
+    steps, gloo_k1 = phase_graph_step(card, weights)
     forwards, backwards, nccl = phase_graph_cli(card)
     learn_steps, eval_batches = phase_learning(card)
     want_k1 = steps + forwards + learn_steps + eval_batches
@@ -4146,10 +4272,11 @@ def main():
         raise AssertionError("captured dispatches: K1 launches {}, expected "
                              "{}; K2 launches {}, expected {}".format(
                                  ff.LAUNCHES, want_k1, fg.LAUNCHES, want_k2))
-    graph = {"k1": ff.LAUNCHES + nccl["k1"], "k2": fg.LAUNCHES + nccl["k2"]}
-    log("[graph] path: K1 launches {} ({} on the NCCL rank), K2 launches "
-        "{} ({} on the NCCL rank)".format(graph["k1"], nccl["k1"],
-                                          graph["k2"], nccl["k2"]))
+    graph = {"k1": ff.LAUNCHES + nccl["k1"] + gloo_k1,
+             "k2": fg.LAUNCHES + nccl["k2"]}
+    log("[graph] path: K1 launches {} ({} on the NCCL rank, {} on the gloo "
+        "ranks), K2 launches {} ({} on the NCCL rank)".format(
+            graph["k1"], nccl["k1"], gloo_k1, graph["k2"], nccl["k2"]))
 
     # spatial partitioning, every tile on the card: counts from 0 just
     # before it; the gloo ranks, in their own processes, report theirs

@@ -17,14 +17,18 @@ unsharded one-process step.  The command runs the 1-D check, then the
 The pieces serve the tests and the card's smoke as well: a *case* file
 (:func:`write_case`) holds a step's start; :func:`step_on_ranks` runs it
 on N spawned ranks and :func:`one_step` in this process, each giving the
-updated state, the global loss terms and the step's kernel launches.
+updated state, the global loss terms and the step's kernel launches.  A
+case written with ``ks`` stacks N steps' batches instead, and each rank
+runs them from the case's start once per K in ``ks``, K steps per
+dispatch (:func:`scan_steps`).
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
-from typing import List, Optional
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,20 +42,24 @@ LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-5, 1e-4, 1e-9
 def write_case(path: str, det, batch, *, opt_state: Optional[dict] = None,
                seed: int = 0, uint8_ingest: bool = True,
                device_augment: bool = False, filter_grad=False,
-               device: str = "cpu", spatial: int = 1) -> None:
+               device: str = "cpu", spatial: int = 1,
+               ks: Optional[Sequence[int]] = None) -> None:
     """Save a train step's start: ``det``'s config, net and weights, an
     optimizer state (a fresh one when omitted), the global ``batch``
     (numpy arrays, as ``make_train_step_device`` takes them), the dropout
     seed, the step's flags, the filter-grad mode of a one-process run,
     the kind of device the ranks use and the height tiles of each
-    rank's forward (``spatial``; 1 runs it whole)."""
+    rank's forward (``spatial``; 1 runs it whole).  With ``ks`` each
+    array stacks N steps' batches ([N, B, ...]), which a rank runs once
+    per K in ``ks`` (:func:`scan_steps`)."""
     torch.save({
         "cfg": det.cfg, "net": det.net,
         "weights": {k: v.cpu() for k, v in det.backbone.state_dict().items()},
         "opt_state": opt_state, "batch": [np.asarray(a) for a in batch],
         "seed": seed, "uint8_ingest": uint8_ingest,
         "device_augment": device_augment, "filter_grad": filter_grad,
-        "device": device, "spatial": spatial}, path)
+        "device": device, "spatial": spatial,
+        "ks": None if ks is None else list(ks)}, path)
 
 
 def load_case(path: str) -> dict:
@@ -59,22 +67,13 @@ def load_case(path: str) -> dict:
     return torch.load(path, weights_only=False)
 
 
-def one_step(case: dict, dp=None) -> dict:
-    """The case's step on this process's device: alone (``dp`` None, in
-    the case's filter-grad mode) or as rank ``dp`` on its rows.  Returns
-    the global loss terms, the updated parameters and momentum (on the
-    CPU), this process's K1 and K2 launches and the group's backend.
-    A case with ``spatial`` S > 1 runs its forward over S height tiles
-    (``make_mesh_2d(world, S).tiling(rank)``).  The step runs under
-    ``trainer.deterministic``."""
+def _start(case: dict, dp):
+    """The case's train state, forward tiling, this rank's rows of the
+    batch and a seeded dropout generator, on this process's device."""
     from squeezedet_torch.models import get_model
-    from squeezedet_torch.models import layers as L
-    from squeezedet_torch.ops import filter_grad as fg
-    from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.optim import build_optimizer
     from squeezedet_torch.parallel.mesh import make_mesh_2d
-    from squeezedet_torch.trainer import (TrainState, deterministic,
-                                          make_train_step_device)
+    from squeezedet_torch.trainer import TrainState
 
     device = dp.device if dp is not None else torch.device(case["device"])
     if device.type == "cuda":  # f32 convs in f32, on both sides
@@ -91,30 +90,98 @@ def one_step(case: dict, dp=None) -> dict:
         world, rank = (1, 0) if dp is None else (dp.world, dp.rank)
         spatial = make_mesh_2d(world, case["spatial"],
                                case["device"]).tiling(rank)
-    step = make_train_step_device(state, uint8_ingest=case["uint8_ingest"],
-                                  device_augment=case["device_augment"],
-                                  dp=dp, spatial=spatial)
     rows = slice(None) if dp is None else dp.rows(cfg.batch_size)
-    batch = [torch.from_numpy(a[rows]).to(device) for a in case["batch"]]
+    # stacked steps keep the step axis first
+    index = (slice(None), rows) if case.get("ks") else rows
+    batch = [torch.from_numpy(a[index]) for a in case["batch"]]
     generator = torch.Generator(device).manual_seed(case["seed"])
+    flags = dict(uint8_ingest=case["uint8_ingest"],
+                 device_augment=case["device_augment"], dp=dp,
+                 spatial=spatial)
+    return state, batch, generator, flags
+
+
+def _run(case: dict, dp, state, generator, steps) -> dict:
+    """``steps()`` (the [..., 5] loss terms) under ``trainer.deterministic``
+    in the case's filter-grad mode (alone) or with K2 off (a rank of
+    several); the result :func:`one_step` describes."""
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import filter_grad as fg
+    from squeezedet_torch.ops import fused_frontend as ff
+    from squeezedet_torch.trainer import deterministic
+
+    device = state.det.anchors.device
     prev = L.filter_grad_mode()
     L.set_filter_grad(case["filter_grad"] if dp is None or dp.world == 1
                       else False)
     launches = ff.LAUNCHES, fg.LAUNCHES
+    t0 = time.perf_counter()
     try:
         with deterministic():  # as the train loop runs its steps
-            lb = step(*batch, generator=generator)
+            loss = steps()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
         L.set_filter_grad(prev)
-    return {"loss": torch.stack(list(lb)).cpu(),
+    return {"loss": loss.cpu(),
             "params": {k: v.detach().cpu()
-                       for k, v in det.backbone.state_dict().items()},
+                       for k, v in state.det.backbone.state_dict().items()},
             "momentum": {k: t.cpu() for k, t in state.opt.trace.items()},
             "step": state.step, "k1": ff.LAUNCHES - launches[0],
             "k2": fg.LAUNCHES - launches[1],
+            "generator": generator.get_state(),
+            "seconds": time.perf_counter() - t0,
             "backend": None if dp is None else dp.backend}
+
+
+def one_step(case: dict, dp=None) -> dict:
+    """The case's step on this process's device: alone (``dp`` None, in
+    the case's filter-grad mode) or as rank ``dp`` on its rows.  Returns
+    the global loss terms, the updated parameters and momentum (on the
+    CPU), this process's K1 and K2 launches, the dropout generator's
+    state, the host seconds the step took (synchronised) and the group's
+    backend.  A case with ``spatial`` S > 1 runs its forward over S
+    height tiles (``make_mesh_2d(world, S).tiling(rank)``).  The step
+    runs under ``trainer.deterministic``."""
+    from squeezedet_torch.trainer import make_train_step_device
+
+    state, batch, generator, flags = _start(case, dp)
+    step = make_train_step_device(state, **flags)
+    device = state.det.anchors.device
+    return _run(case, dp, state, generator, lambda: torch.stack(list(step(
+        *(x.to(device) for x in batch), generator=generator))))
+
+
+def scan_steps(case: dict, k: int, dp=None) -> dict:
+    """The case's N stacked steps from its start, as :func:`one_step` runs
+    one: K=1 steps one at a time (``make_train_step_device``), K > 1 in
+    N/K dispatches of ``make_train_step_device_scan`` (on the card the
+    first runs eagerly, the second captures and replays, the rest
+    replay).  The loss terms are [N, 5]."""
+    from squeezedet_torch.trainer import (make_train_step_device,
+                                          make_train_step_device_scan)
+
+    state, batch, generator, flags = _start(case, dp)
+    n = batch[0].shape[0]
+    if n % k:
+        raise ValueError("{} steps do not divide into dispatches of "
+                         "{}".format(n, k))
+    device = state.det.anchors.device
+    if k == 1:
+        step = make_train_step_device(state, **flags)
+
+        def steps():
+            return torch.stack([torch.stack(list(step(
+                *(x[i].to(device) for x in batch), generator=generator)))
+                for i in range(n)])
+    else:
+        scan = make_train_step_device_scan(state, k, **flags)
+
+        def steps():
+            return torch.cat([torch.stack(list(scan(
+                *(x[i:i + k] for x in batch), generator=generator)), dim=1)
+                for i in range(0, n, k)])
+    return _run(case, dp, state, generator, steps)
 
 
 def _rank_step(case_path: str, out_prefix: str) -> None:
@@ -122,14 +189,17 @@ def _rank_step(case_path: str, out_prefix: str) -> None:
     case = load_case(case_path)
     dp = distributed.init_data_parallel(case["device"])
     try:
-        torch.save(one_step(case, dp), "{}.p{}".format(out_prefix, dp.rank))
+        result = one_step(case, dp) if not case.get("ks") else {
+            k: scan_steps(case, k, dp) for k in case["ks"]}
+        torch.save(result, "{}.p{}".format(out_prefix, dp.rank))
     finally:
         distributed.shutdown()
 
 
 def step_on_ranks(case_path: str, out_prefix: str, world: int) -> List[dict]:
     """The case's step on ``world`` spawned ranks; each rank's result (as
-    :func:`one_step` gives it, saved at ``<out_prefix>.p<rank>``)."""
+    :func:`one_step` gives it, saved at ``<out_prefix>.p<rank>``), or
+    for a case with ``ks`` a dict of :func:`scan_steps` results by K."""
     from squeezedet_torch.parallel.distributed import spawn
     spawn(_rank_step, world, case_path, out_prefix)
     return [torch.load("{}.p{}".format(out_prefix, r), weights_only=True)
@@ -166,11 +236,13 @@ def agrees(mismatch: dict) -> bool:
 
 
 def tiny_case(path: str, n: int, keep_prob: float = 0.5,
-              spatial: int = 1) -> dict:
+              spatial: int = 1, ks: Optional[Sequence[int]] = None,
+              steps: int = 2) -> dict:
     """A tiny-config case at global batch 2n: seeded weights and GT, and
     a mid-training optimizer state (step 5, a random momentum of std
     0.05), whose updates stand well above the f32 spacing of the
-    weights.  ``spatial``: the height tiles of each rank's forward."""
+    weights.  ``spatial``: the height tiles of each rank's forward.
+    With ``ks``, ``steps`` batches stacked, run at each K in ``ks``."""
     from squeezedet_torch.config import tiny_test_config
     from squeezedet_torch.models import get_model
     from squeezedet_torch.optim import build_optimizer
@@ -183,13 +255,20 @@ def tiny_case(path: str, n: int, keep_prob: float = 0.5,
         k: torch.from_numpy(rs.randn(*t.shape).astype(np.float32) * 0.05)
         for k, t in opt["momentum"].items()}}
     b, g = 2 * n, 4
-    boxes = np.stack([rs.uniform(10, 54, (b, g)), rs.uniform(10, 54, (b, g)),
-                      rs.uniform(8, 30, (b, g)), rs.uniform(8, 30, (b, g))],
-                     axis=-1).astype(np.float32)
-    batch = [rs.randint(0, 256, (b, 64, 64, 3)).astype(np.uint8), boxes,
-             rs.randint(0, cfg.classes, (b, g)).astype(np.int32),
-             rs.randint(1, g + 1, (b,)).astype(np.int32)]
-    write_case(path, det, batch, opt_state=opt, seed=1, spatial=spatial)
+
+    def draw():
+        boxes = np.stack([rs.uniform(10, 54, (b, g)),
+                          rs.uniform(10, 54, (b, g)),
+                          rs.uniform(8, 30, (b, g)),
+                          rs.uniform(8, 30, (b, g))],
+                         axis=-1).astype(np.float32)
+        return [rs.randint(0, 256, (b, 64, 64, 3)).astype(np.uint8), boxes,
+                rs.randint(0, cfg.classes, (b, g)).astype(np.int32),
+                rs.randint(1, g + 1, (b,)).astype(np.int32)]
+    batch = draw() if ks is None else [
+        np.stack(a) for a in zip(*(draw() for _ in range(steps)))]
+    write_case(path, det, batch, opt_state=opt, seed=1, spatial=spatial,
+               ks=ks)
     return load_case(path)
 
 

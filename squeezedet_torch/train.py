@@ -9,7 +9,8 @@ Trains on ``--device`` (``cuda`` by default, never falling back to the
 CPU), auto-resumes from ``--train_dir``, writes checkpoints, sampler
 snapshots, ``model_metrics.txt`` and (when ``tensorboard`` imports)
 event files there.  ``--steps_per_dispatch K`` runs K steps per host
-dispatch, one captured CUDA graph replay on the card;
+dispatch, one captured CUDA graph replay on the card (on gloo ranks, a
+chain of graphs split at the all-reduces);
 ``--activation_summary`` adds activation summaries at the histogram
 steps.  ``--native_loader`` reads the f32 host-resize feed
 (``--device_assign`` without ``--uint8_ingest``, ``--device_augment``
@@ -143,8 +144,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help='Train steps per host dispatch: K > 1 stacks K '
                         'batches and runs the K steps as one captured '
                         'CUDA graph replay on the card (eagerly on the '
-                        'CPU). Requires --device_assign; a data-parallel '
-                        'run needs NCCL ranks.')
+                        'CPU; on gloo ranks a chain of graphs split at '
+                        'the all-reduces). Requires --device_assign.')
     p.add_argument('--compilation_cache', default='',
                    help='XLA compilation cache (stays out of the port).')
     p.add_argument('--profile_steps', default='',

@@ -40,8 +40,11 @@ K steps per dispatch (``--steps_per_dispatch``,
 after another; on the card the host stacks K batches, copies them into
 the buffers of one captured CUDA graph that holds all K steps (K1 and K2
 launches, the dropout draws and, on an NCCL rank, the all-reduces
-included) and replays it once.  ``rng_impl`` stays out (ROADMAP Queue 1
-item 14).
+included) and replays it once.  A gloo rank's all-reduce stages its
+tensor through the host, which no graph can hold, so there the K steps
+are captured as a chain of graphs split at the all-reduces, replayed in
+order with each all-reduce between its two graphs.  ``rng_impl`` stays
+out (ROADMAP Queue 1 item 14).
 
 Determinism: :func:`train` runs under :func:`deterministic` (cuDNN's
 deterministic algorithms, no autotuning, and
@@ -271,26 +274,107 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     return step_fn
 
 
+class _GraphChain:
+    """The captured form of a dispatch: CUDA graphs captured one after
+    another into one memory pool, split where the step calls a host
+    collective (a gloo all-reduce, which stages its tensor through the
+    host and so cannot be captured).  A dispatch with no host collective
+    is one graph.  :meth:`replay` runs the graphs in capture order on the
+    current stream, each all-reduce between the graph that wrote its
+    tensor and the graph that reads it; gloo orders its copies after the
+    stream's earlier work and the stream's later work after its copies.
+    The tensors keep their capture-time addresses: the chain holds them,
+    and graphs that share a pool may reuse each other's freed memory
+    because they replay one at a time in the order they were captured.
+    The dropout generator is registered with every graph, so each replay
+    advances its Philox offset by that graph's draws, in the eager order.
+    """
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+        self.reduced: list = []
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        graph.capture_begin(pool=self.pool)
+        self.graphs.append(graph)
+
+    @contextlib.contextmanager
+    def capture(self, dev: torch.device):
+        """Capture the enclosed work on a side stream, as
+        ``torch.cuda.graph`` does, into the chain's first graph (and the
+        next ones :meth:`split` opens)."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            self._begin()
+            try:
+                yield self
+            finally:
+                self.graphs[-1].capture_end()
+
+    def split(self, tensor: torch.Tensor) -> None:
+        """End the graph being captured at an all-reduce of ``tensor``,
+        which the replay runs on the host, and begin the next graph."""
+        self.graphs[-1].capture_end()
+        self.reduced.append(tensor)
+        self._begin()
+
+    def replay(self, dp) -> None:
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.reduced):
+                dp.all_reduce_(self.reduced[i])
+
+
+class _HostCollectives:
+    """A gloo rank's ``DataParallel`` as its scanned step sees it: outside
+    a capture its all-reduce is the rank's; while a :class:`_GraphChain`
+    captures, each all-reduce splits the chain there instead (the object
+    count in ``_rank_loss``, the flat gradient in ``_sum_over_ranks``
+    and the loss terms in ``_apply_update``, so no split falls inside
+    autograd's graph)."""
+
+    def __init__(self, dp):
+        self.dp = dp
+        self.chain: Optional[_GraphChain] = None
+
+    def __getattr__(self, name):
+        return getattr(self.dp, name)
+
+    def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
+        if self.chain is None:
+            return self.dp.all_reduce_(tensor)
+        self.chain.split(tensor)
+        return tensor
+
+
 class _ScanStep:
     """K train steps per dispatch; see :func:`make_train_step_device_scan`.
 
     On the card the first dispatch runs its K steps eagerly, on a side
     stream: they are real steps, and they build and load K1 and K2, warm
-    cuDNN's plans and the NCCL communicator, and make the momentum and
-    the mean tensors, none of which may happen under capture.  The second
-    dispatch captures the K steps into one graph over static buffers (the
-    stacked inputs and the K negated rates), with the dropout generator
-    registered so that each replay advances its Philox offset as K eager
-    steps would, and every dispatch from then on copies its inputs into
-    those buffers and replays the graph once.  Parameters and momentum
-    are updated in place at fixed addresses; the gradients live in the
-    graph's memory pool.  A capture or a replay that fails raises.
+    cuDNN's plans and the communicator, and make the momentum and the
+    mean tensors, none of which may happen under capture.  The second
+    dispatch captures the K steps over static buffers (the stacked inputs
+    and the K negated rates) into a :class:`_GraphChain`: one graph, or
+    on a gloo rank (``host`` a :class:`_HostCollectives`) one graph
+    between each two all-reduces; every dispatch from then on copies its
+    inputs into those buffers and replays the chain once.  Parameters and
+    momentum are updated in place at fixed addresses; the gradients live
+    in the graphs' memory pool.  A capture or a replay that fails raises.
     """
 
-    def __init__(self, state: TrainState, k: int, step_fn, device_dataset):
+    def __init__(self, state: TrainState, k: int, step_fn, device_dataset,
+                 host: Optional[_HostCollectives] = None):
         self.state, self.k, self.step_fn = state, k, step_fn
         self.device_dataset = device_dataset
-        self.graph = None
+        self.host = host
+        self.chain = None
         self.warm = False
 
     def _eager(self, head, stacked, generator, neg_rates):
@@ -321,7 +405,7 @@ class _ScanStep:
             torch.cuda.current_stream(dev).wait_stream(side)
             self.warm = True
             return lbs
-        if self.graph is None:
+        if self.chain is None:
             self._capture(head, stacked, generator, dev)
         elif generator is not self.generator or \
                 any(a is not b for a, b in zip(head, self.head)):
@@ -330,7 +414,7 @@ class _ScanStep:
         for buf, x in zip(self.inputs, stacked):
             buf.copy_(x, non_blocking=True)
         self.neg_rates.copy_(neg_rates)
-        self.graph.replay()
+        self.chain.replay(self.host)
         self.launches.replayed()
         opt.step += self.k
         return LossBreakdown(*(t.clone() for t in self.outputs))
@@ -342,16 +426,19 @@ class _ScanStep:
                        for x in stacked]
         self.neg_rates = torch.empty(self.k, dtype=torch.float32, device=dev)
         self.generator, self.head = generator, head
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
+        chain = _GraphChain(generator)
         step = opt.step
-        with CapturedLaunches() as self.launches:
-            with torch.cuda.graph(graph):
+        if self.host is not None:
+            self.host.chain = chain
+        try:
+            with CapturedLaunches() as self.launches, chain.capture(dev):
                 self.outputs = self._eager(head, self.inputs, generator,
                                            self.neg_rates)
+        finally:
+            if self.host is not None:
+                self.host.chain = None
         opt.step = step  # the capture ran no step
-        self.graph = graph
+        self.chain = chain
 
 
 def make_train_step_device_scan(state: TrainState, k: int, *,
@@ -374,33 +461,31 @@ def make_train_step_device_scan(state: TrainState, k: int, *,
     version of the graph.  On the card one CUDA graph of the K steps is
     captured at the second dispatch and replayed once per dispatch
     (:class:`_ScanStep`); the kernels' ``LAUNCHES`` count each replay's.
-    ``dp``: as :func:`make_train_step_device`; an NCCL rank's
-    all-reduces are captured with the steps (gloo's run through the host
-    and cannot be).  ``spatial``: as :func:`make_train_step_device`; on
-    the card its tiles must share the detector's card, where the halo
-    copies are captured with the steps (copies between cards in a
-    captured graph: ROADMAP Queue 1 item 22).
+    ``dp``: as :func:`make_train_step_device`, each input stacking the
+    rank's rows; an NCCL rank's all-reduces are captured with the steps,
+    and a gloo rank's, which run through the host, split the capture into
+    a chain of graphs, three all-reduces a step (:class:`_GraphChain`).
+    ``spatial``: as :func:`make_train_step_device`; on the card its tiles
+    must share the detector's card, where the halo copies are captured
+    with the steps (copies between cards in a captured graph: ROADMAP
+    Queue 1 item 22).
     """
     if k < 1:
         raise ValueError("steps per dispatch must be >= 1, got {}".format(k))
-    if dp is not None and dp.backend != "nccl":
-        raise ValueError(_GLOO_SCAN)
     home = state.det.anchors.device
     if spatial is not None and home.type == "cuda" and \
             any(torch.device(d) != home for d in spatial.devices):
         raise ValueError(_CROSS_CARD_SCAN.format(
             ", ".join(sorted({str(d) for d in spatial.devices}))))
+    host = _HostCollectives(dp) if dp is not None and \
+        dp.backend != "nccl" and home.type == "cuda" else None
     step_fn = make_train_step_device(state, uint8_ingest=uint8_ingest,
                                      device_augment=device_augment,
-                                     device_dataset=device_dataset, dp=dp,
-                                     spatial=spatial)
-    return _ScanStep(state, k, step_fn, device_dataset)
+                                     device_dataset=device_dataset,
+                                     dp=host or dp, spatial=spatial)
+    return _ScanStep(state, k, step_fn, device_dataset, host)
 
 
-_GLOO_SCAN = ("--steps_per_dispatch > 1 captures the K steps in a CUDA graph, "
-              "and gloo's all-reduce runs through the host, which a graph "
-              "cannot capture: use one NCCL rank per card, or "
-              "--steps_per_dispatch 1 over gloo")
 _CROSS_CARD_SCAN = ("--steps_per_dispatch > 1 captures the K steps in one "
                     "card's CUDA graph, and these tiles lie on other cards "
                     "({}): copies between cards inside a captured graph are "
@@ -675,8 +760,6 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
         raise ValueError("--steps_per_dispatch > 1 requires "
                          "--device_assign (the scanned program fuses "
                          "the anchor matcher per step)")
-    if steps_per_dispatch > 1 and dp is not None and dp.backend != "nccl":
-        raise ValueError(_GLOO_SCAN)
     if steps_per_dispatch > 1:
         skipped = [flag for flag, on in (
             ("--profile_steps", step_tracer is not None),

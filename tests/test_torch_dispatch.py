@@ -7,7 +7,8 @@ K scanned steps equal K single steps (dropout on) and, with
 the same weights, optimizer state and stacked batches, for each ingest
 variant, to the tolerance ``test_torch_train.py`` holds one step to.
 Then the rates inside a dispatch, the train loop's dispatches with an
-odd tail, their checkpoints and resume, the CLI flag, and the refusals.
+odd tail, their checkpoints and resume, the CLI flag, and the refusals
+(K > 1 over gloo ranks runs: ``tests/test_torch_gloo_scan.py``).
 """
 
 import os
@@ -23,7 +24,6 @@ from squeezedet_torch import train as port_cli
 from squeezedet_torch.checkpoint.manager import latest_step
 from squeezedet_torch.data.kitti import Kitti
 from squeezedet_torch.optim import Momentum, build_optimizer, learning_rate_at
-from squeezedet_torch.parallel.distributed import DataParallel
 from squeezedet_torch.trainer import (TrainState, make_train_step_device,
                                       make_train_step_device_scan, train)
 from squeezedet_torch.weights import from_jax_opt_state, from_jax_params
@@ -308,17 +308,11 @@ def test_cli_runs_dispatches_of_k(kitti_root, tmp_path, capsys):
 
 def test_refusals(start, kitti_root, tmp_path):
     """K > 1 needs the on-device matcher (the JAX package's words), and
-    cannot run over gloo ranks, whose all-reduce a graph cannot capture."""
+    each input must stack K steps."""
     state = _port_state(start)
     with pytest.raises(ValueError, match="requires --device_assign"):
         train(state.det, None, train_dir=str(tmp_path), max_steps=1,
               steps_per_dispatch=2)
-    gloo = DataParallel(0, 2, torch.device("cpu"), "gloo")
-    with pytest.raises(ValueError, match="gloo's all-reduce"):
-        train(state.det, None, train_dir=str(tmp_path), max_steps=1,
-              steps_per_dispatch=2, device_assign=True, dp=gloo)
-    with pytest.raises(ValueError, match="gloo's all-reduce"):
-        make_train_step_device_scan(state, 2, dp=gloo)
     with pytest.raises(ValueError, match="stack 2 steps"):
         make_train_step_device_scan(state, 2)(*_torch(_stacked(
             np.random.RandomState(0), "uint8_ingest")[1]))

@@ -127,8 +127,9 @@ def test_data_x_spatial_step_over_two_gloo_ranks(one_thread):
 def test_scan_over_2x2_tiles_matches_unsharded_scan(start):
     """K=2 scanned steps over a 2x2 tiling against the unsharded scan
     (``test_scan_dispatch_on_2d_mesh``'s tolerances), dropout on.  The
-    data axis is ranks in the port, and a gloo rank cannot scan
-    (``trainer._GLOO_SCAN``), so the 2x2 here is height x width."""
+    2x2 here is height x width in one process; the JAX test's (2 data x
+    2 spatial) mesh is two gloo ranks of 2 height tiles each in the port
+    (``tests/test_torch_gloo_scan.py``)."""
     _, stacked = _stacked(np.random.RandomState(2), "uint8_ingest", 2)
     stacked = _torch(stacked)
 
