@@ -8,9 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch's CUDA
    version and ``nvcc --version``;
 2. build: the K1 and K2 kernels from ``squeezedet_torch/csrc``, one nvcc
-   each, started together; ptxas' register and shared-memory reports;
-   the tensor-core instructions (HMMA) in each kernel's SASS, by
-   ``cuobjdump -sass``: the bf16 (tensor-core) kernels must have some;
+   each, started together; ptxas' register, shared-memory and spill
+   reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads
+   (UTMALDG) in each kernel's SASS, by ``cuobjdump -sass``: K1's bf16
+   kernel must have HMMA, K2's bf16 kernels HGMMA and UTMALDG
+   (``filter_grad_wgmma``) and HMMA (``filter_grad_tc_partial``, its
+   small 1x1 calls);
 3. K1 against its plain PyTorch version on the card, at the flagship
    shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then
    timed with CUDA events at B=128 bf16 beside its plain version and the
@@ -238,9 +241,13 @@ BACKBONE_BOX_RTOL = 2e-5
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
 KERNELS = ("conv1_pool1", "filter_grad")
-# the bf16 (tensor-core) kernel functions of each source, by name
-TC_FUNCTIONS = {"conv1_pool1": "conv1_pool1_tc",
-                "filter_grad": "filter_grad_tc_partial"}
+# the bf16 (tensor-core) kernel functions of each source, by name, and the
+# SASS instructions each must hold: K1 mma.sync (HMMA); K2 wgmma (HGMMA)
+# fed by TMA loads (UTMALDG), and mma.sync for its small 1x1 calls
+TC_FUNCTIONS = {
+    "conv1_pool1": {"conv1_pool1_tc": ("HMMA",)},
+    "filter_grad": {"filter_grad_wgmma": ("HGMMA", "UTMALDG"),
+                    "filter_grad_tc_partial": ("HMMA",)}}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -524,8 +531,10 @@ def k2_bound(b, kh, c, o, h, w):
                  2 * m * c * o * kh * kh, BF16_FLOPS)
 
 
-def tensor_core_counts(so):
-    """{kernel function: HMMA/HGMMA instructions} in a library's SASS."""
+def sass_counts(so):
+    """{kernel function: {"HMMA", "HGMMA", "UTMALDG": instructions}} in a
+    library's SASS (HMMA counts mma.sync, HGMMA wgmma, UTMALDG TMA
+    loads)."""
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -533,10 +542,30 @@ def tensor_core_counts(so):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0}
+        elif name is not None and "*/" in line:
+            # "/*0090*/  @P0 HGMMA.64x256x16.F32.BF16 ... ;  /* 0x... */"
+            words = [w for w in line.split("*/", 1)[1].split()
+                     if not w.startswith("@")]
+            for key in counts[name]:
+                if words and words[0].split(".")[0] == key:
+                    counts[name][key] += 1
     return counts
+
+
+def spill_bytes(log, function):
+    """Spill stores + loads ptxas reported for each kernel whose mangled
+    name holds ``function``, from an ``-Xptxas -v`` build log."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name is not None and "spill stores" in line and \
+                function in name:
+            words = line.replace(",", "").split()
+            spills[name] = (int(words[words.index("spill") - 2])
+                            + int(words[-4]))
+    return spills
 
 
 def _nvcc():
@@ -575,15 +604,22 @@ def phase_build():
                                                  time.perf_counter() - t0))
     tc = {}
     for name in KERNELS:
-        counts = tensor_core_counts(_cuda.library_path(name))
+        counts = sass_counts(_cuda.library_path(name))
         for fn, n in sorted(counts.items()):
-            log("[build] {}: {} tensor-core instructions (HMMA/HGMMA) in "
-                "{}".format(name, n, fn))
-        tc[name] = sum(n for fn, n in counts.items()
-                       if TC_FUNCTIONS[name] in fn)
-        if tc[name] == 0:
-            raise AssertionError("{}'s bf16 kernel has no tensor-core "
-                                 "instruction in its SASS".format(name))
+            log("[build] {}: {} in {}".format(name, n, fn))
+        tc[name] = 0
+        for kernel, needs in TC_FUNCTIONS[name].items():
+            mine = [n for fn, n in counts.items() if kernel in fn]
+            for op in needs:
+                if not mine or any(n[op] == 0 for n in mine):
+                    raise AssertionError("{}'s bf16 kernel {} lacks {} in "
+                                         "its SASS".format(name, kernel, op))
+            tc[name] += sum(n["HMMA"] + n["HGMMA"] for n in mine)
+            if name in _cuda.BUILD_LOGS:
+                for fn, n in sorted(spill_bytes(_cuda.BUILD_LOGS[name],
+                                                kernel).items()):
+                    log("[build] {}: ptxas spill bytes (stores + loads) {} "
+                        "in {}".format(name, n, fn))
     return tc
 
 
@@ -718,17 +754,49 @@ def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
     return err.max().item()
 
 
+def graph_ms(fn, iters=10, replays=3):
+    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events (the
+    device's time alone, as a captured train step sees it)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             what="squeezeDet"):
     """K2, (its plain version) and cuDNN's weight gradient timed at the
-    ``shapes`` (calls, kh, C, O, H, W) of one backward, each in turn;
-    returns the sums over the backward's calls and the per-shape rows."""
+    ``shapes`` (calls, kh, C, O, H, W) of one backward, each in turn:
+    launched one by one from Python (a short call's host work shows) and,
+    but the plain version, replayed from a CUDA graph (``graph_ms``).  At
+    a bf16 1x1 shape also the bf16 kernel that ``filter_grad.uses_mma``
+    did not pick (``other``: the times behind the rule).  Returns the sums
+    over the backward's calls (``*_1x1``: over its 1x1 calls, what the
+    train loop's --pallas_grads runs) and the per-shape rows."""
     import torch
 
     from squeezedet_torch.ops import filter_grad as fg
     name = str(dtype).replace("torch.", "")
-    total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0, "bound": 0.0,
-             "bytes": 0.0, "operations": 0.0}
+    keys = ("kernel", "plain", "cudnn", "other", "graph_kernel",
+            "graph_cudnn", "graph_other", "bound", "bytes", "operations")
+    total = dict.fromkeys(keys + tuple(k + "_1x1" for k in keys), 0.0)
     largest, rows = None, []
     for calls, kh, c, o, h, w in shapes:
         x = torch.randn(batch, h, w, c, device="cuda", generator=gen).to(dtype)
@@ -742,39 +810,64 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             "cudnn": lambda: torch.nn.grad.conv2d_weight(
                 xn, (o, c, kh, kh), dyn, padding=kh // 2),
         }
-        order = ("plain", "kernel", "cudnn", "cudnn", "kernel", "plain")
-        if not with_plain:
-            order = ("kernel", "cudnn", "cudnn", "kernel")
+        design = {0: "f32", 1: "wgmma", 2: "mma.sync"}[
+            fg.plan(batch, h, w, c, o, kh, kh, dtype).kernel]
+        if dtype == torch.bfloat16 and kh == 1:
+            other = (fg.wgmma_plan if design == "mma.sync" else
+                     fg.mma_plan)(batch, h, w, c, o, 1, 1)
+            fns["other"] = lambda: fg.launch(x, dy, 1, 1, other)
+        turn = [n for n in ("plain", "kernel", "other", "cudnn")
+                if n in fns and (with_plain or n != "plain")]
         ms = {n: [] for n in fns}
-        for n in order:
+        for n in turn + turn[::-1]:
             ms[n].append(cuda_ms(fns[n], iters=10))
-        ms = {n: sum(v) / len(v) if v else 0.0 for n, v in ms.items()}
+        for n in [n for n in turn if n != "plain"] * 2:
+            ms.setdefault("graph_" + n, []).append(graph_ms(fns[n]))
+        ms = dict.fromkeys(keys, 0.0) | {
+            n: sum(v) / len(v) for n, v in ms.items() if v}
         ms["bound"], bound_by = k2_bound(batch, kh, c, o, h, w)
-        ms["bytes"] = ms["operations"] = 0.0
         ms[bound_by] = ms["bound"]
-        for n in total:
+        for n in keys:
             total[n] += calls * ms[n]
+            if kh == 1:
+                total[n + "_1x1"] += calls * ms[n]
         if largest is None or ms["kernel"] > largest[1]["kernel"]:
             largest = ((kh, c, o, h, w), ms)
-        rows.append({"batch": batch, "kh": kh, "C": c, "O": o, "H": h,
-                     "W": w, "calls": calls, "ms": ms["kernel"],
-                     "library_ms": ms["cudnn"], "bound_ms": ms["bound"],
-                     "bound_by": bound_by})
-        log("[k2] time B={} {}x{} C={} O={} {}x{} {}: kernel {:.4f} ms, "
-            "plain {}, cuDNN weight grad {:.4f} ms; bf16 bound {:.4f} ms "
-            "({}), kernel at {:.1f} TFLOP/s".format(
-                batch, kh, kh, c, o, h, w, name, ms["kernel"],
+        row = {"batch": batch, "kh": kh, "C": c, "O": o, "H": h, "W": w,
+               "calls": calls, "design": design, "ms": ms["kernel"],
+               "library_ms": ms["cudnn"], "graph_ms": ms["graph_kernel"],
+               "graph_library_ms": ms["graph_cudnn"],
+               "bound_ms": ms["bound"], "bound_by": bound_by}
+        if "other" in fns:
+            row.update(other_design={1: "wgmma", 2: "mma.sync"}[
+                other.kernel], other_ms=ms["other"],
+                other_graph_ms=ms["graph_other"])
+        rows.append(row)
+        log("[k2] time B={} {}x{} C={} O={} {}x{} {} ({}): kernel {:.4f} "
+            "ms (graph {:.4f}), plain {}, cuDNN weight grad {:.4f} ms "
+            "(graph {:.4f}){}; bf16 bound {:.4f} ms ({}), kernel at {:.1f} "
+            "TFLOP/s".format(
+                batch, kh, kh, c, o, h, w, name, design, ms["kernel"],
+                ms["graph_kernel"],
                 "{:.4f} ms".format(ms["plain"]) if with_plain else "not timed",
-                ms["cudnn"], ms["bound"], bound_by,
+                ms["cudnn"], ms["graph_cudnn"],
+                ", {} {:.4f} ms (graph {:.4f})".format(
+                    row["other_design"], ms["other"], ms["graph_other"])
+                if "other" in fns else "", ms["bound"], bound_by,
                 2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9))
         del x, dy, xn, dyn
     log("[k2] one {} backward's {} K2 calls, B={} {} on {}: kernel {:.4f} "
-        "ms, plain {}, cuDNN weight grad {:.4f} ms, bf16 bound {:.4f} ms; "
+        "ms (graph {:.4f}), plain {}, cuDNN weight grad {:.4f} ms (graph "
+        "{:.4f}), bf16 bound {:.4f} ms; its 1x1 calls: kernel {:.4f} ms "
+        "(graph {:.4f}), cuDNN {:.4f} ms (graph {:.4f}), bound {:.4f} ms; "
         "largest call {} kernel {:.4f} ms".format(
             what, sum(s[0] for s in shapes), batch, name, card,
-            total["kernel"],
+            total["kernel"], total["graph_kernel"],
             "{:.4f} ms".format(total["plain"]) if with_plain else "not timed",
-            total["cudnn"], total["bound"], largest[0], largest[1]["kernel"]))
+            total["cudnn"], total["graph_cudnn"], total["bound"],
+            total["kernel_1x1"], total["graph_kernel_1x1"],
+            total["cudnn_1x1"], total["graph_cudnn_1x1"],
+            total["bound_1x1"], largest[0], largest[1]["kernel"]))
     return total, rows
 
 
@@ -797,8 +890,8 @@ def phase_k2(card):
                                             gen))
 
     t32, _ = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
-    t16, _ = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
-    time_k2(card, K2_BIG_BATCH, torch.bfloat16, gen, False)
+    t16, rows = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
+    rows += time_k2(card, K2_BIG_BATCH, torch.bfloat16, gen, False)[1]
     log("[k2] f32 route, B={}: kernel {:.4f} ms against its CUDA-core f32 "
         "bound {:.4f} ms".format(K2_TRAIN_BATCH, t32["kernel"], sum(
             calls * 2 * K2_TRAIN_BATCH * h * w * c * o * kh * kh / F32_FLOPS
@@ -807,7 +900,7 @@ def phase_k2(card):
     bound_by = max(("bytes", "operations"), key=lambda k: t16[k])
     return {"max_abs_err": max_err, "ms": t16["kernel"],
             "plain_ms": t16["plain"], "bound_ms": t16["bound"],
-            "bound_by": bound_by, "library_ms": t16["cudnn"]}
+            "bound_by": bound_by, "library_ms": t16["cudnn"]}, rows
 
 
 def _top_gap(probs):
@@ -2738,8 +2831,10 @@ def _kernel_rows(prof, wall_ms):
     return rows, busy, max(0.0, 1.0 - busy / wall_ms)
 
 
-def _rows_named(rows, part):
-    return sum(n for name, n in rows.items() if part in name)
+def _rows_named(rows, kernel):
+    """Profiler rows of ``kernel``'s bf16 kernel functions (one a call)."""
+    return sum(n for name, n in rows.items()
+               if any(fn in name for fn in TC_FUNCTIONS[kernel]))
 
 
 def phase_graph_step(card, weights):
@@ -2835,13 +2930,13 @@ def phase_graph_step(card, weights):
                     kind, k, b, cfg.keep_prob,
                     [round(t, 3) for t in ms], sum(rows.values()), busy,
                     idle, counts, _rows_named(rows, "conv1_pool1"),
-                    _rows_named(rows, "filter_grad_tc_partial"), card))
+                    _rows_named(rows, "filter_grad"), card))
         eager, graph = runs["eager"], runs["graph"]
         for kind in ("eager", "graph"):
             run = runs[kind]
             want = [(k, K2_PER_STEP["1x1"] * k)] * GRAPH_DISPATCHES
             k1_rows = _rows_named(run["rows"], "conv1_pool1")
-            k2_rows = _rows_named(run["rows"], "filter_grad_tc_partial")
+            k2_rows = _rows_named(run["rows"], "filter_grad")
             if run["counts"] != want or \
                     (k1_rows, k2_rows) != run["counts"][-1]:
                 raise AssertionError(
@@ -4159,7 +4254,7 @@ def main():
     card = phase_device()
     tc = phase_build()
     k1 = phase_k1(card)
-    k2 = phase_k2(card)
+    k2, k2_train_rows = phase_k2(card)
 
     from squeezedet_torch.models import get_model
     from squeezedet_torch.models import layers as L
@@ -4321,6 +4416,7 @@ def main():
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
         + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"]
         + spatial["k1"] + host["k1"],
+        "design": "mma.sync",
         "tensor_core_instructions": tc["conv1_pool1"],
         **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err)),
     }, {
@@ -4330,8 +4426,12 @@ def main():
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
         "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"]
         + graph["k2"] + spatial["k2"] + host["k2"],
+        "design": "tma+wgmma; mma.sync for 1x1 calls with O <= 256 and "
+                  "C <= 128, or C <= 256 and ceil(O / 128) * positions "
+                  "<= 90000",
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
+        "train_shapes": k2_train_rows,
         "backbone_shapes": k2_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -9,41 +9,45 @@
 //
 // What bounds it (H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 on tensor
 // cores, 67 TFLOP/s f32 on CUDA cores).  A call reads X and dY once
-// (2 * B*H*W * (C + O) bytes in bf16) and writes dW (4 * kh*kw*C*O bytes);
-// it does 2 * B*H*W * C * O * kh*kw operations.  At the squeezeDet train
-// step (B=20, 1248x384) the ten 1x1 squeeze halves move 13-48 MB for
-// 0.6-4 GFLOP each, so they are bound by bytes (4-14 us each); conv12's two
-// 3x3 halves (C=384, O=72, 24x78) do 18.6 GFLOP on 16 MB each, bound by the
-// tensor cores (19 us each).  Summed over one backward's 12 calls the bound
-// is ~0.126 ms.  The output is small, so parallelism has to come from
-// splitting the contraction.
+// (2 * B*H*W * (C + O) bytes in bf16), writes dW (4 * kh*kw*C*O bytes) and
+// does 2 * B*H*W * C * O * kh*kw operations.  squeezeDet's 1x1 squeezes are
+// bound by bytes (4-14 us each at B=20); its 3x3 conv12 and the wide 3x3s of
+// VGG16, squeezeDet+ and ResNet50 by the tensor cores (VGG16 conv4_2:
+// 173 GFLOP, 0.175 ms).  dW is small, so parallelism has to come from
+// splitting the contraction over positions, and its tiles' operands are
+// read again for every tap and tile: the L2 has to serve them.
 //
-// bf16 route (tensor cores):
-//   pass 1: block = (C tile of 128, O tile of up to 128 columns (all of O
-//     in squeezeDet: no wasted columns at O = 32..96), tap, split).  It walks
-//     its split's chunk of positions 64 at a time through a 3-stage ring in
-//     shared memory (96 KB), filled by 16-byte cp.async as the operands lie
-//     (bf16, [position][channel]); a shifted X row outside the image, and a
-//     row past the chunk's end, is copied as zeros (src-size 0).  Each
-//     position is split into (b, y, x) to find its shifted row, so rows never
-//     wrap across image rows.  Both operands have the contraction (position)
-//     axis as their slow axis, so ldmatrix.trans loads the A (X^T) and B (dY)
-//     fragments; rows are 256 bytes with the 16-byte chunk index XORed by
-//     (row & 7), so the 8 rows an ldmatrix reads fall in 8 distinct bank
-//     groups.  8 warps: 4 along C (32 rows each) x 2 along O, each issuing
-//     mma.sync.m16n8k16 bf16 -> f32 on its 2 x NTW fragment tiles.  The
-//     partial goes to ws[split, tap, C, O] (or straight to dW when there is
-//     one split).
-//   pass 2: dW[t, c, o] = sum over splits of ws[s, t, c, o] in a fixed
-//     order: 8 warps each sum every 8th split of 32 outputs, then their 8
-//     sums are added in warp order, so even a small dW (6k values) keeps
-//     many loads in flight.
-// f32 route (CUDA cores, unchanged): 64 x 64 C x O tile per (tap, split),
-//   32 positions staged per step as f32 in shared memory, 4 x 4 f32 FMAs per
-//   thread; the same pass 2.
-// Every sum runs in a fixed order and no atomics are used, so two launches
-// on the same inputs give the same bits.
+// bf16 route, one launch a call: filter_grad_wgmma<N> (N = the O tile);
+// the short 1x1 calls ops/filter_grad.py's uses_mma names run
+// filter_grad_tc_partial (below).
+//   Positions are cut into boxes of hbox rows x wbox columns of one image
+//   (wbox a multiple of 16).  Block (split, tile) owns a 128 (C) x N (O)
+//   tile of one tap and a run of boxes; blocks are numbered split-major, so
+//   the ones resident together read the same boxes and the L2 serves the
+//   other taps and tiles.  One thread of a producer warpgroup keeps a ring
+//   of stages full with TMA loads, guarded by mbarriers: per box, two
+//   64-channel X boxes at (c0, x0 + j - pw, y0 + i - ph, b) and N/64
+//   64-column dY boxes at (o0, x0, y0, b) of 4-D tensor maps over the
+//   operands as they lie.  TMA fills every element outside the tensor with
+//   zeros, so the SAME pad, the image edge and a box's overhang past W or H
+//   cost no instruction.  Both boxes stage position-major (a 128-byte row a
+//   position, 128-byte swizzle), so X^T is an M-major A and dY an N-major B
+//   operand: two consumer warpgroups (64 C rows each, registers taken from
+//   the producer by setmaxnreg) run wgmma.m64nNk16 bf16 -> f32 on them
+//   straight from shared memory with the transpose bits set.
+//   The splits are summed inside the launch: each block writes its f32
+//   partial; an int arrival counter per group of splits picks the group's
+//   last block, which sums the group's partials in split order, and the
+//   tile's last group sums the groups' sums in group order into dW.  The
+//   counters order only who sums, never the order of a sum.  The tensor
+//   cores' f32 accumulation truncates, so on operands of one sign the
+//   error grows with a split's chain of k-steps (mma.sync's too).
+// f32 route (CUDA cores): 64 x 64 C x O tile per (tap, split), 32 positions
+//   staged per step as f32 in shared memory, 4 x 4 f32 FMAs per thread; a
+//   second pass sums the splits in a fixed order.
+// No float atomics: two launches on the same inputs give the same bits.
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,16 +61,6 @@ constexpr int kStep = 32;     // f32 route: positions per step; every split's
 constexpr int kTC = 64;       // C rows of a block's output tile
 constexpr int kTO = 64;       // O columns of a block's output tile
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-
-// ---- bf16 route (tensor cores) -------------------------------------------
-constexpr int kMC = 128;      // C rows of a block's output tile
-constexpr int kNO = 128;      // at most this many O columns per block
-constexpr int kTcStep = 64;   // positions per stage
-constexpr int kStages = 3;    // cp.async ring depth
-constexpr int kChunks = 16;   // 16-byte chunks in a 256-byte staged row
-constexpr int kTcThreads = 256;
-constexpr int kStageBytes = kTcStep * kChunks * 16;        // 16 KB per operand
-constexpr int kTcSmemBytes = 2 * kStages * kStageBytes;    // 96 KB
 
 struct Shape {
   int B, H, W, C, O, kh, kw;
@@ -161,7 +155,74 @@ filter_grad_partial_f32(const float* __restrict__ x,
   }
 }
 
-// ---- bf16 route helpers ----------------------------------------------------
+constexpr int kReduceLanes = 32;   // outputs (float4s or floats) a block
+constexpr int kReduceGroups = 8;   // warps, each summing every 8th split
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+
+// out[i] = sum over splits of ws[s, i], n values (as n / VW vectors V).
+// Warp g of a block sums splits g, g + 8, g + 16, ... in that order for
+// its block's 32 outputs; then the 8 warps' sums are added in warp order.
+// The order is fixed, so the result does not depend on scheduling.
+template <typename V>
+__global__ void __launch_bounds__(kReduceLanes * kReduceGroups)
+filter_grad_reduce(const V* __restrict__ ws, V* __restrict__ out, int64_t n,
+                   int splits) {
+  __shared__ V part[kReduceGroups][kReduceLanes];
+  const int lane = threadIdx.x % kReduceLanes;
+  const int grp = threadIdx.x / kReduceLanes;
+  const int64_t i = (int64_t)blockIdx.x * kReduceLanes + lane;
+  V v = V();
+  if (i < n) {
+#pragma unroll 4
+    for (int sp = grp; sp < splits; sp += kReduceGroups)
+      v = add(v, ws[(int64_t)sp * n + i]);
+  }
+  part[grp][lane] = v;
+  __syncthreads();
+  if (grp == 0 && i < n) {
+#pragma unroll
+    for (int g = 1; g < kReduceGroups; ++g) v = add(v, part[g][lane]);
+    out[i] = v;
+  }
+}
+
+int launch_reduce(const float* ws, float* out, const Shape& s, int splits,
+                  cudaStream_t stream) {
+  const int64_t n = (int64_t)s.kh * s.kw * s.C * s.O;
+  const int threads = kReduceLanes * kReduceGroups;
+  if (n % 4 == 0) {  // always on the bf16 route; the f32 route takes any O
+    const int64_t blocks = (n / 4 + kReduceLanes - 1) / kReduceLanes;
+    filter_grad_reduce<float4><<<(unsigned)blocks, threads, 0, stream>>>(
+        reinterpret_cast<const float4*>(ws), reinterpret_cast<float4*>(out),
+        n / 4, splits);
+  } else {
+    const int64_t blocks = (n + kReduceLanes - 1) / kReduceLanes;
+    filter_grad_reduce<float><<<(unsigned)blocks, threads, 0, stream>>>(
+        ws, out, n, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16 route for the small 1x1 calls (mma.sync) ------------------------
+// Block = (C tile of 128, O tile of up to 128, tap, split), 8 warps of
+// mma.sync.m16n8k16 fed by ldmatrix.trans from a 3-stage cp.async ring of
+// 64 positions; the partials are summed by filter_grad_reduce.  On the
+// short 1x1 calls with at most 2 x 2 of its tiles its second pass costs
+// less than the in-launch tree of filter_grad_wgmma (ops/filter_grad.py's
+// uses_mma holds the rule).
+constexpr int kMmaC = 128;     // C rows of a block's output tile
+constexpr int kMmaO = 128;     // at most this many O columns per block
+constexpr int kMmaStep = 64;   // positions per stage
+constexpr int kMmaStages = 3;  // cp.async ring depth
+constexpr int kMmaChunks = 16; // 16-byte chunks in a 256-byte staged row
+constexpr int kMmaThreads = 256;
+constexpr int kMmaStageBytes = kMmaStep * kMmaChunks * 16;  // 16 KB an operand
+constexpr int kMmaSmemBytes = 2 * kMmaStages * kMmaStageBytes;  // 96 KB
+
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -200,10 +261,10 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 
 // byte offset of 16-byte chunk `chunk` of staged row `row` (XOR swizzle)
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)((row * kChunks + (chunk ^ (row & 7))) * 16);
+  return (uint32_t)((row * kMmaChunks + (chunk ^ (row & 7))) * 16);
 }
 
-// (b, y, x) of a flat position, stepped kTcStep positions per stage
+// (b, y, x) of a flat position, stepped kMmaStep positions per stage
 struct Pos {
   int b, y, x;
   __device__ void init(int64_t p, int H, int W) {
@@ -227,24 +288,24 @@ struct Pos {
 
 // NTW: n8 tiles of O per warp (each warp owns 32 C rows x 8*NTW O columns)
 template <int NTW>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, 2)
 filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ dy,
                        float* __restrict__ ws, Shape s) {
   constexpr int NP = (NTW + 1) / 2;  // ldmatrix.x4 loads of dY
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* s_x = smem;                           // [stage][64][256 B]
-  unsigned char* s_d = smem + kStages * kStageBytes;   // [stage][64][256 B]
+  unsigned char* s_d = smem + kMmaStages * kMmaStageBytes;  // [stage][64][256]
 
-  const int c0 = (blockIdx.x % s.c_tiles) * kMC;
-  const int o0 = (blockIdx.x / s.c_tiles) * kNO;
-  const int nt8 = min(kNO, s.O - o0) / 8;  // O is a multiple of 8
+  const int c0 = (blockIdx.x % s.c_tiles) * kMmaC;
+  const int o0 = (blockIdx.x / s.c_tiles) * kMmaO;
+  const int nt8 = min(kMmaO, s.O - o0) / 8;  // O is a multiple of 8
   const int tap = blockIdx.y;
   const int di = tap / s.kw - (s.kh - 1) / 2;
   const int dj = tap % s.kw - (s.kw - 1) / 2;
   const int64_t p_begin = (int64_t)blockIdx.z * s.chunk;
   const int64_t p_end = p_begin + s.chunk < s.M ? p_begin + s.chunk : s.M;
-  const int n_stages = (int)((p_end - p_begin + kTcStep - 1) / kTcStep);
+  const int n_stages = (int)((p_end - p_begin + kMmaStep - 1) / kMmaStep);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -253,16 +314,16 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
 
   // loader: this thread copies chunks 4*lq .. 4*lq+3 of staged row lr, so
   // it finds one row's (b, y, x) per stage
-  static_assert(kTcStep * 4 == kTcThreads, "one staged row per 4 threads");
+  static_assert(kMmaStep * 4 == kMmaThreads, "one staged row per 4 threads");
   const int lr = tid >> 2;
   const int lq = tid & 3;
   Pos pos;
   pos.init(p_begin + lr, s.H, s.W);
 
   auto load_stage = [&](int slot, int stage) {
-    const uint32_t xs = smem_addr(s_x + slot * kStageBytes);
-    const uint32_t ds = smem_addr(s_d + slot * kStageBytes);
-    const int64_t p = p_begin + (int64_t)stage * kTcStep + lr;
+    const uint32_t xs = smem_addr(s_x + slot * kMmaStageBytes);
+    const uint32_t ds = smem_addr(s_d + slot * kMmaStageBytes);
+    const int64_t p = p_begin + (int64_t)stage * kMmaStep + lr;
     const bool live = p < p_end;
     const int ys = pos.y + di, xs_ = pos.x + dj;
     const bool in = live && ys >= 0 && ys < s.H && xs_ >= 0 && xs_ < s.W;
@@ -279,7 +340,7 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
         cp_async16(ds + swz(lr, chunk), live ? drow + 8 * chunk : dy,
                    live ? 16 : 0);
     }
-    pos.advance(kTcStep, s.H, s.W);
+    pos.advance(kMmaStep, s.H, s.W);
   };
 
   float acc[2][NTW][4];
@@ -291,7 +352,7 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
       for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < kMmaStages - 1; ++st) {
     if (st < n_stages) load_stage(st, st);
     cp_async_commit();
   }
@@ -299,16 +360,16 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
   // ldmatrix row addresses: lane -> (matrix lane/8, row lane%8)
   const int mat = lane >> 3, mrow = lane & 7;
   for (int st = 0; st < n_stages; ++st) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<kMmaStages - 2>();
     __syncthreads();
-    const int next = st + kStages - 1;
-    if (next < n_stages) load_stage(next % kStages, next);
+    const int next = st + kMmaStages - 1;
+    if (next < n_stages) load_stage(next % kMmaStages, next);
     cp_async_commit();
 
-    const uint32_t xs = smem_addr(s_x + (st % kStages) * kStageBytes);
-    const uint32_t ds = smem_addr(s_d + (st % kStages) * kStageBytes);
+    const uint32_t xs = smem_addr(s_x + (st % kMmaStages) * kMmaStageBytes);
+    const uint32_t ds = smem_addr(s_d + (st % kMmaStages) * kMmaStageBytes);
 #pragma unroll
-    for (int k0 = 0; k0 < kTcStep; k0 += 16) {
+    for (int k0 = 0; k0 < kMmaStep; k0 += 16) {
       // Every fragment of the step is loaded before the first mma, so the
       // loads' latencies overlap.  B = dY: matrices (k 0-7, n t), (k 8-15,
       // n t), (k 0-7, n t+1), (k 8-15, n t+1), stored [k][n]
@@ -366,118 +427,700 @@ filter_grad_tc_partial(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-constexpr int kReduceLanes = 32;   // outputs (float4s or floats) a block
-constexpr int kReduceGroups = 8;   // warps, each summing every 8th split
-
-__device__ __forceinline__ float4 add(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-__device__ __forceinline__ float add(float a, float b) { return a + b; }
-
-// out[i] = sum over splits of ws[s, i], n values (as n / VW vectors V).
-// Warp g of a block sums splits g, g + 8, g + 16, ... in that order for
-// its block's 32 outputs; then the 8 warps' sums are added in warp order.
-// The order is fixed, so the result does not depend on scheduling.
-template <typename V>
-__global__ void __launch_bounds__(kReduceLanes * kReduceGroups)
-filter_grad_reduce(const V* __restrict__ ws, V* __restrict__ out, int64_t n,
-                   int splits) {
-  __shared__ V part[kReduceGroups][kReduceLanes];
-  const int lane = threadIdx.x % kReduceLanes;
-  const int grp = threadIdx.x / kReduceLanes;
-  const int64_t i = (int64_t)blockIdx.x * kReduceLanes + lane;
-  V v = V();
-  if (i < n) {
-#pragma unroll 4
-    for (int sp = grp; sp < splits; sp += kReduceGroups)
-      v = add(v, ws[(int64_t)sp * n + i]);
-  }
-  part[grp][lane] = v;
-  __syncthreads();
-  if (grp == 0 && i < n) {
-#pragma unroll
-    for (int g = 1; g < kReduceGroups; ++g) v = add(v, part[g][lane]);
-    out[i] = v;
-  }
-}
-
-int launch_reduce(const float* ws, float* out, const Shape& s, int splits,
-                  cudaStream_t stream) {
-  const int64_t n = (int64_t)s.kh * s.kw * s.C * s.O;
-  const int threads = kReduceLanes * kReduceGroups;
-  if (n % 4 == 0) {  // always on the bf16 route; the f32 route takes any O
-    const int64_t blocks = (n / 4 + kReduceLanes - 1) / kReduceLanes;
-    filter_grad_reduce<float4><<<(unsigned)blocks, threads, 0, stream>>>(
-        reinterpret_cast<const float4*>(ws), reinterpret_cast<float4*>(out),
-        n / 4, splits);
-  } else {
-    const int64_t blocks = (n + kReduceLanes - 1) / kReduceLanes;
-    filter_grad_reduce<float><<<(unsigned)blocks, threads, 0, stream>>>(
-        ws, out, n, splits);
-  }
-  return (int)cudaGetLastError();
-}
-
 template <int NTW>
-cudaError_t launch_tc(const Shape& s, dim3 grid, const void* x,
+cudaError_t launch_mma(const Shape& s, dim3 grid, const void* x,
                       const void* dy, float* dst, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       filter_grad_tc_partial<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmemBytes);
+      kMmaSmemBytes);
   if (err != cudaSuccess) return err;
-  filter_grad_tc_partial<NTW><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+  filter_grad_tc_partial<NTW><<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(dy), dst, s);
   return cudaGetLastError();
+}
+
+// ---- bf16 route (TMA + wgmma) --------------------------------------------
+constexpr int kBoxC = 64;        // channels of a box: 128 bytes, the swizzle
+constexpr int kRow = 128;        // bytes of one position's row in a box
+constexpr int kTileC = 128;      // C rows of a tile: a box per consumer
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kTcThreads = kConsumers + 128;  // and the producer group
+constexpr int kProducerRegs = 40;   // registers a thread after setmaxnreg:
+constexpr int kConsumerRegs = 232;  // 128 * 40 + 256 * 232 <= 65536
+constexpr int kMaxStages = 8;
+constexpr int kSmemLimit = 232448;  // dynamic + static shared bytes a block
+constexpr int kAlign = 1024;     // the 128-byte swizzle repeats every 1 KB
+
+constexpr int kCounters = 16;   // arrival counters a tile: <= 15 groups
+                                // of splits, then the tile's own
+
+// The call's geometry.  Block (split s, tile t) is blockIdx s * tiles + t.
+struct Geo {
+  int B, H, W, C, O, kh, kw;
+  int hbox, wbox, ny, nx;        // a box: hbox x wbox positions of an image
+  int boxes;                     // B * ny * nx, numbered (b, row, column)
+  int c_tiles, o_tiles, tiles;   // tiles = c_tiles * o_tiles * kh * kw
+  int splits, chunk;             // boxes [s * chunk, (s+1) * chunk) a split
+  int group;                     // splits summed per group
+  int stages;                    // ring depth
+};
+
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// spin until the phase of parity `parity` of the barrier has completed; a
+// wait past kWaitNs traps (a launch error) rather than hang the card
+constexpr uint64_t kWaitNs = 10000000000ull;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = global_ns();
+    else if (global_ns() - start > kWaitNs) __trap();
+  }
+}
+
+// one 4-D box of `map` at element coordinates (c0..c3) into shared `dst`;
+// elements outside the tensor, negative coordinates included, read as 0
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// a wgmma descriptor's start address field: bits 4-17 of the shared offset
+__device__ __forceinline__ uint64_t desc_addr(uint32_t smem) {
+  return (smem >> 4) & 0x3FFF;
+}
+
+// d (64 x N f32, the warpgroup's fragment) += A (64 x 16) * B (16 x N), both
+// bf16 in shared memory as described by the descriptors, both MN-major
+// (transpose bits 1, 1)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<72> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35},"
+      " %36, %37, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// The last of `expected` blocks to arrive at `counter`?  Called by every
+// consumer thread after its stores; the stores are visible to the last.
+__device__ __forceinline__ bool arrive_last(int* counter, int expected,
+                                            int* flag) {
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == expected - 1;
+  consumers_sync();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// What a block of the bf16 kernel works on, and where its ring lies.
+struct Work {
+  int t, split, c0, o0, tap;  // its tile (C and O offsets, tap) and split
+  int box0, n_iter;           // its boxes: box0 .. box0 + n_iter - 1
+  uint32_t ring, box_bytes, stage_bytes;
+};
+
+// The producer: one thread keeps the ring full.  A stage is two
+// 64-channel X boxes, shifted by the tap, and NB 64-column dY boxes.
+template <int NB>
+__device__ __forceinline__ void produce(const CUtensorMap* xmap,
+                                        const CUtensorMap* dmap,
+                                        uint64_t* full, uint64_t* empty,
+                                        const Geo& g, const Work& w) {
+  const int dj = w.tap % g.kw - (g.kw - 1) / 2;
+  const int di = w.tap / g.kw - (g.kh - 1) / 2;
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int slot = it % g.stages;
+    mbar_wait(smem_addr(&empty[slot]), ((it / g.stages) & 1) ^ 1);
+    const int box = w.box0 + it;
+    const int x0 = box % g.nx * g.wbox;
+    const int y0 = box / g.nx % g.ny * g.hbox;
+    const int b = box / (g.nx * g.ny);
+    const uint32_t bar = smem_addr(&full[slot]);
+    const uint32_t dst = w.ring + slot * w.stage_bytes;
+    mbar_expect_tx(bar, w.stage_bytes);
+    tma_load(dst, xmap, bar, w.c0, x0 + dj, y0 + di, b);
+    tma_load(dst + w.box_bytes, xmap, bar, w.c0 + kBoxC, x0 + dj, y0 + di,
+             b);
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+      tma_load(dst + (2 + q) * w.box_bytes, dmap, bar, w.o0 + q * kBoxC, x0,
+               y0, b);
+  }
+}
+
+// A consumer thread's share of the 128 x N tile: acc[4j + 2h + e] is
+// (row + 8h, col + 8j + e), rows of C and columns of O from the tile's
+// corner.
+template <int N>
+struct Frag {
+  float acc[N / 2];
+  int row, col;
+  int rows, cols;  // the tile's rows and columns inside C and O
+
+  __device__ __forceinline__ bool valid(int j, int h) const {
+    return row + 8 * h < rows && col + 8 * j < cols;
+  }
+  // into a row-major block of leading dimension ld at dst
+  __device__ __forceinline__ void store(float* dst, int ld) const {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (valid(j, h))
+          *reinterpret_cast<float2*>(dst + (row + 8 * h) * ld + col + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+};
+
+// dst = slot[first] + slot[first + step] + .. (below end), each element
+// summed in that order, by the 256 consumer threads with 16-byte loads,
+// kBatch of a thread's float4s at a time; slot k is the dense 128 x N
+// block at slots + k * stride.  Only rows < rows and columns < cols of the
+// 128 x N result are written, at leading dimension ld.
+constexpr int kBatch = 8;
+template <int N>
+__device__ __forceinline__ void sum_slots(const float* slots, int64_t stride,
+                                          int first, int end, int step,
+                                          float* dst, int ld, int rows,
+                                          int cols) {
+  constexpr int Q = N / 4;                      // float4s a row
+  constexpr int PER = kTileC * Q / kConsumers;  // float4s a thread
+  for (int i0 = 0; i0 < PER; i0 += kBatch) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int k = first; k < end; k += step) {
+      const float4* src = reinterpret_cast<const float4*>(slots + k * stride);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (i0 + u < PER) {
+          const float4 p = __ldcg(src + threadIdx.x + kConsumers * (i0 + u));
+          v[u].x += p.x;
+          v[u].y += p.y;
+          v[u].z += p.z;
+          v[u].w += p.w;
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = threadIdx.x + kConsumers * (i0 + u);
+      const int r = e / Q, c = e % Q * 4;
+      if (i0 + u < PER && r < rows && c < cols)
+        *reinterpret_cast<float4*>(dst + (int64_t)r * ld + c) = v[u];
+    }
+  }
+}
+
+// The consumers: warpgroup wg multiplies its 64-channel X box (A, M-major)
+// by the stage's dY boxes (B, N-major) into its 64 x N sum.  Descriptors:
+// 128-byte swizzle (layout 1 at bit 62); SBO = 1 KB between groups of 8
+// positions; LBO = one box between 64-wide groups along M or N; the start
+// address advances 16 positions (2 KB) per k-step.  Then the epilogue.
+template <int N>
+__device__ __forceinline__ void consume(float* out, float* part, int* count,
+                                        int* flag, uint64_t* full,
+                                        uint64_t* empty, const Geo& g,
+                                        const Work& w) {
+  const int wg = threadIdx.x / 128;
+  const int P = g.hbox * g.wbox;
+  const uint64_t desc_hi = ((uint64_t)(w.box_bytes >> 4) << 16) |
+                           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+  Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) f.acc[i] = 0.f;
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int slot = it % g.stages;
+    mbar_wait(smem_addr(&full[slot]), (it / g.stages) & 1);
+    const uint32_t st = w.ring + slot * w.stage_bytes;
+    const uint32_t a = st + wg * w.box_bytes, b = st + 2 * w.box_bytes;
+    wgmma_fence();
+    for (int k = 0; k < P / 16; ++k)
+      Wgmma<N>::run(f.acc, desc_hi | desc_addr(a + k * 2048),
+                    desc_hi | desc_addr(b + k * 2048));
+    wgmma_commit();
+    // free the stage as soon as its wgmmas are done, not once the next
+    // stage has arrived too: the producer keeps one stage more in flight,
+    // which the 3-stage rings of the wide tiles need to hide the loads
+    wgmma_wait<0>();
+    if (threadIdx.x % 128 == 0) mbar_arrive(smem_addr(&empty[slot]));
+  }
+
+  const int lane = threadIdx.x % 32;
+  f.row = 64 * wg + 16 * (threadIdx.x / 32 % 4) + lane / 4;
+  f.col = 2 * (lane % 4);
+  f.rows = g.C - w.c0;
+  f.cols = g.O - w.o0;
+  float* dw = out + ((int64_t)w.tap * g.C + w.c0) * g.O + w.o0;
+  if (g.splits == 1) {
+    f.store(dw, g.O);
+    return;
+  }
+  // slot of split k: k * tiles + t
+  const int64_t stride = (int64_t)g.tiles * kTileC * N;
+  float* slots = part + (int64_t)w.t * kTileC * N;
+  f.store(slots + w.split * stride, N);
+  const int groups = (g.splits + g.group - 1) / g.group;
+  const int lo = w.split / g.group * g.group;
+  const int hi = min(lo + g.group, g.splits);
+  if (!arrive_last(&count[w.t * kCounters + lo / g.group], hi - lo, flag))
+    return;
+  if (groups == 1) {
+    sum_slots<N>(slots, stride, lo, hi, 1, dw, g.O, f.rows, f.cols);
+    return;
+  }
+  sum_slots<N>(slots, stride, lo, hi, 1, slots + lo * stride, N, kTileC, N);
+  if (!arrive_last(&count[w.t * kCounters + kCounters - 1], groups, flag))
+    return;
+  sum_slots<N>(slots, stride, 0, g.splits, g.group, dw, g.O, f.rows, f.cols);
+}
+
+// Block (split s, tile t), s-major, so that the blocks resident together
+// walk the same boxes (L2 hits across taps and tiles).  Threads 0-255 are
+// the consumer warpgroups (warpgroup w owns C rows c0 + 64w .. of the
+// tile), 256-383 the producer warpgroup, whose registers setmaxnreg hands
+// to the consumers' accumulators.  With one split the 128 x N sum over
+// the tile's boxes goes straight to dW.  Otherwise it goes to partial slot
+// s * tiles + t (dense 128 x N), and the splits are summed in a fixed
+// tree: groups of `group` consecutive splits, summed in split order by
+// the group's last block to arrive (into the group's first slot), then
+// the groups' sums in group order by the tile's last group to arrive.
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+filter_grad_wgmma(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap dmap,
+                  float* __restrict__ out, float* __restrict__ part,
+                  int* __restrict__ count, Geo g) {
+  constexpr int NB = (N + kBoxC - 1) / kBoxC;  // dY boxes a stage
+  extern __shared__ unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ int flag;
+
+  Work w;
+  w.ring = (smem_addr(smem) + kAlign - 1) & ~(uint32_t)(kAlign - 1);
+  w.box_bytes = (uint32_t)(g.hbox * g.wbox) * kRow;
+  w.stage_bytes = (2 + NB) * w.box_bytes;
+  w.t = blockIdx.x % g.tiles;
+  w.split = blockIdx.x / g.tiles;
+  w.c0 = w.t % g.c_tiles * kTileC;
+  w.o0 = w.t / g.c_tiles % g.o_tiles * N;
+  w.tap = w.t / (g.c_tiles * g.o_tiles);
+  w.box0 = w.split * g.chunk;
+  w.n_iter = min(g.chunk, g.boxes - w.box0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);    // the producer's expect_tx
+      mbar_init(smem_addr(&empty[s]), 2);   // one arrive per consumer group
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) produce<NB>(&xmap, &dmap, full, empty, g, w);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume<N>(out, part, count, &flag, full, empty, g, w);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous [B, H, W, ch] bf16 tensor, boxes of
+// 64 x wbox x hbox x 1 (channels innermost), 128-byte swizzle, zero fill
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, const Geo& g,
+            int ch) {
+  const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)g.W,
+                              (cuuint64_t)g.H, (cuuint64_t)g.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2,
+                                 (cuuint64_t)ch * 2 * g.W,
+                                 (cuuint64_t)ch * 2 * g.W * g.H};
+  const cuuint32_t box[4] = {kBoxC, (cuuint32_t)g.wbox, (cuuint32_t)g.hbox,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int N>
+cudaError_t launch_wgmma(const CUtensorMap& xm, const CUtensorMap& dm,
+                         float* out, float* part, int* count, const Geo& g,
+                         int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      filter_grad_wgmma<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  filter_grad_wgmma<N><<<g.tiles * g.splits, kTcThreads, smem, stream>>>(
+      xm, dm, out, part, count, g);
+  return cudaGetLastError();
+}
+
+// The bf16 call.  ws, in 4-byte words when splits > 1: kCounters arrival
+// counters a tile, then splits * tiles partial slots of 128 x tile_o f32.
+int launch_bf16(const void* x, const void* dy, void* ws, float* out,
+                const int* geo, cudaStream_t stream) {
+  Geo g{};
+  g.B = geo[0]; g.H = geo[1]; g.W = geo[2]; g.C = geo[3]; g.O = geo[4];
+  g.kh = geo[5]; g.kw = geo[6]; g.splits = geo[7]; g.chunk = geo[8];
+  const int n = geo[9];
+  g.hbox = geo[10]; g.wbox = geo[11]; g.group = geo[12]; g.stages = geo[13];
+  if (g.C % 8 != 0 || g.O % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0 || g.hbox < 1 ||
+      g.wbox < 16 || g.wbox % 16 != 0 || g.hbox > 256 || g.wbox > 256 ||
+      g.stages < 2 || g.stages > kMaxStages || g.chunk < 1 || g.group < 1 ||
+      (g.splits + g.group - 1) / g.group > kCounters - 1)
+    return (int)cudaErrorInvalidValue;
+  g.ny = (g.H + g.hbox - 1) / g.hbox;
+  g.nx = (g.W + g.wbox - 1) / g.wbox;
+  g.boxes = g.B * g.ny * g.nx;
+  g.c_tiles = (g.C + kTileC - 1) / kTileC;
+  g.o_tiles = (g.O + n - 1) / n;
+  g.tiles = g.c_tiles * g.o_tiles * g.kh * g.kw;
+  if ((int64_t)g.chunk * g.splits < g.boxes ||
+      (int64_t)g.chunk * (g.splits - 1) >= g.boxes ||
+      (int64_t)g.tiles * g.splits >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int nb = (n + kBoxC - 1) / kBoxC;
+  const int smem = g.stages * (2 + nb) * g.hbox * g.wbox * kRow + kAlign;
+  if (smem + 256 > kSmemLimit) return (int)cudaErrorInvalidValue;
+
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xm, dm;
+  if (!encode(fn, &xm, x, g, g.C) || !encode(fn, &dm, dy, g, g.O))
+    return (int)cudaErrorInvalidValue;
+
+  int* count = static_cast<int*>(ws);
+  float* part = static_cast<float*>(ws) + (int64_t)g.tiles * kCounters;
+  if (g.splits > 1) {
+    cudaError_t err = cudaMemsetAsync(
+        count, 0, (size_t)g.tiles * kCounters * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  switch (n) {
+    case 64:
+      return (int)launch_wgmma<64>(xm, dm, out, part, count, g, smem, stream);
+    case 72:
+      return (int)launch_wgmma<72>(xm, dm, out, part, count, g, smem, stream);
+    case 128:
+      return (int)launch_wgmma<128>(xm, dm, out, part, count, g, smem,
+                                    stream);
+    case 192:
+      return (int)launch_wgmma<192>(xm, dm, out, part, count, g, smem,
+                                    stream);
+    case 256:
+      return (int)launch_wgmma<256>(xm, dm, out, part, count, g, smem,
+                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// ws holds splits * kh * kw * C * O floats (unused when splits == 1);
-// chunk * splits >= B * H * W and chunk is a multiple of 32 (the wrapper
-// computes both).  dtype: 0 = float32 (CUDA cores, C x O tiles of 64 x 64),
-// 1 = bfloat16 (tensor cores, C tiles of 128 and O tiles of up to 128;
-// needs C % 8 == 0, O % 8 == 0 and 16-byte aligned x and dy).  Returns the
-// cudaError_t of the launches.
+// geo: {B, H, W, C, O, kh, kw, splits, chunk, tile_o, hbox, wbox, group,
+// stages}; the wrapper's plan computes it.  splits: of each tile's
+// contraction.  kernel 0 = float32 (CUDA cores; chunk = positions per
+// split, a multiple of 32; ws holds splits * kh*kw * C*O floats, unused
+// when splits == 1); 1 = bfloat16 by TMA + wgmma (chunk = boxes per split;
+// ws as launch_bf16 lays it out); 2 = bfloat16 by mma.sync (chunk and ws
+// as for float32).  bfloat16 needs C % 8 == 0, O % 8 == 0 and 16-byte
+// aligned x and dy.  Returns a cudaError_t.
 int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
-                    int B, int H, int W, int C, int O, int kh, int kw,
-                    int splits, long long chunk, int dtype, void* stream) {
-  if (kh % 2 != 1 || kw % 2 != 1 || chunk % kStep != 0 || splits < 1)
-    return (int)cudaErrorInvalidValue;
+                    const int* geo, int kernel, void* stream) {
+  const int B = geo[0], H = geo[1], W = geo[2], C = geo[3], O = geo[4];
+  const int kh = geo[5], kw = geo[6], splits = geo[7], chunk = geo[8];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kh % 2 != 1 || kw % 2 != 1 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 1)
+    return launch_bf16(x, dy, ws, static_cast<float*>(out), geo, st);
+  if ((kernel != 0 && kernel != 2) || chunk % kStep != 0)
+    return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   float* o = static_cast<float*>(out);
   float* dst = splits == 1 ? o : w;
   const int64_t M = (int64_t)B * H * W;
-  if (dtype == 0) {
-    Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + kTC - 1) / kTC};
+  cudaError_t err;
+  Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, 0};
+  if (kernel == 0) {
+    s.c_tiles = (C + kTC - 1) / kTC;
     const dim3 grid(s.c_tiles * ((O + kTO - 1) / kTO), kh * kw, splits);
     filter_grad_partial_f32<<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), dst, s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return (int)err;
-    return launch_reduce(w, o, s, splits, st);
-  }
-  if (dtype != 1 || C % 8 != 0 || O % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dy) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  Shape s{B, H, W, C, O, kh, kw, M, (int64_t)chunk, (C + kMC - 1) / kMC};
-  const dim3 grid(s.c_tiles * ((O + kNO - 1) / kNO), kh * kw, splits);
-  // n8 tiles per warp: the block's O columns split over 2 warps
-  const int ntw = ((O < kNO ? O : kNO) / 8 + 1) / 2;
-  cudaError_t err;
-  switch (ntw) {
-    case 1: err = launch_tc<1>(s, grid, x, dy, dst, st); break;
-    case 2: err = launch_tc<2>(s, grid, x, dy, dst, st); break;
-    case 3: err = launch_tc<3>(s, grid, x, dy, dst, st); break;
-    case 4: err = launch_tc<4>(s, grid, x, dy, dst, st); break;
-    case 5: err = launch_tc<5>(s, grid, x, dy, dst, st); break;
-    case 6: err = launch_tc<6>(s, grid, x, dy, dst, st); break;
-    case 7: err = launch_tc<7>(s, grid, x, dy, dst, st); break;
-    default: err = launch_tc<8>(s, grid, x, dy, dst, st); break;
+    err = cudaGetLastError();
+  } else {
+    if (C % 8 != 0 || O % 8 != 0 ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    s.c_tiles = (C + kMmaC - 1) / kMmaC;
+    const dim3 grid(s.c_tiles * ((O + kMmaO - 1) / kMmaO), kh * kw, splits);
+    // n8 tiles per warp: the block's O columns split over 2 warps
+    switch (((O < kMmaO ? O : kMmaO) / 8 + 1) / 2) {
+      case 1: err = launch_mma<1>(s, grid, x, dy, dst, st); break;
+      case 2: err = launch_mma<2>(s, grid, x, dy, dst, st); break;
+      case 3: err = launch_mma<3>(s, grid, x, dy, dst, st); break;
+      case 4: err = launch_mma<4>(s, grid, x, dy, dst, st); break;
+      case 5: err = launch_mma<5>(s, grid, x, dy, dst, st); break;
+      case 6: err = launch_mma<6>(s, grid, x, dy, dst, st); break;
+      case 7: err = launch_mma<7>(s, grid, x, dy, dst, st); break;
+      default: err = launch_mma<8>(s, grid, x, dy, dst, st); break;
+    }
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
   return launch_reduce(w, o, s, splits, st);

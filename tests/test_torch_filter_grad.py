@@ -8,9 +8,12 @@ The GPU case runs where jax is not installed:
 so the JAX package is imported only inside the tests that use it.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from squeezedet_torch.models import layers as TL
 from squeezedet_torch.ops import filter_grad as fg
@@ -100,52 +103,191 @@ def test_k2_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_split_k_covers_every_position():
-    for positions, tiles in [(149760, 2), (37440, 108), (1, 1), (33, 1000),
-                             (40000, 1)]:
-        splits, chunk = fg.split_k(positions, tiles)
-        assert chunk % 32 == 0 and 1 <= splits <= 65535
-        assert splits * chunk >= positions > (splits - 1) * chunk
+    """bf16 split-K: the splits cover every box (and so every position)
+    of a tile once, in chunks of at least MIN_WALK boxes (unless one split
+    takes them all), and their groups fit the kernel's arrival
+    counters."""
+    for boxes, tiles in [(1200, 1), (5120, 1), (300, 27), (1920, 27),
+                         (470, 72), (1, 1), (7, 9), (100, 72), (33, 1000)]:
+        splits, chunk, group = fg.split_k(boxes, tiles, 40960, 49152)
+        assert 1 <= splits and splits * chunk >= boxes > (splits - 1) * chunk
+        assert chunk >= fg.MIN_WALK or splits == 1
+        assert group == math.isqrt(splits - 1) + 1
+        assert -(-splits // group) <= fg.COUNTERS - 1
 
 
 # (B, kh, kw, H, W, C, O): the train step's routed convs at B=20 and 128,
-# the odd shapes, and a C and an O that leave ragged tiles
+# the odd shapes, a C and an O that leave ragged tiles, and 1x1 calls that
+# run the mma.sync kernel with two C tiles and with two O tiles
 PLAN_SHAPES = [(20, 1, 1, 48, 156, 128, 32), (128, 1, 1, 48, 156, 128, 32),
                (20, 3, 3, 24, 78, 384, 72), (128, 3, 3, 24, 78, 384, 72),
                (128, 1, 1, 24, 78, 384, 96), (2, 5, 5, 9, 11, 128, 128),
-               (1, 1, 1, 1, 1, 8, 8), (2, 3, 3, 5, 7, 200, 136)]
+               (1, 1, 1, 1, 1, 8, 8), (2, 3, 3, 5, 7, 200, 136),
+               (20, 1, 1, 24, 78, 256, 96), (20, 1, 1, 45, 153, 128, 256)]
+# (calls, kh, C, O, H, W) of the other backbones' routed convs, as
+# chip_smoke.K2_BACKBONE_SHAPES lists them
+BACKBONE_SHAPES = [
+    (2, 1, 128, 192, 45, 153), (2, 1, 128, 288, 45, 153),
+    (1, 1, 384, 256, 45, 153), (1, 3, 384, 256, 45, 153),
+    (6, 1, 256, 384, 22, 76), (3, 1, 384, 256, 22, 76),
+    (3, 3, 384, 256, 22, 76), (2, 3, 256, 72, 22, 76),
+    (1, 3, 128, 256, 94, 311), (2, 3, 256, 256, 94, 311),
+    (1, 3, 256, 512, 47, 156), (2, 3, 512, 512, 47, 156),
+    (3, 3, 512, 512, 24, 78), (1, 3, 512, 72, 24, 78),
+    (1, 3, 1024, 72, 24, 78)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_covers_every_position_tap_and_tile(shape, dtype):
-    """The launch plan: its grid covers every (C tile, O tile) of every
-    tap once, and its splits cover every position once, in whole steps of
-    32, within the grid's 65535 limit."""
+    """The launch plan covers every (C tile, O tile) of every tap once,
+    and every position once.  f32, and bf16's small 1x1 calls (mma.sync):
+    chunks of whole steps of 32 positions within the grid's 65535 limit,
+    split only while blocks are short of the target (bf16: never past one
+    wave).  bf16 otherwise (TMA + wgmma): boxes of a multiple of 16
+    positions that tile the images, each box dimension at most 256 (TMA's
+    limit), a ring that fits the 227 KB of shared memory a block may use,
+    and splits that cover every box once."""
     b, kh, kw, h, w, c, o = shape
-    route = fg.ROUTES[getattr(torch, dtype)]
-    p = fg.plan(b, h, w, c, o, kh, kw, getattr(torch, dtype))
-    tiles_c, tiles_o = -(-c // route.tile_c), -(-o // route.tile_o)
-    assert tiles_c * route.tile_c >= c > (tiles_c - 1) * route.tile_c
-    assert tiles_o * route.tile_o >= o > (tiles_o - 1) * route.tile_o
+    dt = getattr(torch, dtype)
+    route = fg.ROUTES[dt]
+    p = fg.plan(b, h, w, c, o, kh, kw, dt)
+    small = kh == kw == 1 and o <= fg.MMA_MAX_O and (
+        c <= fg.MMA_TILE or c <= 2 * fg.MMA_TILE
+        and -(-o // 128) * b * h * w <= fg.MMA_MAX_POSITIONS)
+    assert p.kernel == (0 if dt == torch.float32 else 2 if small else 1)
+    assert p.tile_c == route.tile_c and p.tile_o in route.widths
+    tiles_c, tiles_o = -(-c // p.tile_c), -(-o // p.tile_o)
+    assert tiles_c * p.tile_c >= c > (tiles_c - 1) * p.tile_c
+    assert tiles_o * p.tile_o >= o > (tiles_o - 1) * p.tile_o
     assert p.tiles == tiles_c * tiles_o * kh * kw
-    positions = b * h * w
-    assert p.chunk % 32 == 0 and 1 <= p.splits <= 65535
-    assert p.splits * p.chunk >= positions > (p.splits - 1) * p.chunk
-    if p.splits > 1:  # split only while blocks are short of the target
-        assert p.tiles * (p.splits - 1) < route.target_blocks
-        if route.one_wave:  # and never past one wave
-            assert p.tiles * p.splits <= route.target_blocks
+    if p.kernel != 1:
+        positions = b * h * w
+        assert p.chunk % 32 == 0 and 1 <= p.splits <= 65535
+        assert p.splits * p.chunk >= positions > (p.splits - 1) * p.chunk
+        if p.kernel == 0 and p.splits > 1:
+            assert p.tiles * (p.splits - 1) < fg.F32_TARGET_BLOCKS
+        if p.kernel == 2:
+            assert p.tiles * p.splits <= fg.MMA_WAVE
+        return
+    assert p.wbox % 16 == 0 and 1 <= p.hbox <= 256 and p.wbox <= 256
+    ny, nx = -(-h // p.hbox), -(-w // p.wbox)
+    assert ny * p.hbox >= h > (ny - 1) * p.hbox
+    assert nx * p.wbox >= w > (nx - 1) * p.wbox
+    stage = (2 + -(-p.tile_o // 64)) * p.hbox * p.wbox * fg.BOX_BYTES
+    assert 2 <= p.stages <= fg.MAX_STAGES
+    assert p.stages * stage + 1024 + 256 <= 232448
+    boxes = b * ny * nx
+    assert p.splits * p.chunk >= boxes > (p.splits - 1) * p.chunk
+    assert -(-p.splits // p.group) <= fg.COUNTERS - 1
+
+
+def _ws_traffic(p, kh, kw, c, o):
+    """Bytes of the bf16 workspace written and read back once: the splits'
+    partials and (wgmma) the groups' sums of every tile (their C x O
+    part)."""
+    if p.splits == 1:
+        return 0
+    groups = -(-p.splits // p.group)
+    sums = groups if p.kernel == 1 and groups > 1 else 0
+    return 2 * 4 * (p.splits + sums) * kh * kw * c * o
 
 
 def test_bf16_plan_bounds_the_workspace():
     """At B=128 the bf16 route's split-K workspace traffic (f32 partials
-    written once and read back once) stays under 20 % of the operands'
-    bytes at the train shapes: 2.8 % at the fire5 squeeze (958k
-    positions, 264 splits), 8 % at conv12's 3x3 (27 tiles, 9 splits)."""
+    and group sums written once and read back once) stays under 20 % of
+    the operands' bytes at the train shapes."""
     for b, kh, kw, h, w, c, o in [PLAN_SHAPES[i] for i in (1, 3, 4)]:
         p = fg.plan(b, h, w, c, o, kh, kw, torch.bfloat16)
-        ws = 2 * 4 * p.splits * kh * kw * c * o
+        ws = _ws_traffic(p, kh, kw, c, o)
         assert ws < 0.2 * 2 * b * h * w * (c + o), (b, kh, c, o, ws)
+
+
+def _walk_bf16_plan(x, dy, kh, kw):
+    """The bf16 kernel's walk of its plan in plain torch (f32).  wgmma:
+    block (split, tile) sums its run of boxes, X's box shifted by the tap
+    and read as zero outside the image, dY's read as zero past it; a
+    tile's splits are summed in groups of ``group``, then the groups'
+    sums, each in order.  mma.sync (1x1): block (tile, split) sums its
+    chunk of positions; the splits are summed in order."""
+    b, h, w, c = x.shape
+    o = dy.shape[-1]
+    p = fg.plan(b, h, w, c, o, kh, kw, torch.bfloat16)
+    n, m = p.tile_o, p.tile_c
+    tiles_c, tiles_o = -(-c // m), -(-o // n)
+    if p.kernel == 2:
+        xs = F.pad(x, (0, tiles_c * m - c)).reshape(-1, tiles_c * m)
+        ds = F.pad(dy, (0, tiles_o * n - o)).reshape(-1, tiles_o * n)
+        out = torch.zeros(1, 1, tiles_c * m, tiles_o * n)
+        walked = torch.zeros(xs.shape[0], dtype=torch.int32)
+        for ct in range(tiles_c):
+            for ot in range(tiles_o):
+                total = torch.zeros(m, n)
+                for s in range(p.splits):
+                    rows = slice(s * p.chunk, (s + 1) * p.chunk)
+                    walked[rows] += 1
+                    total = total + (xs[rows, ct * m:(ct + 1) * m].T
+                                     @ ds[rows, ot * n:(ot + 1) * n])
+                out[0, 0, ct * m:(ct + 1) * m, ot * n:(ot + 1) * n] = total
+        assert (walked == tiles_c * tiles_o).all()  # once a tile
+        return out[:, :, :c, :o]
+    ny, nx = -(-h // p.hbox), -(-w // p.wbox)
+    boxes = b * ny * nx
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    xz = F.pad(x, (0, tiles_c * m - c, pw, pw + p.wbox, ph, ph + p.hbox))
+    dz = F.pad(dy, (0, tiles_o * n - o, 0, p.wbox, 0, p.hbox))
+    out = torch.zeros(kh, kw, tiles_c * m, tiles_o * n)
+    walked = torch.zeros(p.tiles, boxes, dtype=torch.int32)
+    for t in range(p.tiles):
+        ct, ot, tap = t % tiles_c, t // tiles_c % tiles_o, t // (
+            tiles_c * tiles_o)
+        i, j = divmod(tap, kw)
+        partials = []
+        for s in range(p.splits):
+            acc = torch.zeros(m, n)
+            for box in range(s * p.chunk, min((s + 1) * p.chunk, boxes)):
+                walked[t, box] += 1
+                bi, y0, x0 = (box // (ny * nx), box // nx % ny * p.hbox,
+                              box % nx * p.wbox)
+                xb = xz[bi, y0 + i:y0 + i + p.hbox, x0 + j:x0 + j + p.wbox,
+                        ct * m:(ct + 1) * m]
+                db = dz[bi, y0:y0 + p.hbox, x0:x0 + p.wbox,
+                        ot * n:(ot + 1) * n]
+                acc += xb.reshape(-1, m).T @ db.reshape(-1, n)
+            partials.append(acc)
+        groups = []
+        for g0 in range(0, p.splits, p.group):
+            total = torch.zeros(m, n)
+            for part in partials[g0:g0 + p.group]:
+                total = total + part
+            groups.append(total)
+        total = torch.zeros(m, n)
+        for part in groups:
+            total = total + part
+        out[i, j, ct * m:(ct + 1) * m, ot * n:(ot + 1) * n] = total
+    assert (walked == 1).all()  # every box of every tile, once
+    return out[:, :, :c, :o]
+
+
+WALK_SHAPES = ([(min(s[0], 2),) + s[1:] for s in PLAN_SHAPES]
+               + [(1, kh, kh, h, w, c, o)
+                  for _, kh, c, o, h, w in BACKBONE_SHAPES])
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_bf16_plan_walk_equals_plain_k2(shape):
+    """The bf16 plan (boxes, splits and summation tree, or chunks of
+    positions), walked in plain torch on the CPU at the train, odd,
+    ragged and backbone shapes (small batch), gives the plain K2 within
+    1e-5 of sum|x|*|dy| per output (f32 sums in another order): the
+    geometry the kernels' loads follow, checked where no kernel runs."""
+    b, kh, kw, h, w, c, o = shape
+    x, dy = _inputs(np.random.RandomState(5), b, h, w, c, o)
+    x, dy = torch.from_numpy(x), torch.from_numpy(dy)
+    got = _walk_bf16_plan(x, dy, kh, kw)
+    want = fg.filter_grad_reference(x, dy, kh, kw)
+    scale = fg.filter_grad_reference(x.abs(), dy.abs(), kh, kw)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
 
 
 @pytest.mark.parametrize("bad", ["c", "o", "x_offset", "dy_offset",
