@@ -9,20 +9,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    version and ``nvcc --version``;
 2. build: the K1 and K2 kernels from ``squeezedet_torch/csrc``, one nvcc
    each, started together; ptxas' register, shared-memory and spill
-   reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads
-   (UTMALDG) in each kernel's SASS, by ``cuobjdump -sass``: K1's bf16
-   kernel must have HMMA, K2's bf16 kernels HGMMA and UTMALDG
-   (``filter_grad_wgmma``) and HMMA (``filter_grad_tc_partial``, its
-   small 1x1 calls);
+   reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads and
+   stores (UTMALDG, UTMASTG) in each kernel's SASS, by ``cuobjdump
+   -sass``: K1's bf16 kernel must have HMMA, UTMALDG and UTMASTG, K2's
+   bf16 kernels HGMMA and UTMALDG (``filter_grad_wgmma``) and HMMA
+   (``filter_grad_tc_partial``, its small 1x1 calls), K2's f32 TMA
+   kernel UTMALDG; K1's bf16 kernel and K2's f32 TMA kernel must spill
+   0 bytes;
 3. K1 against its plain PyTorch version on the card, at the flagship
    shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then
-   timed with CUDA events at B=128 bf16 beside its plain version and the
-   unfused cuDNN layers;
+   timed with CUDA events at B=128 in bf16 and in f32 (TF32 off), each
+   beside its plain version, the unfused cuDNN layers and its bound;
 4. K2 against its plain version on the card in f32 (TF32 off) and bf16,
    at every conv shape the train step routes to it (B=20, 1248x384) and
    at five odd shapes (B=2); two launches must be bitwise equal; K2, its
-   plain version and cuDNN's weight gradient timed at the train shapes
-   (B=20), and K2 and cuDNN at B=128;
+   plain version and cuDNN's weight gradient timed per call at the train
+   shapes (B=20) in f32 and bf16, each against its bound, and K2 and
+   cuDNN in bf16 at B=128;
 5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
    B=128 for throughput; then the HTTP server at --max_batch 8:
@@ -179,9 +182,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. the host paths, on 24 KITTI-shaped 1242x375 frames: (a) deterministic
    training (``trainer.deterministic``, the train loop's default): the
    train CLI at B=20, 1248x384, 4 steps straight against 2 steps and a
-   resume to 4, in f32 and in bf16 with ``--pallas_grads``, at one and at
-   two steps per dispatch: params and momentum equal bit for bit, K1
-   once a forward, K2 ten times a ``--pallas_grads`` step; (b) the native
+   resume to 4, in f32 (the CLI's default, cuDNN's weight gradients),
+   in f32 with ``--pallas_grads`` (K2's f32 route) and in bf16 with
+   ``--pallas_grads``, at one and at two steps per dispatch: params and
+   momentum equal bit for bit, K1 once a forward, K2 ten times a
+   ``--pallas_grads`` step and never otherwise; (b) the native
    loader (``native/dataloader``): the headers g++ finds and the build,
    a bf16 ``--native_loader --device_assign --pallas_grads`` train run of
    8 steps whose every batch the library loads (the Python decoder reads
@@ -241,13 +246,19 @@ BACKBONE_BOX_RTOL = 2e-5
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
 KERNELS = ("conv1_pool1", "filter_grad")
-# the bf16 (tensor-core) kernel functions of each source, by name, and the
-# SASS instructions each must hold: K1 mma.sync (HMMA); K2 wgmma (HGMMA)
-# fed by TMA loads (UTMALDG), and mma.sync for its small 1x1 calls
-TC_FUNCTIONS = {
-    "conv1_pool1": {"conv1_pool1_tc": ("HMMA",)},
+# kernel functions of each source, by name, and the SASS instructions each
+# must hold: K1 bf16 mma.sync (HMMA) fed by TMA loads (UTMALDG), its
+# output written by TMA stores (UTMASTG); K2 bf16 wgmma (HGMMA) fed by TMA
+# loads, mma.sync for its small 1x1 calls, and K2 f32 fed by TMA loads
+SASS_NEEDS = {
+    "conv1_pool1": {"conv1_pool1_tma": ("HMMA", "UTMALDG", "UTMASTG")},
     "filter_grad": {"filter_grad_wgmma": ("HGMMA", "UTMALDG"),
-                    "filter_grad_tc_partial": ("HMMA",)}}
+                    "filter_grad_tc_partial": ("HMMA",),
+                    "filter_grad_f32_tma": ("UTMALDG",)}}
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG")
+# the kernels ptxas must build with no spill
+NO_SPILLS = {"conv1_pool1": "conv1_pool1_tma",
+             "filter_grad": "filter_grad_f32_tma"}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -451,6 +462,8 @@ DET_ARGV = ["--device", "cuda", "--image_width", "1248", "--image_height",
             "0.001", "--device_assign", "--uint8_ingest", "--device_augment",
             "--checkpoint_step", str(DET_SPLIT), "--summary_step", "0"]
 DET_MODES = (("f32", ["--compute_dtype", "float32"]),
+             ("f32 --pallas_grads", ["--compute_dtype", "float32",
+                                     "--pallas_grads"]),
              ("bf16 --pallas_grads", ["--compute_dtype", "bfloat16",
                                       "--pallas_grads"]))
 NATIVE_ARGV = ["--device", "cuda", "--image_width", "1248",
@@ -523,18 +536,36 @@ def k1_bound(b, h, w, f32=False, geo=None):
                  2 * 27 * 64 * b * hc * wc, peak)
 
 
-def k2_bound(b, kh, c, o, h, w):
-    """bf16 K2: read X and dY once, write dW (f32) once; a multiply-add
-    for every (position, tap, c, o)."""
+def k2_bound(b, kh, c, o, h, w, f32=False):
+    """K2 (bf16 on the tensor cores, or f32 on the CUDA cores): read X and
+    dY once, write dW (f32) once; a multiply-add for every (position,
+    tap, c, o)."""
     m = b * h * w
-    return bound(2 * m * (c + o) + 4 * kh * kh * c * o,
-                 2 * m * c * o * kh * kh, BF16_FLOPS)
+    size, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
+    return bound(size * m * (c + o) + 4 * kh * kh * c * o,
+                 2 * m * c * o * kh * kh, peak)
+
+
+def k1_tile_bytes(b, h, w):
+    """The bytes the bf16 K1 asks of the memory system at b x h x w: a
+    216-element TMA box for each of a 6 x 16 tile's 27 halo rows inside
+    the image, and its 6 x 16 x 64 output box clipped to the output; a
+    halo row overlapping its neighbour tile's is an L2 hit when the two
+    run close together, so the card's memory moves between the images'
+    and output's bytes (``k1_bound``) and this."""
+    from squeezedet_torch.ops import fused_frontend as ff
+    hc, wc, hp, wp, pt, pl, ppt, _ = ff.geometry(h, w)
+    rows = 0
+    for p0 in range(0, hp, 6):
+        ir0 = 2 * (2 * p0 - ppt) - pt
+        rows += sum(0 <= ir0 + r < h for r in range(27))
+    return b * (-(-wp // 16) * rows * 216 * 2 + hp * wp * 64 * 2)
 
 
 def sass_counts(so):
-    """{kernel function: {"HMMA", "HGMMA", "UTMALDG": instructions}} in a
-    library's SASS (HMMA counts mma.sync, HGMMA wgmma, UTMALDG TMA
-    loads)."""
+    """{kernel function: {op: instructions}} for the SASS_OPS in a
+    library's SASS (HMMA counts mma.sync, HGMMA wgmma, UTMALDG TMA loads,
+    UTMASTG TMA stores)."""
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -542,7 +573,7 @@ def sass_counts(so):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0}
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None and "*/" in line:
             # "/*0090*/  @P0 HGMMA.64x256x16.F32.BF16 ... ;  /* 0x... */"
             words = [w for w in line.split("*/", 1)[1].split()
@@ -584,6 +615,10 @@ def phase_device():
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda, "python",
         sys.version.split()[0])
+    # the port sets no TF32 flag but in parallel/dryrun.py: its f32 train
+    # CLI runs cuDNN's convolutions (and, without --pallas_grads, their
+    # weight gradients) at this default
+    log("torch's default: cudnn.allow_tf32 =", torch.backends.cudnn.allow_tf32)
     from squeezedet_torch.ops import _cuda
     log(subprocess.run([_cuda.nvcc_path(), "--version"], capture_output=True,
                        text=True, check=True, timeout=60).stdout.strip())
@@ -608,18 +643,23 @@ def phase_build():
         for fn, n in sorted(counts.items()):
             log("[build] {}: {} in {}".format(name, n, fn))
         tc[name] = 0
-        for kernel, needs in TC_FUNCTIONS[name].items():
+        for kernel, needs in SASS_NEEDS[name].items():
             mine = [n for fn, n in counts.items() if kernel in fn]
             for op in needs:
                 if not mine or any(n[op] == 0 for n in mine):
-                    raise AssertionError("{}'s bf16 kernel {} lacks {} in "
-                                         "its SASS".format(name, kernel, op))
+                    raise AssertionError("{}'s kernel {} lacks {} in its "
+                                         "SASS".format(name, kernel, op))
             tc[name] += sum(n["HMMA"] + n["HGMMA"] for n in mine)
-            if name in _cuda.BUILD_LOGS:
-                for fn, n in sorted(spill_bytes(_cuda.BUILD_LOGS[name],
-                                                kernel).items()):
-                    log("[build] {}: ptxas spill bytes (stores + loads) {} "
-                        "in {}".format(name, n, fn))
+            if name not in _cuda.BUILD_LOGS:
+                continue
+            spills = spill_bytes(_cuda.BUILD_LOGS[name], kernel)
+            for fn, n in sorted(spills.items()):
+                log("[build] {}: ptxas spill bytes (stores + loads) {} "
+                    "in {}".format(name, n, fn))
+            if kernel == NO_SPILLS[name] and (not spills or any(
+                    spills.values())):
+                raise AssertionError("{} spills (or ptxas reported none of "
+                                     "it): {}".format(kernel, spills))
     return tc
 
 
@@ -694,19 +734,33 @@ def phase_k1(card):
 
 def _phase_k1(card):
     import torch
-
-    from squeezedet_torch.models import layers as L
-    from squeezedet_torch.ops import fused_frontend as ff
     check_k1(8, 384, 1248, torch.float32, 0)
     max_err = check_k1(8, 384, 1248, torch.bfloat16, 1)
     check_k1(2, 375, 1242, torch.float32, 2)
     check_k1(2, 375, 1242, torch.bfloat16, 3)
 
-    x, k, bias = k1_inputs(128, 384, 1248, torch.bfloat16, 4)
+    row = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        row[dtype] = time_k1(card, 128, 384, 1248, dtype)
+    # no one PyTorch call computes conv + bias + ReLU + pool: library_ms is
+    # null, and the unfused layers' time is printed as the yardstick
+    return dict(row[torch.bfloat16], max_abs_err=max_err, library_ms=None,
+                f32=row[torch.float32])
+
+
+def time_k1(card, b, h, w, dtype):
+    """K1, its plain version and the unfused cuDNN layers (conv + bias,
+    ReLU, pool; TF32 off) timed in turns at b x h x w, with K1's bound
+    (and, in bf16, the bytes its TMA boxes ask for)."""
+    import torch
+
+    from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import fused_frontend as ff
+    x, k, bias = k1_inputs(b, h, w, dtype, 4)
     conv = L.Conv(k.permute(3, 2, 0, 1).contiguous(), bias)
     kern = lambda: ff.conv1_pool1(x, k, bias)  # noqa: E731
     plain = lambda: ff.conv1_pool1_reference(x, k, bias)  # noqa: E731
-    # what an unfused bf16 port runs: cuDNN conv + bias, ReLU, pool
+    # what an unfused port runs: cuDNN conv + bias, ReLU, pool
     unfused = lambda: L.max_pool(L.conv2d(conv, x, 2), 3, 2)  # noqa: E731
     times = {"plain": [], "kernel": [], "unfused": []}
     for name in ("plain", "kernel", "unfused", "unfused", "kernel",
@@ -714,16 +768,20 @@ def _phase_k1(card):
         fn = {"plain": plain, "kernel": kern, "unfused": unfused}[name]
         times[name].append(cuda_ms(fn, iters=10))
     ms = {n: sum(v) / len(v) for n, v in times.items()}
-    bound_ms, bound_by = k1_bound(128, 384, 1248)
-    log("[k1] B=128 384x1248 bf16 on {}: kernel {:.4f} ms, plain {:.4f} ms, "
-        "unfused bf16 layers {:.4f} ms, bound {:.4f} ms ({}) (runs: {})".format(
-            card, ms["kernel"], ms["plain"], ms["unfused"], bound_ms,
-            bound_by, json.dumps(times)))
-    # no one PyTorch call computes conv + bias + ReLU + pool: library_ms is
-    # null, and the unfused layers' time is printed above as the yardstick
-    return {"max_abs_err": max_err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    f32 = dtype == torch.float32
+    bound_ms, bound_by = k1_bound(b, h, w, f32=f32)
+    name = str(dtype).replace("torch.", "")
+    asked = "" if f32 else ", its TMA boxes ask {:.1f} MB of the memory " \
+        "system".format(k1_tile_bytes(b, h, w) / 1e6)
+    log("[k1] B={} {}x{} {} on {}: kernel {:.4f} ms, plain {:.4f} ms, "
+        "unfused {} cuDNN layers {:.4f} ms, bound {:.4f} ms ({}){} (runs: "
+        "{})".format(b, h, w, name, card, ms["kernel"], ms["plain"], name,
+                     ms["unfused"], bound_ms, bound_by, asked,
+                     json.dumps(times)))
+    del x
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "unfused_ms": ms["unfused"]}
 
 
 def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
@@ -780,6 +838,18 @@ def graph_ms(fn, iters=10, replays=3):
     return start.elapsed_time(end) / (iters * replays)
 
 
+def with_tf32(fn):
+    """``fn()`` with cuDNN's convolutions allowed TF32, as by torch's
+    default; the setting is put back after."""
+    import torch
+    off = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32 = off
+
+
 def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             what="squeezeDet"):
     """K2, (its plain version) and cuDNN's weight gradient timed at the
@@ -787,15 +857,19 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
     launched one by one from Python (a short call's host work shows) and,
     but the plain version, replayed from a CUDA graph (``graph_ms``).  At
     a bf16 1x1 shape also the bf16 kernel that ``filter_grad.uses_mma``
-    did not pick (``other``: the times behind the rule).  Returns the sums
+    did not pick (``other``: the times behind the rule), and in f32 also
+    cuDNN with TF32 allowed (``cudnn_tf32``: torch's default, which the
+    f32 train CLI keeps without --pallas_grads; the phase runs with TF32
+    off, the f32 kernel's own arithmetic).  Returns the sums
     over the backward's calls (``*_1x1``: over its 1x1 calls, what the
     train loop's --pallas_grads runs) and the per-shape rows."""
     import torch
 
     from squeezedet_torch.ops import filter_grad as fg
     name = str(dtype).replace("torch.", "")
-    keys = ("kernel", "plain", "cudnn", "other", "graph_kernel",
-            "graph_cudnn", "graph_other", "bound", "bytes", "operations")
+    keys = ("kernel", "plain", "cudnn", "other", "cudnn_tf32",
+            "graph_kernel", "graph_cudnn", "graph_other", "graph_cudnn_tf32",
+            "bound", "bytes", "operations")
     total = dict.fromkeys(keys + tuple(k + "_1x1" for k in keys), 0.0)
     largest, rows = None, []
     for calls, kh, c, o, h, w in shapes:
@@ -810,13 +884,17 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             "cudnn": lambda: torch.nn.grad.conv2d_weight(
                 xn, (o, c, kh, kh), dyn, padding=kh // 2),
         }
-        design = {0: "f32", 1: "wgmma", 2: "mma.sync"}[
-            fg.plan(batch, h, w, c, o, kh, kh, dtype).kernel]
+        if dtype == torch.float32:
+            fns["cudnn_tf32"] = lambda: with_tf32(fns["cudnn"])
+        p = fg.plan(batch, h, w, c, o, kh, kh, dtype)
+        design = {0: "f32", 1: "wgmma", 2: "mma.sync", 3: "f32 tma"}[
+            p.kernel]
         if dtype == torch.bfloat16 and kh == 1:
             other = (fg.wgmma_plan if design == "mma.sync" else
                      fg.mma_plan)(batch, h, w, c, o, 1, 1)
             fns["other"] = lambda: fg.launch(x, dy, 1, 1, other)
-        turn = [n for n in ("plain", "kernel", "other", "cudnn")
+        turn = [n for n in ("plain", "kernel", "other", "cudnn",
+                            "cudnn_tf32")
                 if n in fns and (with_plain or n != "plain")]
         ms = {n: [] for n in fns}
         for n in turn + turn[::-1]:
@@ -825,7 +903,8 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             ms.setdefault("graph_" + n, []).append(graph_ms(fns[n]))
         ms = dict.fromkeys(keys, 0.0) | {
             n: sum(v) / len(v) for n, v in ms.items() if v}
-        ms["bound"], bound_by = k2_bound(batch, kh, c, o, h, w)
+        ms["bound"], bound_by = k2_bound(batch, kh, c, o, h, w,
+                                         f32=dtype == torch.float32)
         ms[bound_by] = ms["bound"]
         for n in keys:
             total[n] += calls * ms[n]
@@ -834,7 +913,9 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
         if largest is None or ms["kernel"] > largest[1]["kernel"]:
             largest = ((kh, c, o, h, w), ms)
         row = {"batch": batch, "kh": kh, "C": c, "O": o, "H": h, "W": w,
-               "calls": calls, "design": design, "ms": ms["kernel"],
+               "dtype": name, "calls": calls, "design": design,
+               "padding": round(fg.padding_share(p, batch, h, w, c, o), 4),
+               "ms": ms["kernel"],
                "library_ms": ms["cudnn"], "graph_ms": ms["graph_kernel"],
                "graph_library_ms": ms["graph_cudnn"],
                "bound_ms": ms["bound"], "bound_by": bound_by}
@@ -842,29 +923,40 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
             row.update(other_design={1: "wgmma", 2: "mma.sync"}[
                 other.kernel], other_ms=ms["other"],
                 other_graph_ms=ms["graph_other"])
+        if "cudnn_tf32" in fns:
+            row.update(tf32_library_ms=ms["cudnn_tf32"],
+                       graph_tf32_library_ms=ms["graph_cudnn_tf32"])
         rows.append(row)
-        log("[k2] time B={} {}x{} C={} O={} {}x{} {} ({}): kernel {:.4f} "
-            "ms (graph {:.4f}), plain {}, cuDNN weight grad {:.4f} ms "
-            "(graph {:.4f}){}; bf16 bound {:.4f} ms ({}), kernel at {:.1f} "
-            "TFLOP/s".format(
-                batch, kh, kh, c, o, h, w, name, design, ms["kernel"],
-                ms["graph_kernel"],
+        log("[k2] time B={} {}x{} C={} O={} {}x{} {} ({}, {:.1%} of FMAs "
+            "on padding): kernel {:.4f} ms (graph {:.4f}), plain {}, cuDNN "
+            "weight grad {:.4f} ms (graph {:.4f}){}{}; {} bound {:.4f} ms "
+            "({}), kernel at {:.1f} TFLOP/s (graph {:.1f})".format(
+                batch, kh, kh, c, o, h, w, name, design, row["padding"],
+                ms["kernel"], ms["graph_kernel"],
                 "{:.4f} ms".format(ms["plain"]) if with_plain else "not timed",
                 ms["cudnn"], ms["graph_cudnn"],
+                " (TF32 off), with TF32 {:.4f} ms (graph {:.4f})".format(
+                    ms["cudnn_tf32"], ms["graph_cudnn_tf32"])
+                if "cudnn_tf32" in fns else "",
                 ", {} {:.4f} ms (graph {:.4f})".format(
                     row["other_design"], ms["other"], ms["graph_other"])
-                if "other" in fns else "", ms["bound"], bound_by,
-                2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9))
+                if "other" in fns else "", name, ms["bound"], bound_by,
+                2 * batch * h * w * c * o * kh * kh / ms["kernel"] / 1e9,
+                2 * batch * h * w * c * o * kh * kh / ms["graph_kernel"]
+                / 1e9))
         del x, dy, xn, dyn
     log("[k2] one {} backward's {} K2 calls, B={} {} on {}: kernel {:.4f} "
         "ms (graph {:.4f}), plain {}, cuDNN weight grad {:.4f} ms (graph "
-        "{:.4f}), bf16 bound {:.4f} ms; its 1x1 calls: kernel {:.4f} ms "
+        "{:.4f}){}, bound {:.4f} ms; its 1x1 calls: kernel {:.4f} ms "
         "(graph {:.4f}), cuDNN {:.4f} ms (graph {:.4f}), bound {:.4f} ms; "
         "largest call {} kernel {:.4f} ms".format(
             what, sum(s[0] for s in shapes), batch, name, card,
             total["kernel"], total["graph_kernel"],
             "{:.4f} ms".format(total["plain"]) if with_plain else "not timed",
-            total["cudnn"], total["graph_cudnn"], total["bound"],
+            total["cudnn"], total["graph_cudnn"],
+            " (TF32 off), with TF32 {:.4f} ms (graph {:.4f})".format(
+                total["cudnn_tf32"], total["graph_cudnn_tf32"])
+            if dtype == torch.float32 else "", total["bound"],
             total["kernel_1x1"], total["graph_kernel_1x1"],
             total["cudnn_1x1"], total["graph_cudnn_1x1"],
             total["bound_1x1"], largest[0], largest[1]["kernel"]))
@@ -889,18 +981,22 @@ def phase_k2(card):
             max_err = max(max_err, check_k2(2, kh, kw, h, w, 128, 128, dtype,
                                             gen))
 
-    t32, _ = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
-    t16, rows = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
+    t32, rows = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
+    t16, rows16 = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
+    rows += rows16
     rows += time_k2(card, K2_BIG_BATCH, torch.bfloat16, gen, False)[1]
-    log("[k2] f32 route, B={}: kernel {:.4f} ms against its CUDA-core f32 "
-        "bound {:.4f} ms".format(K2_TRAIN_BATCH, t32["kernel"], sum(
-            calls * 2 * K2_TRAIN_BATCH * h * w * c * o * kh * kh / F32_FLOPS
-            * 1e3 for calls, kh, c, o, h, w in K2_TRAIN_SHAPES)))
     # what binds the larger part of the 12 calls' summed bound
     bound_by = max(("bytes", "operations"), key=lambda k: t16[k])
+    f32 = {"ms": t32["kernel"], "graph_ms": t32["graph_kernel"],
+           "plain_ms": t32["plain"], "bound_ms": t32["bound"],
+           "library_ms": t32["cudnn"], "graph_library_ms": t32["graph_cudnn"],
+           "tf32_library_ms": t32["cudnn_tf32"],
+           "graph_tf32_library_ms": t32["graph_cudnn_tf32"],
+           "bound_by": max(("bytes", "operations"), key=lambda k: t32[k])}
     return {"max_abs_err": max_err, "ms": t16["kernel"],
             "plain_ms": t16["plain"], "bound_ms": t16["bound"],
-            "bound_by": bound_by, "library_ms": t16["cudnn"]}, rows
+            "bound_by": bound_by, "library_ms": t16["cudnn"],
+            "f32": f32}, rows
 
 
 def _top_gap(probs):
@@ -2832,9 +2928,10 @@ def _kernel_rows(prof, wall_ms):
 
 
 def _rows_named(rows, kernel):
-    """Profiler rows of ``kernel``'s bf16 kernel functions (one a call)."""
+    """Profiler rows of ``kernel``'s kernel functions that run once a call
+    (SASS_NEEDS names them; K2's reduce pass is not among them)."""
     return sum(n for name, n in rows.items()
-               if any(fn in name for fn in TC_FUNCTIONS[kernel]))
+               if any(fn in name for fn in SASS_NEEDS[kernel]))
 
 
 def phase_graph_step(card, weights):
@@ -3906,7 +4003,7 @@ def phase_determinism(card, root, work):
             for tag, steps in (("straight", [DET_STEPS]),
                                ("resumed", [DET_SPLIT, DET_STEPS])):
                 train_dir = os.path.join(work, "det_{}_{}_{}".format(
-                    k, name.split()[0], tag))
+                    k, "_".join(name.replace("-", "").split()), tag))
                 for stop in steps:
                     state, out, a, b = _cli(argv + [
                         "--train_dir", train_dir, "--max_steps", str(stop)])
@@ -4416,7 +4513,8 @@ def main():
         "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
         + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"]
         + spatial["k1"] + host["k1"],
-        "design": "mma.sync",
+        "design": "bf16: TMA halo rows into a 2-stage ring (producer warp), "
+                  "mma.sync, TMA store of the pooled tile; f32: CUDA cores",
         "tensor_core_instructions": tc["conv1_pool1"],
         **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err)),
     }, {
@@ -4426,9 +4524,11 @@ def main():
         "replaces": "squeezedet_tpu/ops/filter_grad.py:113",
         "launches": train["k2"] + loop["k2"] + backbones["k2"] + dp["k2"]
         + graph["k2"] + spatial["k2"] + host["k2"],
-        "design": "tma+wgmma; mma.sync for 1x1 calls with O <= 256 and "
-                  "C <= 128, or C <= 256 and ceil(O / 128) * positions "
-                  "<= 90000",
+        "design": "bf16: tma+wgmma; mma.sync for 1x1 calls with O <= 256 "
+                  "and C <= 128, or C <= 256 and ceil(O / 128) * positions "
+                  "<= 90000; f32: TMA ring + CUDA-core register tiles, "
+                  "split-K summed by a second pass; f32 calls with C % 4 "
+                  "or O % 4 not 0: CUDA cores, scalar loads",
         "tensor_core_instructions": tc["filter_grad"],
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "train_shapes": k2_train_rows,

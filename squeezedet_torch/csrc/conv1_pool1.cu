@@ -19,33 +19,67 @@
 // computes each conv output of its tile once into shared memory and pools
 // out of it, so only the halo rows and columns of a tile are computed twice.
 //
-// bf16 route (tensor cores): persistent blocks of 8 warps, as many as are
-// resident (2 on each SM), walk the (image, 8 x 16 tile of pool outputs)
-// tiles, i.e. 17 x 33 conv outputs a tile (1.10x the pooled area).  Each
-// tile runs four steps; the next tile's halo loads (step 1) are issued
-// before this tile's steps 2-4, so they are in flight while it computes:
-//   1. the input halo tile (35 x 67 pixels) is copied into shared memory as
-//      bf16 with aligned 16-byte loads covering each row (a pixel is 6 bytes,
-//      so rows are not 16-byte aligned); each element is moved to its place,
-//      and everything outside the image is zero;
-//   2. the conv is a GEMM: M = the 561 conv positions (36 m16 tiles), N = 64,
-//      K = 27 taps padded to 32 (two k16 steps of mma.sync.m16n8k16, f32
-//      accumulators), ordered as 3 kernel rows of 10 (9 taps, 1 pad) so
-//      that each A register (2 taps) is one 4-byte load from the halo tile.
-//      The 32 x 64 weight matrix lives in each warp's registers as B
-//      fragments (the 5 pad taps are zero in both operands);
-//   3. the epilogue adds the f32 bias, applies ReLU and stores the conv tile
-//      in shared memory as bf16 (positions outside the conv output hold
-//      -inf).  Rounding is monotonic, so pooling the rounded values equals
-//      rounding the pooled f32 value once;
-//   4. each thread pools 8 channels of 4 neighbouring outputs (column
-//      maxima first, shared by neighbours) and stores each output's 8
-//      channels as one 16-byte write.
+// bf16 route (tensor cores), conv1_pool1_tma: persistent blocks, 2 resident
+// on each SM (101 KB of shared memory and 95 registers a thread each, 0
+// spill bytes: 16 consumer warps and 2 producer warps an SM), walk the
+// (image, 6 x 16 tile of pool outputs) tiles: 13 x 33 conv outputs, 27 x
+// 67 input pixels a tile.  A block is one producer warp and 8 consumer
+// warps:
+//   1. the producer keeps a 2-stage ring of halo tiles full with TMA: a
+//      1-D tensor map over the flat images (a pixel is 6 bytes, so a row of
+//      a 1242-wide frame or of a tile window is not a whole number of 16
+//      bytes, and no 2-D or 3-D map describes every geometry), one box a
+//      halo row, issued by one lane a row and completed on the stage's
+//      mbarrier.  A box must start on a 16-byte boundary, so it starts at
+//      the word holding the row's first element, delta = 0..7 elements
+//      before it, and is 216 elements long; the lane records where the row
+//      begins in the stage.  Rows outside the image are not loaded.  A
+//      box's start is a 32-bit coordinate from the map's base, so images
+//      of 2^31 elements or more in all are cut into launches of whole
+//      tile rows, each with its own 16-byte-aligned base.  The
+//      consumers' registers hold no load in flight;
+//   2. on an edge tile the consumers zero what lies outside the image (the
+//      rows not loaded and the columns a box read from the neighbouring
+//      row) and fill the one row a box cannot reach (it would start
+//      before the tensor); the frame's interior tiles skip this;
+//   3. the conv is a GEMM: M = the 429 conv positions (27 m16 tiles), N =
+//      64, K = 27 taps padded to 32 (two k16 steps of mma.sync.m16n8k16, f32
+//      accumulators whose first C is the bias), ordered as 3 kernel rows of
+//      10 slots, so that each A register (2 slots) is one 4-byte load from
+//      the halo tile.  A row whose first element sits at an odd delta is
+//      read from one element earlier and its taps sit in slots 1-9: the
+//      rows 2 apart share delta's parity, so each tile takes one of two
+//      weight layouts, kept as B fragments in shared memory.  When W % 8
+//      == 0 (1248-wide frames) every row of a tile has the same delta, and
+//      the A addresses need no per-row offset (the kUniform instance).
+//      Output channels are permuted in B so that a thread's accumulators
+//      of one position are 16 consecutive channels.  Consumer warp w takes
+//      m16 tiles w, w + 8, ..; then the stage is freed for the producer;
+//   4. the epilogue applies ReLU and the one rounding to bf16 in one
+//      conversion (cvt.rn.relu.bf16x2.f32) and stores the conv tile in
+//      shared memory as 128-byte rows whose 16-byte chunks are XOR-swizzled
+//      (no bank conflict on either side); positions outside the conv
+//      output hold -inf.  Rounding is monotonic, so pooling the rounded
+//      values equals rounding the pooled f32 value once;
+//   5. each thread pools 8 channels of 2 neighbouring outputs (column
+//      maxima first, shared by the two) into an output tile laid out as
+//      out's 64 x 16 x 6 box, which one thread hands to a TMA store
+//      (cp.async.bulk.tensor); the store clips at out's edges, and the
+//      next tile waits for it only before writing the output tile again.
+// What binds it is the conv GEMM's latency, not the bytes: at B=128
+// 384x1248 on an H100 80GB HBM3 (700 W) it takes 0.885-0.911 ms against
+// a 0.256 ms byte bound, and builds of it without the GEMM took 0.41 ms,
+// without the TMA loads (computing on stale tiles) about as long as with
+// them: each warp's m16 tiles are chains of dependent shared loads, mmas
+// and stores, and 16 consumer warps an SM hide too little of them.  More
+// stages, smaller tiles, 3 blocks an SM and the B fragments in registers
+// were each slower or spilled.
 // f32 route (CUDA cores): one block per (image, 4 x 16 pool tile); the halo
 // tile as f32, the conv tile computed in f32 (16 channels per work item,
 // weights read as float4 broadcasts), then pooled, one value per store.
 // The conv1 activation never reaches device memory on either route.
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -183,35 +217,115 @@ conv1_pool1_f32(const float* __restrict__ x, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 route (tensor cores) -------------------------------------------
+// ---- bf16 route (tensor cores, TMA in and out) ----------------------------
 
-constexpr int kTcTP = 8;                    // pool rows per block
-constexpr int kTcTQ = 16;                   // pool cols per block
-constexpr int kTcCR = 2 * kTcTP + 1;        // 17 conv rows per block
-constexpr int kTcCC = 2 * kTcTQ + 1;        // 33 conv cols per block
-constexpr int kTcIR = 2 * kTcCR + 1;        // 35 input rows per block
-constexpr int kTcIC = 2 * kTcCC + 1;        // 67 input cols per block
-constexpr int kTcPos = kTcCR * kTcCC;       // 561 conv positions
-constexpr int kTcM16 = (kTcPos + 15) / 16;  // 36 m16 tiles
+constexpr int kTcTP = 6;                    // pool rows a tile
+constexpr int kTcTQ = 16;                   // pool cols a tile
+constexpr int kTcCR = 2 * kTcTP + 1;        // conv rows a tile (13)
+constexpr int kTcCC = 2 * kTcTQ + 1;        // conv cols a tile (33)
+constexpr int kTcIR = 2 * kTcCR + 1;        // input rows a tile (27)
+constexpr int kTcIC = 2 * kTcCC + 1;        // input cols a tile (67)
+constexpr int kTcPos = kTcCR * kTcCC;       // conv positions (429)
+constexpr int kTcM16 = (kTcPos + 15) / 16;  // m16 tiles (27)
 constexpr int kRowElems = kTcIC * kCin;     // 201 bf16 in a halo row
-constexpr int kHaloPitch = kRowElems + 1;   // even: 4-byte aligned pairs
-constexpr int kHaloElems = kTcIR * kHaloPitch;  // 7070
-constexpr int kZero = kHaloElems;           // two zeros: the pad taps
-constexpr int kHaloAlloc = (kHaloElems + 2 + 7) / 8 * 8;
-// The GEMM's K index: kernel row di (3) x 10, of which 9 are its taps
-// (dj, ci) and 1 is padding, then 2 padding: 32.  A pair (k, k+1), k even,
-// never spans two kernel rows, so it is one 4-byte load from the halo.
+// A halo row's 1-D box starts at the 16-byte word holding its first
+// element (TMA takes no other start), delta = 0..7 elements before it, so
+// 216 elements (whole 16 bytes) cover the 201 wherever they start.
+constexpr int kRowBox = 216;
+constexpr int kHaloPitch = 256;             // a row lands 128-byte aligned
+constexpr int kZero = kRowBox;              // a zero pair past row 0's box:
+                                            // the GEMM's pad taps read it
+constexpr int kHaloBytes = kTcIR * kHaloPitch * 2;       // a stage (13824)
+constexpr int kHaloStages = 2;
+constexpr int kOutBytes = kTcTP * kTcTQ * kCout * 2;     // out's box (12288)
+constexpr int kConvBytes = kTcPos * kCout * 2;           // (54912)
+constexpr int kWeightBytes = 2 * 2 * 4 * 32 * 16;        // 8192: B fragments
+constexpr int kRowOffWords = kTcIR;          // a stage's row offsets
+constexpr int kRowOffBytes = kHaloStages * kRowOffWords * 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;          // 256
+constexpr int kTcThreads = kConsumers + 32;              // + the producer
+constexpr int kTcBlocksPerSm = 2;
+constexpr int kTcSmemBytes = kHaloStages * kHaloBytes + kOutBytes +
+                             kConvBytes + kWeightBytes + kCout * 4 +
+                             kRowOffBytes + 128;  // + alignment
+// The GEMM's K index: kernel row di (3) x 10 slots, then 2 padding: 32.
+// A pair of slots (k, k+1), k even, never spans two kernel rows, so it is
+// one 4-byte load from the halo row.  A row whose first element lies at
+// an odd offset (delta odd: the frame's width or the window's left edge
+// makes a row start mid-pixel-pair) is read from one element earlier, so
+// that the pairs stay 4-byte aligned: its 9 taps (dj, ci) then sit in
+// slots 1-9 instead of 0-8.  A tile's rows 2r + di share delta's parity
+// for each di (the rows of one parity are an even number of rows apart),
+// so each tile needs one of two weight layouts: variant v holds kernel
+// rows 0 and 2 shifted when v & 1 and row 1 when the launch's width makes
+// it differ (the odd shift of row 1 is (v & 1) ^ (W & 1)).
 constexpr int kKRow = 10;
-constexpr int kWords = (kRowElems + 7) / 8 + 1;  // 16-byte words over a row
-constexpr int kCPitch = kCout + 8;          // bf16; 144-byte rows: the
-                                            // epilogue's stores hit 8 banks
-constexpr int kTcThreads = 256;
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kLoads = (kTcIR * kWords + kTcThreads - 1) / kTcThreads;  // 4
-constexpr int kPoolRun = 4;  // neighbouring pool outputs a thread takes
-constexpr size_t kTcSmemBytes =
-    sizeof(__nv_bfloat16) * (kTcPos * kCPitch + kHaloAlloc) +
-    sizeof(float) * kCout;
+constexpr uint64_t kWaitNs = 10000000000ull;  // a stuck barrier traps
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// spin until the phase of parity `parity` has completed; trap (a launch
+// error) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = global_ns();
+    else if (global_ns() - start > kWaitNs) __trap();
+  }
+}
+// a 1-D box of kRowBox elements from element `e` of the flat images; the
+// part outside the tensor reads as zero
+__device__ __forceinline__ void tma_load_row(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int e) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(e)
+      : "memory");
+}
+// out's 64 x 16 x 4 x 1 box at (0, q0, p0, b) from shared `src`; the part
+// outside the tensor is not written
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
+                                               uint32_t src, int q0, int p0,
+                                               int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(0), "r"(q0), "r"(p0), "r"(b)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          const uint32_t* b) {
@@ -220,6 +334,25 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + (c0, c1, c0, c1)
+__device__ __forceinline__ void mma_bf16_c(float* d, const uint32_t* a,
+                                           const uint32_t* b, float c0,
+                                           float c1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%10,%11};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c0), "f"(c1));
+}
+
+// relu(round(lo)), relu(round(hi)) as a bf16 pair (lo in the low half)
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // two bf16 (lo at the smaller k) in one register
@@ -231,12 +364,24 @@ __device__ __forceinline__ uint16_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// elementwise max of two bf16 pairs held in registers
+// elementwise max of two sets of 8 bf16 held in registers
 __device__ __forceinline__ uint32_t hmax2_bits(uint32_t a, uint32_t b) {
   const __nv_bfloat162 r =
       __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
               *reinterpret_cast<const __nv_bfloat162*>(&b));
   return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint4 hmax8(uint4 a, uint4 b) {
+  return make_uint4(hmax2_bits(a.x, b.x), hmax2_bits(a.y, b.y),
+                    hmax2_bits(a.z, b.z), hmax2_bits(a.w, b.w));
+}
+
+// byte offset of channels 8 chunk .. 8 chunk + 7 of conv position m in the
+// conv tile: 128-byte rows whose 16-byte chunks are XOR-swizzled by m % 8,
+// so the epilogue's 4-byte stores (8 positions x 4 pairs a warp) and the
+// pool's 16-byte loads (8 chunks of a position) hit every bank once
+__device__ __forceinline__ uint32_t conv_at(int m, int chunk) {
+  return (uint32_t)(m * 128 + ((chunk ^ (m & 7)) << 4));
 }
 
 // Where one tile (kTcTP x kTcTQ pool outputs of one image) lies
@@ -261,244 +406,287 @@ __device__ __forceinline__ Tile tile_at(int64_t t, int tiles_q, int tiles_p,
   return tl;
 }
 
-// Slot j of a thread covers the 16-byte word (i - r * kWords) of halo row r,
-// i = tid + j * kTcThreads, counted from the word holding the row's first
-// in-image element; -1 if that word holds none of the row's elements.
-__device__ __forceinline__ int64_t halo_word(const Tile& tl, const Geometry& g,
-                                             int tid, int j) {
-  const int xlo = max(tl.ic0, 0), xhi = min(tl.ic0 + kTcIC, g.W);
-  const int i = tid + j * kTcThreads;
-  const int r = i / kWords;
-  const int yy = tl.ir0 + r;
-  if (i >= kTcIR * kWords || yy < 0 || yy >= g.H || xlo >= xhi) return -1;
-  const int64_t row = ((int64_t)tl.b * g.H + yy) * g.W * kCin;
-  const int64_t word = (row + (int64_t)xlo * kCin) / 8 + (i - r * kWords);
-  return word * 8 < row + (int64_t)xhi * kCin ? word : -1;
-}
-
-// Issue this thread's (up to kLoads) 16-byte loads of a tile's halo rows.
-__device__ __forceinline__ void load_halo(const uint16_t* xs, const Tile& tl,
-                                          const Geometry& g, int64_t total,
-                                          int tid, uint4* raw) {
-#pragma unroll
-  for (int j = 0; j < kLoads; ++j) {
-    const int64_t word = halo_word(tl, g, tid, j);
-    if (word < 0) continue;
-    if (word * 8 + 8 <= total) {
-      raw[j] = __ldg(reinterpret_cast<const uint4*>(xs) + word);
-    } else {  // the tensor's last, partial word
-      uint16_t v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = word * 8 + e < total ? xs[word * 8 + e] : (uint16_t)0;
-      raw[j] = make_uint4(pack(v[0], v[1]), pack(v[2], v[3]),
-                          pack(v[4], v[5]), pack(v[6], v[7]));
-    }
-  }
-}
-
-// Move the loaded words' in-image elements to their place in the halo
-// tile, and write zeros where the tile lies outside the image (the two
-// sets are disjoint, so no barrier separates them).
-__device__ __forceinline__ void fill_halo(uint16_t* s_x, const Tile& tl,
-                                          const Geometry& g, int tid,
-                                          const uint4* raw) {
-  // a row's in-image elements are its tile elements [lo, hi)
-  const int lo = (max(tl.ic0, 0) - tl.ic0) * kCin;
-  const int hi = (min(tl.ic0 + kTcIC, g.W) - tl.ic0) * kCin;
-#pragma unroll
-  for (int j = 0; j < kLoads; ++j) {
-    const int64_t word = halo_word(tl, g, tid, j);
-    if (word < 0) continue;
-    const int r = (tid + j * kTcThreads) / kWords;
-    const int64_t e0 =  // image element of tile element 0 of row r
-        (((int64_t)tl.b * g.H + tl.ir0 + r) * g.W + tl.ic0) * kCin;
-    const int t0 = (int)(word * 8 - e0);  // tile element of the word's first
-    const uint32_t w4[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int t = t0 + e;
-      if (t >= lo && t < hi)
-        s_x[r * kHaloPitch + t] =
-            (uint16_t)(e & 1 ? w4[e / 2] >> 16 : w4[e / 2] & 0xffffu);
-    }
-  }
-  const bool edge = tl.ir0 < 0 || tl.ir0 + kTcIR > g.H || tl.ic0 < 0 ||
-                    tl.ic0 + kTcIC > g.W;
-  if (!edge) return;  // block-uniform: only edge tiles hold padding
-  for (int i = tid; i < kTcIR * kRowElems; i += kTcThreads) {
-    const int r = i / kRowElems;
-    const int t = i - r * kRowElems;
-    const int xx = tl.ic0 + t / kCin;
-    const int yy = tl.ir0 + r;
-    if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W)
-      s_x[r * kHaloPitch + t] = 0;
-  }
-}
-
-// Persistent: block i takes tiles i, i + gridDim.x, ...; while it computes
-// and pools one tile, its loads of the next tile's halo are in flight.
-__global__ void __launch_bounds__(kTcThreads, 2)
-conv1_pool1_tc(const __nv_bfloat16* __restrict__ x,
-               const float* __restrict__ k, const float* __restrict__ bias,
-               __nv_bfloat16* __restrict__ out, Geometry g, int tiles_q,
-               int tiles_p, int64_t n_tiles, int batch) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // [561][kCPitch] bf16 conv tile, then the halo tile, then the bias
-  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(s_c + kTcPos * kCPitch);
-  float* s_b = reinterpret_cast<float*>(s_x + kHaloAlloc);
+// Persistent: block i takes tiles i, i + gridDim.x, ...  Warp 8 is the
+// producer: for each tile, one lane a halo row issues that row's 1-D TMA
+// load into the next free stage of the ring, from the 16-byte word that
+// holds the row's first element, and records where the row's words start
+// (rows outside the image, and a row that would start before the tensor,
+// are not loaded).  Warps 0-7 are the consumers: they wait for the stage,
+// zero what lies outside the image and fill a row that was not loaded
+// from the tensor (edge tiles only), run the conv GEMM into the conv tile
+// (warp w: m16 tiles w, w + 8, ..., all 64 channels), free the stage,
+// pool into the output tile and hand it to a TMA store.
+template <bool kUniform>  // every halo row's first pixel at one word offset
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+conv1_pool1_tma(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap omap,
+                const uint16_t* __restrict__ x, const float* __restrict__ k,
+                const float* __restrict__ bias, Geometry g, int tiles_q,
+                int tiles_p, int64_t t0, int64_t t1, int64_t e_base) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kHaloStages];
+  __shared__ __align__(8) uint64_t empty[kHaloStages];
+  // [halo stages][output tile][conv tile][weights][bias][row words],
+  // 128-byte aligned
+  unsigned char* smem = smem_raw + ((128 - smem_addr(smem_raw) % 128) % 128);
+  unsigned char* s_o = smem + kHaloStages * kHaloBytes;
+  unsigned char* s_c = s_o + kOutBytes;
+  uint4* s_w = reinterpret_cast<uint4*>(s_c + kConvBytes);
+  float* s_b = reinterpret_cast<float*>(s_c + kConvBytes + kWeightBytes);
+  int* s_row = reinterpret_cast<int*>(s_b + kCout);  // [stage][row]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, q = lane & 3;  // mma fragment row and column
-  const int64_t total = (int64_t)batch * g.H * g.W * kCin;  // elements
-  const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
-
-  int64_t t = blockIdx.x;
-  uint4 raw[kLoads];  // the next tile's halo words, in flight
-  if (t < n_tiles) load_halo(xs, tile_at(t, tiles_q, tiles_p, g), g, total,
-                             tid, raw);
   if (tid < kCout) s_b[tid] = bias[tid];
-  if (tid == 0) reinterpret_cast<uint32_t*>(s_x)[kZero / 2] = 0u;
+  // B fragments of the 32 x 64 weight matrix for layout v, k16 step s and
+  // n8 tile j: (k 16s+2q, +1 | 16s+2q+8, +9; column gq), a lane's 8
+  // registers of a step as 4 uint4s [v][s][j / 2][lane] (consecutive
+  // lanes: no bank conflict).  Column n of n8 tile j is channel
+  // 16 (n / 2) + 2 j + n % 2, so that a thread's accumulators of one row
+  // are channels 16 q .. 16 q + 15 in order; slot k % 10 of kernel row
+  // k / 10 holds tap (dj, ci) = slot - shift.  Written by warps 0 and 1.
+  if (warp < 2) {
+    const int v = warp;
+    const int ch = 16 * (gq >> 1) + (gq & 1);  // + 2 j
+    auto weight = [&](int kk, int n) -> uint16_t {
+      const int di = kk / kKRow;
+      const int shift = di == 1 ? v ^ (g.W & 1) : v;
+      const int t = kk % kKRow - shift;  // t = 3*dj + ci
+      return di < 3 && t >= 0 && t < 9
+                 ? bf16_bits(k[(9 * di + t) * kCout + n]) : 0;
+    };
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t r[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {  // j = 2 jp + u / 2, h = u % 2
+          const int k0 = 16 * s + 2 * q + 8 * (u % 2);
+          const int n = ch + 2 * (2 * jp + u / 2);
+          r[u] = pack(weight(k0, n), weight(k0 + 1, n));
+        }
+        s_w[((v * 2 + s) * 4 + jp) * 32 + lane] =
+            make_uint4(r[0], r[1], r[2], r[3]);
+      }
+  }
+  if (tid < kHaloStages)  // the zero pair the pad taps read
+    reinterpret_cast<uint32_t*>(smem + tid * kHaloBytes)[kZero / 2] = 0u;
+  if (tid == 0) {
+    for (int s = 0; s < kHaloStages; ++s) {
+      mbar_init(smem_addr(&full[s]), 32);               // the producer's lanes
+      mbar_init(smem_addr(&empty[s]), kConsumerWarps);  // a warp's arrive
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // B fragments of the 32 x 64 weight matrix (k = kKRow*di + 3*dj + ci),
-  // for k16 step s and n8 tile j: (k 16s+2q, +1 | 16s+2q+8, +9; n 8j+gq)
-  auto weight = [&](int kk, int n) -> uint16_t {
-    const int di = kk / kKRow, t = kk % kKRow;  // t = 3*dj + ci, 9 = pad
-    return di < 3 && t < 9 ? bf16_bits(k[(9 * di + t) * kCout + n]) : 0;
-  };
-  uint32_t bw[2][8][2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+  if (warp == kConsumerWarps) {  // the producer
+    int it = 0;
+    for (int64_t t = t0 + blockIdx.x; t < t1; t += gridDim.x, ++it) {
+      const int slot = it % kHaloStages;
+      mbar_wait(smem_addr(&empty[slot]), ((it / kHaloStages) & 1) ^ 1);
+      const Tile tl = tile_at(t, tiles_q, tiles_p, g);
+      const uint32_t bar = smem_addr(&full[slot]);
+      uint32_t rows = 0;
+      int box[2];  // element coordinate of this lane's rows' boxes, or -1
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int k0 = 16 * s + 2 * q + 8 * h;
-        bw[s][j][h] = pack(weight(k0, 8 * j + gq), weight(k0 + 1, 8 * j + gq));
+        const int r = lane + 32 * h;
+        box[h] = -1;
+        if (r >= kTcIR) continue;
+        const int y = tl.ir0 + r;
+        // the row's first element; delta = its offset in its 16-byte word
+        // (the two's complement & 7 of a negative e too)
+        const int64_t e = (((int64_t)tl.b * g.H + y) * g.W + tl.ic0) * kCin;
+        const int delta = (int)(e & 7);
+        s_row[slot * kRowOffWords + r] = r * kHaloPitch + delta;
+        if (y >= 0 && y < g.H && e - delta >= e_base)
+          box[h] = (int)(e - delta - e_base);
       }
-  // this thread's A pairs k = 16s + 2q + 8h, +1: their halo offset from a
-  // position's top-left pixel (-1: both padding) and the mask that zeroes
-  // a padding half
-  int koff[2][2];
-  uint32_t kmask[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        rows += __popc(__ballot_sync(0xffffffffu, box[h] >= 0));
+      if (lane == 0) mbar_expect_tx(bar, rows * kRowBox * 2);
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (box[h] >= 0)
+          tma_load_row(smem_addr(smem + slot * kHaloBytes) +
+                           (lane + 32 * h) * kHaloPitch * 2,
+                       &xmap, bar, box[h]);
+      if (lane != 0) mbar_arrive(bar);
+    }
+    return;
+  }
+
+  // the consumers.  This thread's A pairs k = 16s + 2q + 8h, +1: kernel
+  // row (3: padding) and slot
+  int kdi[2][2], kslot[2][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int kk = 16 * s + 2 * q + 8 * h;
-      const int di = kk / kKRow, t = kk % kKRow;
-      koff[s][h] = di < 3 ? di * kHaloPitch + t : -1;
-      kmask[s][h] = t + 1 < 9 ? 0xffffffffu : 0x0000ffffu;
+      kdi[s][h] = kk / kKRow;
+      kslot[s][h] = kk % kKRow;
     }
 
-  for (; t < n_tiles; t += gridDim.x) {
+  int it = 0;
+  for (int64_t t = t0 + blockIdx.x; t < t1; t += gridDim.x, ++it) {
+    const int slot = it % kHaloStages;
+    mbar_wait(smem_addr(&full[slot]), (it / kHaloStages) & 1);
     const Tile tl = tile_at(t, tiles_q, tiles_p, g);
-    // 1. halo tile (the previous tile's conv has read it: barrier below)
-    fill_halo(s_x, tl, g, tid, raw);
-    __syncthreads();
-    if (t + gridDim.x < n_tiles)
-      load_halo(xs, tile_at(t + gridDim.x, tiles_q, tiles_p, g), g, total,
-                tid, raw);
+    uint16_t* s_x = reinterpret_cast<uint16_t*>(smem + slot * kHaloBytes);
+    const int* rowoff = s_row + slot * kRowOffWords;  // element of row r's
+                                                     // first pixel
+    const bool edge = tl.ir0 < 0 || tl.ir0 + kTcIR > g.H || tl.ic0 < 0 ||
+                      tl.ic0 + kTcIC > g.W || tl.cr0 < 0 ||
+                      tl.cr0 + kTcCR > g.Hc || tl.cc0 < 0 ||
+                      tl.cc0 + kTcCC > g.Wc;
+    // 1. on an edge tile: zero what lies outside the image, and fill a row
+    // of the image that was not loaded (it would start before the tensor)
+    // from the tensor itself (block-uniform)
+    if (edge) {
+      for (int i = tid; i < kTcIR * kRowElems; i += kConsumers) {
+        const int r = i / kRowElems, e = i - r * kRowElems;
+        const int yy = tl.ir0 + r, xx = tl.ic0 + e / kCin;
+        const int64_t row =
+            (((int64_t)tl.b * g.H + yy) * g.W + tl.ic0) * kCin;
+        if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W)
+          s_x[rowoff[r] + e] = 0;
+        else if ((row & ~(int64_t)7) < e_base)
+          s_x[rowoff[r] + e] = x[row + e];
+      }
+      // the producer's next TMA into this stage follows these writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      consumers_sync();
+    }
 
-    // 2 + 3. conv GEMM over the tile's m16 tiles, then bias, ReLU, bf16
-    // (the previous tile's pool has read s_c: the barrier above)
-    const uint32_t* s_x32 = reinterpret_cast<const uint32_t*>(s_x);
-    for (int mt = warp; mt < kTcM16; mt += kTcWarps) {
-      int base[2];  // halo offset of the row's pixel (top-left tap), even
-      bool live[2], inside[2];
+    // the tile's weight layout: the parity of its first row's delta
+    // (rows an even number apart share it); the masks that zero the half
+    // of a pair that holds no tap (slot 9, or slot 0 of a shifted row: a
+    // neighbour's element, or a row never written)
+    const int v = rowoff[0] & 1;
+    const uint4* w_frag = s_w + v * 2 * 4 * 32 + lane;
+    uint32_t kmask[2][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = 16 * mt + gq + 8 * h;
-        live[h] = m < kTcPos;
-        const int mm = live[h] ? m : 0;
-        const int r = mm / kTcCC, c = mm - r * kTcCC;
-        base[h] = 2 * r * kHaloPitch + 2 * c * kCin;
-        const int cy = tl.cr0 + r, cx = tl.cc0 + c;
-        inside[h] = cy >= 0 && cy < g.Hc && cx >= 0 && cx < g.Wc;
+        const int shift = kdi[s][h] == 1 ? v ^ (g.W & 1) : v;
+        kmask[s][h] = !shift && kslot[s][h] == 8 ? 0x0000ffffu
+                      : shift && kslot[s][h] == 0 ? 0xffff0000u
+                                                  : 0xffffffffu;
+      }
+
+    // 2 + 3. conv GEMM over the tile's m16 tiles: bias + sum in f32 (the
+    // bias is the first mma's C), then ReLU and the one rounding to bf16
+    // in one conversion, into the conv tile (the previous tile's pool has
+    // read it: barrier 3); positions outside the conv output hold -inf
+    const uint32_t* s_x32 = reinterpret_cast<const uint32_t*>(s_x);
+    const float4* bq = reinterpret_cast<const float4*>(s_b + 16 * q);
+    const int d0 = rowoff[0] >> 1;  // word of row 0's first pixel pair
+    for (int mt = warp; mt < kTcM16; mt += kConsumerWarps) {
+      int r_of[2], c_of[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = min(16 * mt + gq + 8 * h, kTcPos - 1);
+        r_of[h] = m / kTcCC;
+        c_of[h] = m - r_of[h] * kTcCC;
       }
       float acc[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
-#pragma unroll
       for (int s = 0; s < 2; ++s) {
-        // a0a1 (row g, k 2q..), a2a3 (row g+8), a4a5 (row g, k 2q+8..), a6a7
+        // a0a1 (row g, k 2q..), a2a3 (row g+8), a4a5 (row g, k 2q+8..),
+        // a6a7: the pair's word in halo row R = 2r + di, read from the
+        // even element at or before the pixel's first: every row's first
+        // pixel at the same offset in its word when kUniform
         uint32_t a[4];
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            a[2 * kh + h] =
-                s_x32[(koff[s][kh] < 0 ? kZero : base[h] + koff[s][kh]) / 2] &
-                kmask[s][kh];
+          for (int h = 0; h < 2; ++h) {
+            const int di = kdi[s][kh];
+            uint32_t word = kZero / 2;
+            if (di < 3) {
+              const int R = 2 * r_of[h] + di;
+              word = (kUniform ? d0 + R * (kHaloPitch / 2)
+                               : rowoff[R] >> 1) +
+                     3 * c_of[h] + (kslot[s][kh] >> 1);
+            }
+            a[2 * kh + h] = s_x32[word] & kmask[s][kh];
+          }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) mma_bf16(acc[j], a, bw[s][j]);
+        for (int jp = 0; jp < 4; ++jp) {
+          const uint4 w = w_frag[(s * 4 + jp) * 32];
+          const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+          if (s == 0) {
+            const float4 bb = bq[jp];  // channels 16q + 4jp ..
+            mma_bf16_c(acc[2 * jp], a, b0, bb.x, bb.y);
+            mma_bf16_c(acc[2 * jp + 1], a, b1, bb.z, bb.w);
+          } else {
+            mma_bf16(acc[2 * jp], a, b0);
+            mma_bf16(acc[2 * jp + 1], a, b1);
+          }
+        }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (!live[h]) continue;
-        __nv_bfloat16* dst = s_c + (16 * mt + gq + 8 * h) * kCPitch;
+        const int m = 16 * mt + gq + 8 * h;
+        if (m >= kTcPos) continue;
+        uint32_t o[8];  // channels 16q + 2j, +1
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = 8 * j + 2 * q;
-          float v0 = -INFINITY, v1 = -INFINITY;
-          if (inside[h]) {
-            v0 = fmaxf(acc[j][2 * h] + s_b[n], 0.f);
-            v1 = fmaxf(acc[j][2 * h + 1] + s_b[n + 1], 0.f);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(dst + n) =
-              __floats2bfloat162_rn(v0, v1);
+        for (int j = 0; j < 8; ++j)
+          o[j] = relu_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
+        if (edge) {
+          const int cy = tl.cr0 + r_of[h], cx = tl.cc0 + c_of[h];
+          if (cy < 0 || cy >= g.Hc || cx < 0 || cx >= g.Wc)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[j] = 0xff80ff80u;  // -inf pair
         }
+        *reinterpret_cast<uint4*>(s_c + conv_at(m, 2 * q)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(s_c + conv_at(m, 2 * q + 1)) =
+            make_uint4(o[4], o[5], o[6], o[7]);
       }
     }
-    __syncthreads();
+    __syncwarp();  // this warp's reads of the stage are done: free it
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]));
+    if (tid == 0)  // the previous tile's store has read the output tile
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    consumers_sync();  // 2. the conv tile is whole
 
-    // 4. pool, separably: a thread takes 8 channels of 4 neighbouring
-    // outputs of one pool row, maxes 3 conv rows in each of the 9 conv
-    // columns they span, then 3 of those column maxima per output; one
-    // 16-byte store per output
-    static_assert(kTcTP * (kTcTQ / kPoolRun) * (kCout / 8) == kTcThreads,
-                  "one pool work item per thread");
-    {
-      const int grp = tid & 7;
-      const int pc0 = kPoolRun * ((tid >> 3) % (kTcTQ / kPoolRun));
-      const int pr = tid / (8 * (kTcTQ / kPoolRun));
-      const int p = tl.p0 + pr;
-      const __nv_bfloat16* col = s_c + (2 * pr * kTcCC + 2 * pc0) * kCPitch +
-                                 8 * grp;
-      __nv_bfloat16* ob =
-          out + (((size_t)tl.b * g.Hp + p) * g.Wp + tl.q0 + pc0) * kCout +
-          8 * grp;
-      uint4 prev;  // the column maximum shared with the previous output
+    // 4. pool, separably: an item is 8 channels of 2 neighbouring outputs
+    // of one pool row: the max of 3 conv rows in each of the 5 conv
+    // columns they span, then of 3 of those column maxima per output,
+    // into the output tile as out's box lays it out ([TP][16][64])
+    for (int item = tid; item < kTcTP * (kTcTQ / 2) * (kCout / 8);
+         item += kConsumers) {
+      const int grp = item & 7;
+      const int pc0 = 2 * ((item >> 3) % (kTcTQ / 2));
+      const int pr = item / (8 * (kTcTQ / 2));
+      uint4 cm[5];
 #pragma unroll
-      for (int cc = 0; cc < 2 * kPoolRun + 1; ++cc) {
-        uint4 m = *reinterpret_cast<const uint4*>(col + cc * kCPitch);
+      for (int cc = 0; cc < 5; ++cc) {
+        const int m = 2 * pr * kTcCC + 2 * pc0 + cc;
+        cm[cc] = *reinterpret_cast<const uint4*>(s_c + conv_at(m, grp));
 #pragma unroll
-        for (int a = 1; a < 3; ++a) {
-          const uint4 u = *reinterpret_cast<const uint4*>(
-              col + (a * kTcCC + cc) * kCPitch);
-          m = make_uint4(hmax2_bits(m.x, u.x), hmax2_bits(m.y, u.y),
-                         hmax2_bits(m.z, u.z), hmax2_bits(m.w, u.w));
-        }
-        if (cc % 2 == 1) {  // columns 2k, 2k+1 seen: keep their max
-          prev = make_uint4(hmax2_bits(prev.x, m.x), hmax2_bits(prev.y, m.y),
-                            hmax2_bits(prev.z, m.z), hmax2_bits(prev.w, m.w));
-        } else {
-          if (cc > 0) {  // output k = cc/2 - 1: columns cc-2 .. cc
-            const uint4 o = make_uint4(
-                hmax2_bits(prev.x, m.x), hmax2_bits(prev.y, m.y),
-                hmax2_bits(prev.z, m.z), hmax2_bits(prev.w, m.w));
-            if (p < g.Hp && tl.q0 + pc0 + cc / 2 - 1 < g.Wp)
-              *reinterpret_cast<uint4*>(ob + (cc / 2 - 1) * kCout) = o;
-          }
-          prev = m;
-        }
+        for (int a = 1; a < 3; ++a)
+          cm[cc] = hmax8(cm[cc], *reinterpret_cast<const uint4*>(
+                                     s_c + conv_at(m + a * kTcCC, grp)));
       }
+      uint4* dst = reinterpret_cast<uint4*>(
+          s_o + ((pr * kTcTQ + pc0) * kCout + 8 * grp) * 2);
+      dst[0] = hmax8(hmax8(cm[0], cm[1]), cm[2]);
+      dst[kCout / 8] = hmax8(hmax8(cm[2], cm[3]), cm[4]);
     }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync();  // 3. the output tile is whole; the conv tile read
+    if (tid == 0) tma_store_tile(&omap, smem_addr(s_o), tl.q0, tl.p0, tl.b);
   }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 int launch_f32(const float* x, const float* k, const float* bias, float* out,
@@ -512,28 +700,126 @@ int launch_f32(const float* x, const float* k, const float* bias, float* out,
   return (int)cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 1-D map over `elems` bf16 of the flat images from `x` (boxes of one
+// halo row), and a 4-D map over the pooled output [B, Hp, Wp, 64] (boxes
+// of one tile)
+bool encode_images_map(EncodeTiled fn, CUtensorMap* xm, const void* x,
+                       int64_t elems) {
+  const cuuint64_t dims[1] = {(cuuint64_t)elems};
+  const cuuint64_t strides[1] = {0};  // none: rank 1
+  const cuuint32_t box[1] = {kRowBox}, one[1] = {1};
+  return fn(xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 1, const_cast<void*>(x),
+            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool encode_out_map(EncodeTiled fn, CUtensorMap* om, void* out, int B,
+                    const Geometry& g) {
+  const cuuint64_t dims[4] = {kCout, (cuuint64_t)g.Wp, (cuuint64_t)g.Hp,
+                              (cuuint64_t)B};
+  const cuuint64_t row = kCout * 2;
+  const cuuint64_t strides[3] = {row, row * g.Wp, row * g.Wp * g.Hp};
+  const cuuint32_t box[4] = {kCout, kTcTQ, kTcTP, 1}, one[4] = {1, 1, 1, 1};
+  return fn(om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, out, dims, strides,
+            box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A halo row's box starts at a signed 32-bit element coordinate, counted
+// from the tensor map's base: a launch takes the tiles whose rows lie
+// within kMaxElems elements of a 16-byte-aligned base.  Images of fewer
+// elements in all (B=128 at 384x1248: 184 million) take one launch.
+constexpr int64_t kMaxElems = (1ll << 31) - 4096;
+
 int launch_tc(const __nv_bfloat16* x, const float* k, const float* bias,
               __nv_bfloat16* out, int B, const Geometry& g,
-              cudaStream_t stream) {
+              cudaStream_t stream, int* launches) {
+  // the rows of a tile start at one offset in their 16-byte words when a
+  // row is a whole number of 16-byte words (W % 8 == 0, as at 1248)
+  auto kernel = g.W % 8 == 0 ? conv1_pool1_tma<true> : conv1_pool1_tma<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv1_pool1_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTcSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, conv1_pool1_tc, kTcThreads, kTcSmemBytes)) != cudaSuccess)
+           &per_sm, kernel, kTcThreads, kTcSmemBytes)) != cudaSuccess)
     return (int)err;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
   const int tiles_q = (g.Wp + kTcTQ - 1) / kTcTQ;
   const int tiles_p = (g.Hp + kTcTP - 1) / kTcTP;
-  const int64_t n_tiles = (int64_t)tiles_q * tiles_p * B;
-  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = (int)(n_tiles < resident ? n_tiles : resident);
-  conv1_pool1_tc<<<blocks, kTcThreads, kTcSmemBytes, stream>>>(
-      x, k, bias, out, g, tiles_q, tiles_p, n_tiles, B);
-  return (int)cudaGetLastError();
+  const int64_t total = (int64_t)B * g.H * g.W * kCin;  // elements
+  const int64_t rows = (int64_t)B * tiles_p;  // tile rows, image-major
+  // the first element the halo rows of tile row R read, or (last) one
+  // past the last, with room for the last box past the row's end
+  auto halo_span = [&](int64_t R, bool last) -> int64_t {
+    const int64_t b = R / tiles_p;
+    const int ir0 =
+        2 * (2 * (int)(R % tiles_p) * kTcTP - g.ppad_t) - g.pad_t;
+    const int y = last ? ir0 + kTcIR - 1 : ir0;
+    const int64_t row = b * g.H + (y < 0 ? 0 : y >= g.H ? g.H - 1 : y);
+    if (last) return (row + 1) * g.W * kCin + 2 * kRowBox;
+    const int64_t e = (row * g.W - 2 * g.ppad_l - g.pad_l) * kCin;
+    return e < 0 ? 0 : e;
+  };
+  CUtensorMap om;
+  if (!encode_out_map(fn, &om, out, B, g)) return (int)cudaErrorInvalidValue;
+  for (int64_t r0 = 0; r0 < rows;) {
+    const int64_t e_base = halo_span(r0, false) & ~(int64_t)7;
+    if (halo_span(r0, true) - e_base > kMaxElems)
+      return (int)cudaErrorInvalidValue;  // one tile row past 2^31
+    int64_t r1 = total - e_base <= kMaxElems ? rows : r0 + 1;
+    while (r1 < rows && halo_span(r1, true) - e_base <= kMaxElems) ++r1;
+    CUtensorMap xm;
+    if (!encode_images_map(fn, &xm, x + e_base,
+                           total - e_base < kMaxElems ? total - e_base
+                                                      : kMaxElems))
+      return (int)cudaErrorInvalidValue;
+    const int64_t t0 = r0 * tiles_q, t1 = r1 * tiles_q;
+    const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    const int blocks = (int)(t1 - t0 < resident ? t1 - t0 : resident);
+    kernel<<<blocks, kTcThreads, kTcSmemBytes, stream>>>(
+        xm, om, reinterpret_cast<const uint16_t*>(x), k, bias, g, tiles_q,
+        tiles_p, t0, t1, e_base);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ++*launches;
+    r0 = r1;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -541,21 +827,27 @@ int launch_tc(const __nv_bfloat16* x, const float* k, const float* bias,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; x must be
-// 16-byte aligned).  Returns the cudaError_t of the launch.
+// 16-byte aligned, as its tensor map's base).  Sets *launches to the
+// kernel launches it enqueued (one, or one per cut of bf16 images of 2^31
+// elements or more) and returns the cudaError_t of the launches.
 int sdt_conv1_pool1(const void* x, const void* k, const void* bias, void* out,
                     int B, int H, int W, int Hc, int Wc, int Hp, int Wp,
                     int pad_t, int pad_l, int ppad_t, int ppad_l, int dtype,
-                    void* stream) {
+                    void* stream, int* launches) {
   const Geometry g{H, W, Hc, Wc, Hp, Wp, pad_t, pad_l, ppad_t, ppad_l};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* kf = static_cast<const float*>(k);
   const float* bf = static_cast<const float*>(bias);
-  if (dtype == 0)
-    return launch_f32(static_cast<const float*>(x), kf, bf,
-                      static_cast<float*>(out), B, g, s);
+  *launches = 0;
+  if (dtype == 0) {
+    const int err = launch_f32(static_cast<const float*>(x), kf, bf,
+                               static_cast<float*>(out), B, g, s);
+    *launches = err == 0;
+    return err;
+  }
   if (dtype == 1 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
     return launch_tc(static_cast<const __nv_bfloat16*>(x), kf, bf,
-                     static_cast<__nv_bfloat16*>(out), B, g, s);
+                     static_cast<__nv_bfloat16*>(out), B, g, s, launches);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,9 +42,29 @@
 //   counters order only who sums, never the order of a sum.  The tensor
 //   cores' f32 accumulation truncates, so on operands of one sign the
 //   error grows with a split's chain of k-steps (mma.sync's too).
-// f32 route (CUDA cores): 64 x 64 C x O tile per (tap, split), 32 positions
-//   staged per step as f32 in shared memory, 4 x 4 f32 FMAs per thread; a
-//   second pass sums the splits in a fixed order.
+// f32 route (CUDA cores), filter_grad_f32_tma<N>: every product an f32
+//   product and every sum an f32 sum (no TF32).  Bound by the FMA pipes
+//   (conv12's 3x3 halves: 18.6 GFLOP each at B=20, 0.28 ms at 67 TFLOP/s)
+//   or, on the narrow 1x1s, by bytes.  A fixed 64-wide O tile would pad
+//   conv12's O = 72 to 128 (44 % of its FMAs on padding), 4 x 4
+//   accumulators a thread take 2 shared loads for 16 FMAs, and staging
+//   through registers stalls on the loads.  So: a 128 (C) x N (O) tile,
+//   N the O tile that fits O (32, 48, 64, 72, 96, or an equal share of a
+//   wider O, at most 128), so at most 2.6 % of any model shape's FMAs
+//   fall on padding; 256 threads of 4 x 4 (N = 32) to 8 x 8 (N = 128)
+//   accumulators (4 x 9 at N = 72) reading their C and O slices as
+//   float4s without bank conflicts; a ring of 3 or more TMA stages (f32
+//   boxes of X shifted by the tap and of dY, whose zero fill is the SAME
+//   pad) that thread 0 refills after each stage's block sync; 2 blocks an
+//   SM (8 warps each, 48-91 registers, 0 spill bytes).  Blocks are
+//   split-major, as for bf16.  The splits' partials are summed by
+//   filter_grad_reduce in split order: at the f32 shapes its second
+//   launch costs a few us, under the ~20 us tail of an in-launch tree.
+//   On an H100 80GB HBM3 (700 W) one B=20 backward's 12 calls take 1.64
+//   ms replayed from a CUDA graph (conv12's halves 0.55 ms each, 50 % of
+//   the f32 peak).  Calls whose operands no tensor map describes (C % 4
+//   or O % 4 not 0, or not 16-byte aligned) run the scalar-load kernel,
+//   filter_grad_partial_f32, by a fixed rule (ops/filter_grad.py).
 // No float atomics: two launches on the same inputs give the same bits.
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
@@ -57,7 +77,7 @@ namespace {
 constexpr int kStep = 32;     // f32 route: positions per step; every split's
                               // chunk of positions is a multiple of it
 
-// ---- f32 route (CUDA cores) ----------------------------------------------
+// ---- f32 route, scalar loads (CUDA cores) --------------------------------
 constexpr int kTC = 64;       // C rows of a block's output tile
 constexpr int kTO = 64;       // O columns of a block's output tile
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
@@ -949,6 +969,154 @@ filter_grad_wgmma(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---- f32 route (CUDA cores, TMA ring) -----------------------------------
+// Block (split s, tile t) is blockIdx s * tiles + t, split-major as above:
+// the blocks resident together read the same boxes, so the L2 serves a
+// box's other taps and tiles.  A tile is 128 C rows (one X box) by N
+// columns of O (one dY box): N fits O (32, 48, 64, 72, 96) or is an equal
+// share of a wide O of at most 128, so few FMAs fall on padding.  Thread
+// 0 keeps a ring of stages full with TMA loads (an X box of hbox x wbox
+// positions x 128 channels shifted by the tap, and the dY box of the same
+// positions x N columns; f32 elements, no swizzle: a position's row is
+// 512 and 4N bytes), completed on one mbarrier a stage; the zero fill of
+// boxes past the tensor is the SAME pad, the image edge and the ragged C
+// and O tiles.  Each thread owns TM C rows x NT O columns (8 x 8, 8 x 6,
+// 4 x 9, ...) in registers and, per position, reads its C slice (TM / 4
+// float4s) and its O slice (float4s, then a float2 or a float) from the
+// stage: a warp's C reads are 4 distinct float4s and its O reads 8 distinct
+// neighbours, so no read has a bank conflict.  After a stage's last
+// position the block syncs and thread 0 refills the stage.  Every sum runs
+// in position order; the splits' partials go to the workspace and
+// filter_grad_reduce sums them in split order (a second launch: a few us,
+// under the ~20 us of an in-launch tree's tail on these calls).
+constexpr int kF32C = 128;         // C rows of a tile: one X box
+constexpr int kF32Threads = 256;   // 2 blocks resident on an SM
+
+template <int N, int TM, int TO>   // O tile, C rows a thread, thread columns
+__global__ void __launch_bounds__(kF32Threads, 2)
+filter_grad_f32_tma(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    float* __restrict__ dst, Geo g) {
+  constexpr int NT = N / TO;       // O columns a thread
+  constexpr int NV = NT / 4;       // its float4s
+  constexpr int NR = NT % 4;       // and the rest: a float2 or a float
+  constexpr int TCN = kF32C / TM;  // thread rows
+  static_assert(N % TO == 0 && TCN * TO == kF32Threads && TO % 8 == 0 &&
+                    (TM == 4 || TM == 8) && NR != 3,
+                "thread tile");
+  extern __shared__ unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+
+  const uint32_t base = smem_addr(smem);
+  const uint32_t ring = (base + 127) & ~127u;
+  const int P = g.hbox * g.wbox;
+  const uint32_t xbytes = (uint32_t)P * kF32C * 4, dbytes = (uint32_t)P * N * 4;
+  const uint32_t stage_bytes = (xbytes + dbytes + 127) & ~127u;
+  const int t = blockIdx.x % g.tiles, split = blockIdx.x / g.tiles;
+  const int c0 = t % g.c_tiles * kF32C;
+  const int o0 = t / g.c_tiles % g.o_tiles * N;
+  const int tap = t / (g.c_tiles * g.o_tiles);
+  const int di = tap / g.kw - (g.kh - 1) / 2, dj = tap % g.kw - (g.kw - 1) / 2;
+  const int box0 = split * g.chunk;
+  const int n_iter = min(g.chunk, g.boxes - box0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) mbar_init(smem_addr(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int it) {
+    const int slot = it % g.stages, box = box0 + it;
+    const int x0 = box % g.nx * g.wbox, y0 = box / g.nx % g.ny * g.hbox;
+    const int b = box / (g.nx * g.ny);
+    const uint32_t bar = smem_addr(&full[slot]);
+    const uint32_t st = ring + slot * stage_bytes;
+    mbar_expect_tx(bar, xbytes + dbytes);
+    tma_load(st, &xmap, bar, c0, x0 + dj, y0 + di, b);
+    tma_load(st + xbytes, &dmap, bar, o0, x0, y0, b);
+  };
+  if (threadIdx.x == 0)
+    for (int it = 0; it < min(g.stages, n_iter); ++it) issue(it);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int to = warp % (TO / 8) * 8 + lane % 8;  // thread column
+  const int tc = warp / (TO / 8) * 4 + lane / 8;  // thread row
+  float acc[TM][NT];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int slot = it % g.stages;
+    mbar_wait(smem_addr(&full[slot]), (it / g.stages) & 1);
+    const float* xs = reinterpret_cast<const float*>(
+        smem + (ring - base) + slot * stage_bytes);
+    const float* ds = xs + P * kF32C;
+#pragma unroll 2
+    for (int k = 0; k < P; ++k) {
+      float a[TM], d[NT];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            xs + k * kF32C + 64 * h + 4 * tc);
+        a[4 * h] = v.x; a[4 * h + 1] = v.y; a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
+      const float* dr = ds + k * N;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            dr + 4 * TO * v + 4 * to);
+        d[4 * v] = u.x; d[4 * v + 1] = u.y; d[4 * v + 2] = u.z;
+        d[4 * v + 3] = u.w;
+      }
+      if constexpr (NR == 2) {
+        const float2 u = *reinterpret_cast<const float2*>(
+            dr + 4 * TO * NV + 2 * to);
+        d[4 * NV] = u.x; d[4 * NV + 1] = u.y;
+      } else if constexpr (NR == 1) {
+        d[4 * NV] = dr[4 * TO * NV + to];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+    }
+    __syncthreads();  // every thread is done with the stage: refill it
+    if (threadIdx.x == 0 && it + g.stages < n_iter) issue(it + g.stages);
+  }
+
+  // row i of the thread: C row c0 + 64 (i / 4) + 4 tc + i % 4; column j:
+  // O column o0 + 4 TO (j / 4) + 4 to + j % 4 (the float4s), then
+  // o0 + 4 TO NV + NR to + (j - 4 NV) (the rest)
+  float* out =
+      dst + ((int64_t)split * g.kh * g.kw + tap) * ((int64_t)g.C * g.O);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int c = c0 + 64 * (i / 4) + 4 * tc + i % 4;
+    if (c >= g.C) continue;
+    float* row = out + (int64_t)c * g.O;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int o = o0 + 4 * TO * v + 4 * to;  // O % 4 == 0 on this route
+      if (o < g.O)
+        *reinterpret_cast<float4*>(row + o) =
+            make_float4(acc[i][4 * v], acc[i][4 * v + 1], acc[i][4 * v + 2],
+                        acc[i][4 * v + 3]);
+    }
+    if constexpr (NR == 2) {
+      const int o = o0 + 4 * TO * NV + 2 * to;
+      if (o < g.O)
+        *reinterpret_cast<float2*>(row + o) =
+            make_float2(acc[i][4 * NV], acc[i][4 * NV + 1]);
+    } else if constexpr (NR == 1) {
+      const int o = o0 + 4 * TO * NV + to;
+      if (o < g.O) row[o] = acc[i][4 * NV];
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -975,22 +1143,31 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a contiguous [B, H, W, ch] bf16 tensor, boxes of
-// 64 x wbox x hbox x 1 (channels innermost), 128-byte swizzle, zero fill
+// A 4-D map over a contiguous [B, H, W, ch] tensor of `elem`-byte
+// elements, boxes of box_c x wbox x hbox x 1 (channels innermost), zero
+// fill
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, const Geo& g,
-            int ch) {
+            int ch, CUtensorMapDataType type, int elem, int box_c,
+            CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)g.W,
                               (cuuint64_t)g.H, (cuuint64_t)g.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2,
-                                 (cuuint64_t)ch * 2 * g.W,
-                                 (cuuint64_t)ch * 2 * g.W * g.H};
-  const cuuint32_t box[4] = {kBoxC, (cuuint32_t)g.wbox, (cuuint32_t)g.hbox,
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint64_t strides[3] = {(cuuint64_t)ch * elem,
+                                 (cuuint64_t)ch * elem * g.W,
+                                 (cuuint64_t)ch * elem * g.W * g.H};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)g.wbox,
+                             (cuuint32_t)g.hbox, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 boxes: 64 channels (128 bytes), 128-byte swizzle
+bool encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* base,
+                 const Geo& g, int ch) {
+  return encode(fn, map, base, g, ch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                kBoxC, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int N>
@@ -1039,7 +1216,8 @@ int launch_bf16(const void* x, const void* dy, void* ws, float* out,
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xm, dm;
-  if (!encode(fn, &xm, x, g, g.C) || !encode(fn, &dm, dy, g, g.O))
+  if (!encode_bf16(fn, &xm, x, g, g.C) ||
+      !encode_bf16(fn, &dm, dy, g, g.O))
     return (int)cudaErrorInvalidValue;
 
   int* count = static_cast<int*>(ws);
@@ -1068,18 +1246,100 @@ int launch_bf16(const void* x, const void* dy, void* ws, float* out,
   }
 }
 
+template <int N, int TM, int TO>
+cudaError_t launch_f32_kernel(const CUtensorMap& xm, const CUtensorMap& dm,
+                              float* dst, const Geo& g, int smem,
+                              cudaStream_t stream) {
+  auto kernel = filter_grad_f32_tma<N, TM, TO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return err;
+  kernel<<<g.tiles * g.splits, kF32Threads, smem, stream>>>(xm, dm, dst, g);
+  return cudaGetLastError();
+}
+
+// The f32 call by TMA: geo as launch_bf16 reads it (chunk = boxes a split,
+// group unused); ws holds splits * kh*kw * C*O partials when splits > 1,
+// summed by filter_grad_reduce.  Needs C % 4 == 0, O % 4 == 0 and 16-byte
+// aligned x and dy (a tensor map's strides and base).
+int launch_f32_tma(const float* x, const float* dy, float* ws, float* out,
+                   const int* geo, cudaStream_t stream) {
+  Geo g{};
+  g.B = geo[0]; g.H = geo[1]; g.W = geo[2]; g.C = geo[3]; g.O = geo[4];
+  g.kh = geo[5]; g.kw = geo[6]; g.splits = geo[7]; g.chunk = geo[8];
+  const int n = geo[9];
+  g.hbox = geo[10]; g.wbox = geo[11]; g.group = 1; g.stages = geo[13];
+  if (g.C % 4 != 0 || g.O % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0 || g.hbox < 1 ||
+      g.wbox < 1 || g.hbox > 256 || g.wbox > 256 || g.stages < 2 ||
+      g.stages > kMaxStages || g.chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  g.ny = (g.H + g.hbox - 1) / g.hbox;
+  g.nx = (g.W + g.wbox - 1) / g.wbox;
+  g.boxes = g.B * g.ny * g.nx;
+  g.c_tiles = (g.C + kF32C - 1) / kF32C;
+  g.o_tiles = (g.O + n - 1) / n;
+  g.tiles = g.c_tiles * g.o_tiles * g.kh * g.kw;
+  if ((int64_t)g.chunk * g.splits < g.boxes ||
+      (int64_t)g.chunk * (g.splits - 1) >= g.boxes ||
+      (int64_t)g.tiles * g.splits >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int64_t stage = ((int64_t)g.hbox * g.wbox * (kF32C + n) * 4 + 127) /
+                        128 * 128;
+  const int64_t smem = g.stages * stage + 128;
+  if (smem + 64 > kSmemLimit / 2 - 1024) return (int)cudaErrorInvalidValue;
+
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xm, dm;
+  if (!encode(fn, &xm, x, g, g.C, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, kF32C,
+              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode(fn, &dm, dy, g, g.O, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, n,
+              CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  float* dst = g.splits == 1 ? out : ws;
+  cudaError_t err;
+  // (N, C rows, thread columns): 4 x N/8 accumulators a thread up to
+  // N = 72, then 8 x N/16
+  switch (n) {
+    case 32: err = launch_f32_kernel<32, 4, 8>(xm, dm, dst, g, smem, stream);
+      break;
+    case 48: err = launch_f32_kernel<48, 4, 8>(xm, dm, dst, g, smem, stream);
+      break;
+    case 64: err = launch_f32_kernel<64, 4, 8>(xm, dm, dst, g, smem, stream);
+      break;
+    case 72: err = launch_f32_kernel<72, 4, 8>(xm, dm, dst, g, smem, stream);
+      break;
+    case 96: err = launch_f32_kernel<96, 8, 16>(xm, dm, dst, g, smem, stream);
+      break;
+    case 128:
+      err = launch_f32_kernel<128, 8, 16>(xm, dm, dst, g, smem, stream);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || g.splits == 1) return (int)err;
+  Shape s{g.B, g.H, g.W, g.C, g.O, g.kh, g.kw, 0, 0, 0};
+  return launch_reduce(ws, out, s, g.splits, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // geo: {B, H, W, C, O, kh, kw, splits, chunk, tile_o, hbox, wbox, group,
 // stages}; the wrapper's plan computes it.  splits: of each tile's
-// contraction.  kernel 0 = float32 (CUDA cores; chunk = positions per
-// split, a multiple of 32; ws holds splits * kh*kw * C*O floats, unused
-// when splits == 1); 1 = bfloat16 by TMA + wgmma (chunk = boxes per split;
-// ws as launch_bf16 lays it out); 2 = bfloat16 by mma.sync (chunk and ws
-// as for float32).  bfloat16 needs C % 8 == 0, O % 8 == 0 and 16-byte
-// aligned x and dy.  Returns a cudaError_t.
+// contraction.  kernel 0 = float32 (CUDA cores, scalar loads; chunk =
+// positions per split, a multiple of 32; ws holds splits * kh*kw * C*O
+// floats, unused when splits == 1); 1 = bfloat16 by TMA + wgmma (chunk =
+// boxes per split; ws as launch_bf16 lays it out); 2 = bfloat16 by
+// mma.sync (chunk and ws as for kernel 0); 3 = float32 by TMA on the CUDA
+// cores (chunk = boxes per split, ws as for kernel 0; needs C % 4 == 0,
+// O % 4 == 0 and 16-byte aligned x and dy).  bfloat16 needs C % 8 == 0,
+// O % 8 == 0 and 16-byte aligned x and dy.  Returns a cudaError_t.
 int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
                     const int* geo, int kernel, void* stream) {
   const int B = geo[0], H = geo[1], W = geo[2], C = geo[3], O = geo[4];
@@ -1089,6 +1349,11 @@ int sdt_filter_grad(const void* x, const void* dy, void* ws, void* out,
     return (int)cudaErrorInvalidValue;
   if (kernel == 1)
     return launch_bf16(x, dy, ws, static_cast<float*>(out), geo, st);
+  if (kernel == 3)
+    return launch_f32_tma(static_cast<const float*>(x),
+                          static_cast<const float*>(dy),
+                          static_cast<float*>(ws), static_cast<float*>(out),
+                          geo, st);
   if ((kernel != 0 && kernel != 2) || chunk % kStep != 0)
     return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);

@@ -13,15 +13,19 @@ the image, and dW [kh, kw, C, O] in f32.  On a CUDA tensor
 dtype picks the kernel's route: bf16 runs on the tensor cores (TMA loads
 and ``wgmma``, or ``mma.sync`` for the small 1x1 calls :func:`uses_mma`
 names; it needs C % 8 == 0, O % 8 == 0 and 16-byte aligned operands),
-f32 on the CUDA cores.  Nothing falls back: a CUDA tensor the kernel does
+f32 on the CUDA cores (TMA loads into a ring and 8 x 8-style register
+tiles where :func:`uses_f32_tma` says a tensor map describes the
+operands, else a CUDA-core kernel of scalar loads, which takes any C
+and O).
+Nothing falls back to the plain version: a CUDA tensor the kernels do
 not take raises.
 
 The Pallas kernel's padded, guarded flat frames exist for the TPU's DMA
 alignment; on the card TMA's zero fill of boxes that reach outside the
 tensor makes the SAME pad.  Every sum runs in a fixed order with no float
 atomics (``wgmma``: the split-K partials are summed inside the launch, in
-split order; the others: by a second pass), so two launches on the same
-inputs give the same bits.
+split order; the others: by a second pass, in split order), so two
+launches on the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -44,10 +48,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int),
                                       ctypes.c_int, ctypes.c_void_p])
 _STEP = 32  # f32: every split's chunk of positions is a multiple of this
 
-# The H100 the plan is cut for: its SMs, and the shared memory a block may
-# use (227 KB), less the ring's alignment slack and the barriers
+# The H100 the plan is cut for: its SMs, the shared memory a block may
+# use (227 KB), less the ring's alignment slack and the barriers, and its
+# memory's rate (data sheet)
 SMS = 132
 RING_BYTES = 232448 - 2048
+HBM_BYTES_PER_S = 3.35e12
 
 
 class Route(NamedTuple):
@@ -58,16 +64,31 @@ class Route(NamedTuple):
 
 
 ROUTES = {
-    # CUDA cores: 64 x 64 tiles
-    torch.float32: Route(64, (64,)),
+    # CUDA cores, TMA ring: 128 C rows (one X box) by an O tile that fits O
+    # (or an equal share of O, at most 128 wide)
+    torch.float32: Route(128, (32, 48, 64, 72, 96, 128)),
     # TMA + wgmma: 128 C rows (a 64-channel box for each of the two
     # consumer warpgroups) by the wgmma widths the kernel is built for
     torch.bfloat16: Route(128, (64, 72, 128, 192, 256)),
 }
-# f32: the contraction is split into chunks of whole steps of 32 positions
-# (at least MIN_CHUNK) until there are 8 blocks for each SM (5 blocks of 256
-# threads are resident on an SM at 48 registers)
-F32_TARGET_BLOCKS, MIN_CHUNK = 8 * SMS, 256
+# The scalar-load f32 kernel (CUDA cores, 64 x 64 tiles), kept for
+# the f32 calls a tensor map cannot describe (C % 4 or O % 4 not 0, or
+# operands not 16-byte aligned): its contraction is split into chunks of
+# whole steps of 32 positions (at least MIN_CHUNK) until there are 8
+# blocks for each SM
+F32_SCALAR_TILE, F32_TARGET_BLOCKS, MIN_CHUNK = 64, 8 * SMS, 256
+# The f32 TMA kernel: 2 blocks of 256 threads resident on an SM, so a
+# block's ring may take half the SM's 228 KB of shared memory, less the
+# block's reserved 1 KB, its barriers and the ring's alignment; the box is
+# cut for F32_MIN_STAGES stages, and a stage costs about F32_STAGE_COST
+# positions' work besides its positions (its barrier wait, sync and
+# refill).  In split_f32's estimate of a cut's time: F32_FMA_PER_S, an
+# SM's f32 FMAs a second (128 lanes at ~1.75 GHz); F32_LONE, the share of
+# that rate one block alone on an SM keeps (8 warps); F32_SPLIT_S, the
+# reduce pass's fixed cost
+F32_RING = 232448 // 2 - 1024 - 256
+F32_MIN_STAGES, F32_STAGE_COST = 3, 8
+F32_FMA_PER_S, F32_LONE, F32_SPLIT_S = 128 * 1.75e9, 0.75, 3e-6
 # The mma.sync kernel (C x O tiles of 128 x 128, 2 blocks resident on an SM,
 # so at most one wave of MMA_WAVE blocks, then a reduce pass) runs the bf16
 # 1x1 calls with at most MMA_MAX_O columns of O and one C tile, or two C
@@ -94,13 +115,14 @@ class Plan(NamedTuple):
     """How ``kernel`` cuts one call: ``tiles`` output tiles (C tiles of
     ``tile_c`` x O tiles of ``tile_o`` x taps), each tile's contraction
     cut into ``splits`` chunks of ``chunk`` work units, one block each.
-    Kernel 0 (f32, CUDA cores) and 2 (bf16, mma.sync): a unit is a
-    position (chunk a multiple of 32), the partials summed by a second
-    pass.  Kernel 1 (bf16, TMA + wgmma): a unit is a box of ``hbox`` rows
-    x ``wbox`` columns of one image (boxes numbered image-major, then
-    row-major), the ring holds ``stages`` boxes, and the splits' partials
-    are summed in the launch in groups of ``group`` splits, then the
-    groups' sums, each in order."""
+    Kernel 0 (f32, CUDA cores, scalar loads) and 2 (bf16, mma.sync): a
+    unit is a position (chunk a multiple of 32), the partials summed by a
+    second pass.  Kernels 1 (bf16, TMA + wgmma) and 3 (f32, TMA + CUDA
+    cores): a unit is a box of ``hbox`` rows x ``wbox`` columns of one
+    image (boxes numbered image-major, then row-major) and the ring holds
+    ``stages`` boxes; kernel 1 sums the splits' partials in the launch in
+    groups of ``group`` splits, then the groups' sums, each in order;
+    kernel 3 by a second pass, in split order."""
     kernel: int
     tile_c: int
     tile_o: int
@@ -205,6 +227,98 @@ def _position_splits(positions: int, tiles: int, blocks: int,
     return -(-positions // chunk), chunk
 
 
+def uses_f32_tma(c: int, o: int) -> bool:
+    """Whether an f32 call runs the TMA kernel (the fixed rule by shape):
+    a tensor map needs 16-byte row strides, so C % 4 == 0 and O % 4 == 0
+    (every model shape; the wrapper also needs 16-byte aligned operands).
+    Other f32 calls run the scalar-load kernel."""
+    return c % 4 == 0 and o % 4 == 0
+
+
+def f32_width(o: int) -> int:
+    """The f32 TMA kernel's O tile: the narrowest width it is built for
+    that takes an equal share of O among the fewest tiles of at most 128."""
+    widths = ROUTES[torch.float32].widths
+    share = -(-o // -(-o // widths[-1]))
+    return min(n for n in widths if n >= share)
+
+
+def f32_stage_bytes(positions: int, tile_o: int) -> int:
+    """Shared bytes of one stage of the f32 TMA ring: the X box (128
+    channels) and the dY box (tile_o columns) of ``positions`` positions,
+    rounded up to 128 bytes (each box lands 128-byte aligned)."""
+    return -(-positions * (ROUTES[torch.float32].tile_c + tile_o) * 4
+             // 128) * 128
+
+
+def split_f32(boxes: int, tiles: int, positions: int, tile_o: int,
+              taps_c_o: int, limit: int) -> tuple:
+    """(splits, chunk) of each of ``tiles`` tiles' ``boxes`` boxes for the
+    f32 TMA kernel: of the cuts into at most ``limit`` splits (so that the
+    workspace is never larger than the scalar-load kernel's), the one whose
+    estimated time is least: the blocks an SM runs (2 at a time share it;
+    one alone keeps F32_LONE of its rate) times the FMAs of a split, plus,
+    with more than one split, the reduce pass: its fixed cost and the
+    partials' (``taps_c_o`` floats a split) bytes written and read
+    back."""
+    best = None
+    fmas = (positions + F32_STAGE_COST) * ROUTES[torch.float32].tile_c \
+        * tile_o
+    for s in range(1, max(1, min(boxes, limit)) + 1):
+        chunk = -(-boxes // s)
+        if -(-boxes // chunk) != s:
+            continue  # the same cut as a smaller s
+        per_sm = -(-tiles * s // SMS)
+        cost = (per_sm if per_sm > 1 else 1 / F32_LONE) * chunk * fmas \
+            / F32_FMA_PER_S
+        if s > 1:
+            cost += F32_SPLIT_S + 2 * 4 * s * taps_c_o / HBM_BYTES_PER_S
+        if best is None or cost < best[0]:
+            best = (cost, s, chunk)
+    return best[1:]
+
+
+def f32_box(h: int, w: int, p_max: int) -> tuple:
+    """(hbox, wbox) of the f32 TMA kernel: of the boxes of at most
+    ``p_max`` positions, each side at most 256 (TMA's limit), one of those
+    whose boxes over the h x w image cost least, a box counted as its
+    positions plus F32_STAGE_COST; of those, the largest, then the
+    widest."""
+    widths = {-(-w // nx) for nx in range(1, w + 1)}
+    return min(((hb, wb) for wb in widths if wb <= min(p_max, 256)
+                for hb in range(1, min(h, p_max // wb, 256) + 1)),
+               key=lambda box: (-(-h // box[0]) * -(-w // box[1])
+                                * (box[0] * box[1] + F32_STAGE_COST),
+                                -box[0] * box[1], -box[1]))
+
+
+def f32_plan(b: int, h: int, w: int, c: int, o: int, kh: int,
+             kw: int) -> Plan:
+    """The f32 TMA kernel's plan: 128 x tile_o tiles, a box cut for
+    F32_MIN_STAGES stages, and the split cut :func:`split_f32` picks."""
+    n = f32_width(o)
+    tiles = -(-c // 128) * -(-o // n) * kh * kw
+    row = (128 + n) * 4
+    # a stage rounds up to 128 bytes: the box leaves room for that
+    hbox, wbox = f32_box(h, w, (F32_RING // F32_MIN_STAGES - 127) // row)
+    stages = min(MAX_STAGES, F32_RING // f32_stage_bytes(hbox * wbox, n))
+    boxes = b * -(-h // hbox) * -(-w // wbox)
+    limit = cuda_core_plan(b, h, w, c, o, kh, kw).splits
+    splits, chunk = split_f32(boxes, tiles, hbox * wbox, n, kh * kw * c * o,
+                              limit)
+    return Plan(3, 128, n, tiles, splits, chunk, hbox, wbox, 1, stages)
+
+
+def cuda_core_plan(b: int, h: int, w: int, c: int, o: int, kh: int,
+                   kw: int) -> Plan:
+    """The scalar-load f32 kernel's plan: 64 x 64 tiles, chunks of positions
+    until there are F32_TARGET_BLOCKS blocks."""
+    tiles = -(-c // F32_SCALAR_TILE) * -(-o // F32_SCALAR_TILE) * kh * kw
+    return Plan(0, F32_SCALAR_TILE, F32_SCALAR_TILE, tiles,
+                *_position_splits(b * h * w, tiles, F32_TARGET_BLOCKS,
+                                  False))
+
+
 def uses_mma(b: int, h: int, w: int, c: int, o: int, kh: int,
              kw: int) -> bool:
     """Whether a bf16 call runs the mma.sync kernel (the fixed rule by
@@ -244,11 +358,9 @@ def plan(b: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
     """The launch plan of one K2 call on ``dtype`` operands (a function of
     the shape alone, cached: searching it costs tens of microseconds)."""
     if dtype == torch.float32:
-        route = ROUTES[dtype]
-        tiles = -(-c // route.tile_c) * -(-o // route.widths[0]) * kh * kw
-        return Plan(0, route.tile_c, route.widths[0], tiles,
-                    *_position_splits(b * h * w, tiles, F32_TARGET_BLOCKS,
-                                      False))
+        if uses_f32_tma(c, o):
+            return f32_plan(b, h, w, c, o, kh, kw)
+        return cuda_core_plan(b, h, w, c, o, kh, kw)
     if uses_mma(b, h, w, c, o, kh, kw):
         return mma_plan(b, h, w, c, o, kh, kw)
     return wgmma_plan(b, h, w, c, o, kh, kw)
@@ -256,7 +368,7 @@ def plan(b: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
 
 def workspace_words(p: Plan, kh: int, kw: int, c: int, o: int) -> int:
     """4-byte words of the call's workspace, none for one split.  Kernels
-    0 and 2: the splits' partials.  Kernel 1 (as csrc/filter_grad.cu lays
+    0, 2 and 3: the splits' partials.  Kernel 1 (as csrc/filter_grad.cu lays
     it out): COUNTERS arrival counters a tile, then a partial slot of
     tile_c x tile_o floats for each (split, tile)."""
     if p.splits == 1:
@@ -264,6 +376,21 @@ def workspace_words(p: Plan, kh: int, kw: int, c: int, o: int) -> int:
     if p.kernel != 1:
         return p.splits * kh * kw * c * o
     return p.tiles * (COUNTERS + p.splits * p.tile_c * p.tile_o)
+
+
+def padding_share(p: Plan, b: int, h: int, w: int, c: int, o: int) -> float:
+    """The share of the multiply-adds plan ``p`` runs that fall on padding:
+    ragged C and O tiles (kernel 2 skips the n8 tiles past O), boxes past
+    the image's edge (kernels 1 and 3) or the last split's positions past
+    the end (kernels 0 and 2)."""
+    rows, cols = -(-c // p.tile_c) * p.tile_c, -(-o // p.tile_o) * p.tile_o
+    if p.kernel == 2:
+        cols = o
+    if p.kernel in (1, 3):
+        units = b * -(-h // p.hbox) * -(-w // p.wbox) * p.hbox * p.wbox
+    else:
+        units = p.splits * p.chunk
+    return 1 - b * h * w * c * o / (units * rows * cols)
 
 
 def check_kernel_layout(x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -295,8 +422,11 @@ def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int,
                          "{}".format(x.device))
     check_kernel_layout(x, dy)
     b, h, w, c = x.shape
-    return launch(x, dy, kh, kw, plan(b, h, w, c, dy.shape[-1], kh, kw,
-                                      x.dtype))
+    o = dy.shape[-1]
+    p = plan(b, h, w, c, o, kh, kw, x.dtype)
+    if p.kernel == 3 and (x.data_ptr() % 16 or dy.data_ptr() % 16):
+        p = cuda_core_plan(b, h, w, c, o, kh, kw)  # no tensor map
+    return launch(x, dy, kh, kw, p)
 
 
 def launch(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,

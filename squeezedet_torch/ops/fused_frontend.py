@@ -58,7 +58,8 @@ LAUNCHES = 0
 
 FILTERS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def geometry(height: int, width: int):
@@ -203,10 +204,12 @@ def _conv1_pool1_cuda(images, kernel, bias, geo=None):
     out = torch.empty((b, geo[2], geo[3], FILTERS), dtype=dtype,
                       device=images.device)
     fn = _cuda.function("conv1_pool1", "sdt_conv1_pool1", _ARGTYPES)
+    launches = ctypes.c_int(0)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(images.data_ptr(), k.data_ptr(), bs.data_ptr(),
-                 out.data_ptr(), b, h, w, *geo, _DTYPES[dtype], stream)
+                 out.data_ptr(), b, h, w, *geo, _DTYPES[dtype], stream,
+                 ctypes.byref(launches))
+    LAUNCHES += launches.value
     _cuda.check("conv1_pool1", err, "conv1_pool1 kernel launch")
-    LAUNCHES += 1
     return out

@@ -32,6 +32,7 @@ from squeezedet_tpu.models import get_model as jax_get_model
 from squeezedet_tpu.models import layers as JL
 from squeezedet_tpu.optim import build_optimizer as jax_build_optimizer
 from squeezedet_tpu.optim import merge_params, partition_params
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 NETS = ["squeezeDet+", "vgg16", "resnet50"]
 HEADS = {"squeezeDet+": "conv12", "vgg16": "conv6", "resnet50": "conv5"}

@@ -17,19 +17,9 @@ from squeezedet_torch import trainer
 from squeezedet_torch.checkpoint.manager import CheckpointManager, latest_step
 from squeezedet_torch.parallel import dryrun
 from synth_kitti import make_synth_kitti
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 cudnn = torch.backends.cudnn
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test's torch ops on one thread: the tensors are small, and
-    in a run of several test processes on the same cores more threads
-    only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from squeezedet_tpu.data.device_pipeline import (
 from squeezedet_tpu.models import get_model as jax_get_model
 from squeezedet_tpu.optim import build_optimizer as jax_build_optimizer
 from synth_kitti import make_synth_kitti
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 K = 3
 CFG_KW = dict(keep_prob=1.0, lr_warmup_steps=8, learning_rate=0.01)

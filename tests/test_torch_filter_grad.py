@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from squeezedet_torch.models import layers as TL
 from squeezedet_torch.ops import filter_grad as fg
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # the five shapes of tests/test_filter_grad.py
 SHAPES = [(1, 1, 4, 4), (1, 1, 5, 7), (3, 3, 6, 10), (3, 3, 5, 7),
@@ -141,13 +142,16 @@ BACKBONE_SHAPES = [
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_covers_every_position_tap_and_tile(shape, dtype):
     """The launch plan covers every (C tile, O tile) of every tap once,
-    and every position once.  f32, and bf16's small 1x1 calls (mma.sync):
-    chunks of whole steps of 32 positions within the grid's 65535 limit,
-    split only while blocks are short of the target (bf16: never past one
-    wave).  bf16 otherwise (TMA + wgmma): boxes of a multiple of 16
-    positions that tile the images, each box dimension at most 256 (TMA's
-    limit), a ring that fits the 227 KB of shared memory a block may use,
-    and splits that cover every box once."""
+    and every position once.  bf16's small 1x1 calls (mma.sync): chunks
+    of whole steps of 32 positions within the grid's 65535 limit, never
+    past one wave.  bf16 otherwise (TMA + wgmma) and f32 (TMA + CUDA
+    cores): boxes that tile the images (bf16: of a multiple of 16
+    positions), each box dimension at most 256 (TMA's limit), a ring that
+    fits the shared memory a block may use (f32: half an SM's, less the
+    block's reserved 1 KB, for 2 blocks an SM) and splits that cover
+    every box once; f32 never more splits (so never a larger workspace)
+    than the scalar-load f32 kernel's plan, whose 64 x 64 tiles split in
+    chunks of 32 positions only while blocks are short of its target."""
     b, kh, kw, h, w, c, o = shape
     dt = getattr(torch, dtype)
     route = fg.ROUTES[dt]
@@ -155,31 +159,47 @@ def test_plan_covers_every_position_tap_and_tile(shape, dtype):
     small = kh == kw == 1 and o <= fg.MMA_MAX_O and (
         c <= fg.MMA_TILE or c <= 2 * fg.MMA_TILE
         and -(-o // 128) * b * h * w <= fg.MMA_MAX_POSITIONS)
-    assert p.kernel == (0 if dt == torch.float32 else 2 if small else 1)
+    if dt == torch.float32:
+        assert p.kernel == (3 if c % 4 == 0 and o % 4 == 0 else 0)
+        old = fg.cuda_core_plan(b, h, w, c, o, kh, kw)
+        assert old.kernel == 0 and old.tile_c == old.tile_o == 64
+        assert old.chunk % 32 == 0 and 1 <= old.splits <= 65535
+        assert old.splits * old.chunk >= b * h * w > (
+            (old.splits - 1) * old.chunk)
+        assert old.splits == 1 or old.tiles * (
+            old.splits - 1) < fg.F32_TARGET_BLOCKS
+        assert p.splits <= old.splits
+    else:
+        assert p.kernel == (2 if small else 1)
     assert p.tile_c == route.tile_c and p.tile_o in route.widths
     tiles_c, tiles_o = -(-c // p.tile_c), -(-o // p.tile_o)
     assert tiles_c * p.tile_c >= c > (tiles_c - 1) * p.tile_c
     assert tiles_o * p.tile_o >= o > (tiles_o - 1) * p.tile_o
     assert p.tiles == tiles_c * tiles_o * kh * kw
-    if p.kernel != 1:
+    if p.kernel == 2:
         positions = b * h * w
         assert p.chunk % 32 == 0 and 1 <= p.splits <= 65535
         assert p.splits * p.chunk >= positions > (p.splits - 1) * p.chunk
-        if p.kernel == 0 and p.splits > 1:
-            assert p.tiles * (p.splits - 1) < fg.F32_TARGET_BLOCKS
-        if p.kernel == 2:
-            assert p.tiles * p.splits <= fg.MMA_WAVE
+        assert p.tiles * p.splits <= fg.MMA_WAVE
         return
-    assert p.wbox % 16 == 0 and 1 <= p.hbox <= 256 and p.wbox <= 256
+    assert 1 <= p.hbox <= 256 and 1 <= p.wbox <= 256
     ny, nx = -(-h // p.hbox), -(-w // p.wbox)
     assert ny * p.hbox >= h > (ny - 1) * p.hbox
     assert nx * p.wbox >= w > (nx - 1) * p.wbox
-    stage = (2 + -(-p.tile_o // 64)) * p.hbox * p.wbox * fg.BOX_BYTES
-    assert 2 <= p.stages <= fg.MAX_STAGES
-    assert p.stages * stage + 1024 + 256 <= 232448
+    if p.kernel == 3:
+        assert p.tile_o == fg.f32_width(o) and p.group == 1
+        assert fg.F32_MIN_STAGES <= p.stages <= fg.MAX_STAGES
+        ring = p.stages * fg.f32_stage_bytes(p.hbox * p.wbox, p.tile_o)
+        assert ring + 128 + 64 <= 232448 // 2 - 1024
+    else:
+        assert p.wbox % 16 == 0
+        stage = (2 + -(-p.tile_o // 64)) * p.hbox * p.wbox * fg.BOX_BYTES
+        assert 2 <= p.stages <= fg.MAX_STAGES
+        assert p.stages * stage + 1024 + 256 <= 232448
     boxes = b * ny * nx
     assert p.splits * p.chunk >= boxes > (p.splits - 1) * p.chunk
-    assert -(-p.splits // p.group) <= fg.COUNTERS - 1
+    if p.kernel == 1:
+        assert -(-p.splits // p.group) <= fg.COUNTERS - 1
 
 
 def _ws_traffic(p, kh, kw, c, o):
@@ -287,6 +307,128 @@ def test_bf16_plan_walk_equals_plain_k2(shape):
     got = _walk_bf16_plan(x, dy, kh, kw)
     want = fg.filter_grad_reference(x, dy, kh, kw)
     scale = fg.filter_grad_reference(x.abs(), dy.abs(), kh, kw)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+# (calls, kh, C, O, H, W) of the train step's routed convs at 1248x384, as
+# chip_smoke.K2_TRAIN_SHAPES lists them
+TRAIN_SHAPES = [(2, 1, 128, 32, 48, 156), (2, 1, 128, 48, 24, 78),
+                (2, 1, 256, 64, 24, 78), (2, 1, 256, 96, 24, 78),
+                (2, 1, 384, 96, 24, 78), (2, 3, 384, 72, 24, 78)]
+
+
+def test_f32_plan_fits_o_and_bounds_the_workspace():
+    """At every model shape (the train step's at B=20 and 128, the other
+    backbones' at their config batch) the f32 TMA plan puts at most 12 %
+    of its multiply-adds on padding (ragged tiles, boxes past the image)
+    and its split-K workspace is no larger than the scalar-load f32
+    kernel's."""
+    cases = ([(b,) + s for b in (20, 128) for s in TRAIN_SHAPES]
+             + [(5 if 256 <= s[3] <= 512 and s[4] in (94, 47) else 20,) + s
+                for s in BACKBONE_SHAPES])
+    for b, _, kh, c, o, h, w in cases:
+        p = fg.plan(b, h, w, c, o, kh, kh, torch.float32)
+        assert p.kernel == 3
+        assert fg.padding_share(p, b, h, w, c, o) <= 0.12, (b, kh, c, o)
+        old = fg.cuda_core_plan(b, h, w, c, o, kh, kh)
+        assert (fg.workspace_words(p, kh, kh, c, o)
+                <= fg.workspace_words(old, kh, kh, c, o))
+
+
+def _walk_f32_plan(x, dy, kh, kw):
+    """The f32 kernels' walk of their plan in plain torch.  TMA kernel:
+    block (split, tile) sums its run of boxes, X's 128-channel box
+    shifted by the tap and read as zero outside the image, dY's tile_o
+    columns read as zero past it; the scalar-load kernel (C % 4 or O % 4 not
+    0): block (tile, split) sums its chunk of positions of 64 x 64 tiles.
+    Either way the splits' partials are then summed in split order."""
+    b, h, w, c = x.shape
+    o = dy.shape[-1]
+    p = fg.plan(b, h, w, c, o, kh, kw, torch.float32)
+    m, n = p.tile_c, p.tile_o
+    tiles_c, tiles_o = -(-c // m), -(-o // n)
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    out = torch.zeros(kh, kw, tiles_c * m, tiles_o * n)
+    if p.kernel == 0:
+        xz = F.pad(x, (0, tiles_c * m - c, pw, pw, ph, ph))
+        ds = F.pad(dy, (0, tiles_o * n - o)).reshape(-1, tiles_o * n)
+        walked = torch.zeros(kh * kw, ds.shape[0], dtype=torch.int32)
+        for tap in range(kh * kw):
+            i, j = divmod(tap, kw)
+            xs = xz[:, i:i + h, j:j + w].reshape(-1, tiles_c * m)
+            for ct in range(tiles_c):
+                for ot in range(tiles_o):
+                    total = torch.zeros(m, n)
+                    for s in range(p.splits):
+                        rows = slice(s * p.chunk, (s + 1) * p.chunk)
+                        if ct == ot == 0:
+                            walked[tap, rows] += 1
+                        total = total + (xs[rows, ct * m:(ct + 1) * m].T
+                                         @ ds[rows, ot * n:(ot + 1) * n])
+                    out[i, j, ct * m:(ct + 1) * m,
+                        ot * n:(ot + 1) * n] = total
+        assert (walked == 1).all()  # every position of every tap, once
+        return out[:, :, :c, :o]
+    assert p.kernel == 3
+    ny, nx = -(-h // p.hbox), -(-w // p.wbox)
+    boxes = b * ny * nx
+    xz = F.pad(x, (0, tiles_c * m - c, pw, pw + p.wbox, ph, ph + p.hbox))
+    dz = F.pad(dy, (0, tiles_o * n - o, 0, p.wbox, 0, p.hbox))
+    walked = torch.zeros(p.tiles, boxes, dtype=torch.int32)
+    for t in range(p.tiles):
+        ct, ot, tap = t % tiles_c, t // tiles_c % tiles_o, t // (
+            tiles_c * tiles_o)
+        i, j = divmod(tap, kw)
+        total = torch.zeros(m, n)
+        for s in range(p.splits):
+            acc = torch.zeros(m, n)
+            for box in range(s * p.chunk, min((s + 1) * p.chunk, boxes)):
+                walked[t, box] += 1
+                bi, y0, x0 = (box // (ny * nx), box // nx % ny * p.hbox,
+                              box % nx * p.wbox)
+                xb = xz[bi, y0 + i:y0 + i + p.hbox, x0 + j:x0 + j + p.wbox,
+                        ct * m:(ct + 1) * m]
+                db = dz[bi, y0:y0 + p.hbox, x0:x0 + p.wbox,
+                        ot * n:(ot + 1) * n]
+                acc += xb.reshape(-1, m).T @ db.reshape(-1, n)
+            total = total + acc
+        out[i, j, ct * m:(ct + 1) * m, ot * n:(ot + 1) * n] = total
+    assert (walked == 1).all()  # every box of every tile, once
+    return out[:, :, :c, :o]
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 6, 10, 128, 32),
+                                   (2, 3, 3, 5, 7, 128, 72),
+                                   (2, 5, 5, 9, 11, 64, 96),
+                                   (2, 3, 3, 4, 6, 128, 30)])
+def test_f32_plan_walk_equals_pallas(shape):
+    """The f32 plan walked in plain torch on the CPU (1x1, 3x3 and 5x5;
+    O = 32, 72 and 96 on the TMA kernel, a ragged C tile, and O = 30,
+    which no tensor map describes, on the scalar-load kernel) against the JAX
+    package's Pallas kernel in interpret mode: rtol 1e-5 / atol 1e-4,
+    the tolerance of tests/test_filter_grad.py."""
+    import jax.numpy as jnp
+
+    from squeezedet_tpu.ops.filter_grad import filter_grad as jax_fg
+    b, kh, kw, h, w, c, o = shape
+    x, dy = _inputs(np.random.RandomState(7), b, h, w, c, o)
+    got = _walk_f32_plan(torch.from_numpy(x), torch.from_numpy(dy), kh, kw)
+    want = np.asarray(jax_fg(jnp.asarray(x), jnp.asarray(dy), kh=kh, kw=kw,
+                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_f32_plan_walk_equals_plain_k2_at_train_shapes(shape):
+    """The f32 plan walked at the train step's conv shapes (B=1): within
+    1e-5 of sum|x|*|dy| per output of the plain K2 (f32 sums in another
+    order)."""
+    _, kh, c, o, h, w = shape
+    x, dy = _inputs(np.random.RandomState(8), 1, h, w, c, o)
+    x, dy = torch.from_numpy(x), torch.from_numpy(dy)
+    got = _walk_f32_plan(x, dy, kh, kh)
+    want = fg.filter_grad_reference(x, dy, kh, kh)
+    scale = fg.filter_grad_reference(x.abs(), dy.abs(), kh, kh)
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
 
 
@@ -451,3 +593,42 @@ def test_cuda_k2_bf16_tensor_cores_at_ragged_shapes(kh, c, o, h, w):
     want = fg.filter_grad_reference(xt, dyt, kh, kh)
     scale = fg.filter_grad_reference(xt.abs(), dyt.abs(), kh, kh)
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh,c,o,h,w", [(1, 128, 32, 12, 20),
+                                        (1, 128, 48, 6, 10),
+                                        (1, 256, 64, 6, 10),
+                                        (1, 384, 96, 6, 10),
+                                        (3, 384, 72, 24, 78),
+                                        (5, 128, 96, 9, 11),
+                                        (3, 200, 136, 5, 7),
+                                        (3, 64, 30, 5, 7),
+                                        (1, 6, 10, 3, 4)])
+def test_cuda_k2_f32_routes_at_model_and_ragged_shapes(kh, c, o, h, w):
+    """The f32 route on the card (TF32 off): the TMA kernel at O = 32,
+    48, 64, 72 and 96 (conv12's shape among them), a 5x5 tap and ragged
+    C and O tiles; the scalar-load kernel where no tensor map
+    describes the operands (O % 4 or C % 4 not 0) and for operands that
+    are not 16-byte aligned: within 1e-5 of sum|x|*|dy| of the plain
+    version, bitwise repeatable, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dy = _inputs(np.random.RandomState(3), 2, h, w, c, o)
+    xt, dyt = torch.from_numpy(x).cuda(), torch.from_numpy(dy).cuda()
+    p = fg.plan(2, h, w, c, o, kh, kh, torch.float32)
+    assert p.kernel == (3 if c % 4 == 0 and o % 4 == 0 else 0)
+    # the same operands 4 bytes off 16-byte alignment: the scalar-load kernel
+    xs = torch.empty(xt.numel() + 1, device="cuda")[1:].view(xt.shape)
+    dys = torch.empty(dyt.numel() + 1, device="cuda")[1:].view(dyt.shape)
+    xs.copy_(xt)
+    dys.copy_(dyt)
+    want = fg.filter_grad_reference(xt, dyt, kh, kh)
+    scale = fg.filter_grad_reference(xt.abs(), dyt.abs(), kh, kh)
+    for a, b in ((xt, dyt), (xs, dys)):
+        launches = fg.LAUNCHES
+        got = fg.filter_grad(a, b, kh, kh)
+        assert torch.equal(got, fg.filter_grad(a, b, kh, kh))
+        assert fg.LAUNCHES == launches + 2
+        assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from squeezedet_torch.ops import fused_frontend as ff
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _jax_xla_frontend(x, k, bias):
@@ -227,3 +228,61 @@ def test_cuda_k1_bf16_tensor_cores_at_odd_sizes(shape):
     ulp = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0)
     allowed = torch.maximum(1e-4 + 1e-5 * want.abs(), 2 * ulp)
     assert ((got - want).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,grid", [((384, 1248), (2, 2)),
+                                        ((375, 1242), (1, 1)),
+                                        ((375, 1242), (3, 2))])
+def test_cuda_k1_bf16_tma_at_frames_and_tile_windows(frame, grid):
+    """The bf16 route's TMA boxes at a 1248-wide frame's tile windows, a
+    1242-wide frame (rows of 7452 bytes, not a multiple of 16) and its
+    tile windows: within 2 bf16 ulps of the plain version (floored at
+    1e-4 + 1e-5*|x|), two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from squeezedet_torch.models import halo
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = frame
+    x, k, bias = _inputs(np.random.RandomState(4), 2, h, w)
+    xt = torch.from_numpy(x * 50).to("cuda", torch.bfloat16)
+    kt, bt = torch.from_numpy(k).cuda(), torch.from_numpy(bias * 100).cuda()
+    hc, wc, hp, wp = ff.geometry(h, w)[:4]
+    rows = halo.next_bounds(halo.next_bounds(
+        halo.image_bounds(h, h // 16, grid[0]), 2, hc), 2, hp)
+    cols = halo.next_bounds(halo.next_bounds(
+        halo.image_bounds(w, w // 16, grid[1]), 2, wc), 2, wp)
+    for rb in zip(rows, rows[1:]):
+        for cb in zip(cols, cols[1:]):
+            ((r0, r1), (c0, c1)), geo = ff.tile_geometry(h, w, rb, cb)
+            win = xt[:, r0:r1, c0:c1].contiguous()
+            got = ff.conv1_pool1(win, kt, bt, list(geo))
+            assert torch.equal(got, ff.conv1_pool1(win, kt, bt, list(geo)))
+            want = ff.conv1_pool1_reference(win, kt, bt, list(geo)).float()
+            _, e = torch.frexp(want.abs())
+            ulp = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0)
+            allowed = torch.maximum(1e-4 + 1e-5 * want.abs(), 2 * ulp)
+            assert ((got.float() - want).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_bf16_counts_each_launch_of_a_cut_call():
+    """bf16 images of 2^31 elements or more (B=1500 at 384x1248: 2.157e9)
+    are cut into two launches, both counted in LAUNCHES; the images on
+    either side of the cut come out bit for bit as in calls of their
+    own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xt = torch.empty((1500, 384, 1248, 3), dtype=torch.bfloat16,
+                     device="cuda")
+    for chunk in xt.split(100):
+        chunk.copy_(torch.randn(chunk.shape, device="cuda", generator=gen)
+                    * 50)
+    k = torch.randn((3, 3, 3, ff.FILTERS), device="cuda", generator=gen)
+    bias = torch.randn(ff.FILTERS, device="cuda", generator=gen)
+    launches = ff.LAUNCHES
+    got = ff.conv1_pool1(xt, k, bias)
+    assert ff.LAUNCHES == launches + 2
+    for lo, hi in ((0, 4), (1488, 1500)):
+        assert torch.equal(got[lo:hi], ff.conv1_pool1(xt[lo:hi], k, bias))

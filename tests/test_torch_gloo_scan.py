@@ -30,6 +30,7 @@ import torch
 from squeezedet_torch import train as port_cli
 from squeezedet_torch.checkpoint.manager import STATE_FILE
 from squeezedet_torch.parallel import dryrun
+from torch_threads import one_torch_thread
 
 K = 2
 RANKS = 2
@@ -50,15 +51,8 @@ def one_thread():
     read ``OMP_NUM_THREADS`` when torch starts): the tensors are tiny,
     and in a run of several test processes on the same cores more
     threads only contend."""
-    threads, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
-    torch.set_num_threads(1)
-    os.environ["OMP_NUM_THREADS"] = "1"
-    yield
-    torch.set_num_threads(threads)
-    if env is None:
-        del os.environ["OMP_NUM_THREADS"]
-    else:
-        os.environ["OMP_NUM_THREADS"] = env
+    with one_torch_thread(spawned=True):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -17,7 +17,6 @@ import subprocess
 
 import numpy as np
 import pytest
-import torch
 
 import squeezedet_torch as st
 from squeezedet_torch import eval as port_eval
@@ -29,20 +28,10 @@ from squeezedet_tpu.config import tiny_test_config as jax_tiny_config
 from squeezedet_tpu.data import Kitti as JaxKitti
 from squeezedet_tpu.native import dataloader as jax_ndl
 from synth_kitti import make_synth_kitti
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIXEL_ATOL, SCALE_RTOL, BOX_RTOL, BOX_ATOL = 5e-3, 1e-6, 1e-5, 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test's torch ops on one thread: the tensors are small, and
-    in a run of several test processes on the same cores more threads
-    only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from squeezedet_tpu.config import tiny_test_config
 from squeezedet_tpu.data.device_pipeline import normalize_images
 from squeezedet_tpu.models import get_model as jax_get_model
 from squeezedet_tpu.models import layers as JL
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 NETS = ["squeezeDet", "squeezeDet+", "vgg16", "resnet50"]
 H, W = 64, 96

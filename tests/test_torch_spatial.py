@@ -31,6 +31,7 @@ from squeezedet_torch.parallel import mesh as port_mesh
 from squeezedet_torch.parallel.spatial import spatial_predict_fn
 from squeezedet_torch.weights import from_jax_params
 from synth_kitti import make_synth_kitti
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -87,17 +88,6 @@ def _perturbed(width, height, batch, seed):
                 p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(
                     np.float32) * HEAD_STD))
     return det
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test's torch ops on one thread: the tensors are small, and
-    in a run of several test processes on the same cores more threads
-    only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_model(net, width, height, seed=0):

@@ -26,6 +26,7 @@ from squeezedet_tpu import trainer as JT
 from squeezedet_tpu.models.skeleton import Targets as JaxTargets
 from test_torch_dispatch import (_port_state, _stacked, _torch,
                                  start)  # noqa: F401
+from torch_threads import one_torch_thread
 
 STEPS = 3
 
@@ -39,10 +40,8 @@ def one_thread():
     input moves fire9.expand3x3's gradient by 0.57 %), so it holds only
     where the CPU's tiled forward equals the unsharded one bit for bit,
     as it does at the default thread count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    with one_torch_thread():
+        yield
 
 
 def _toy_targets(batch, anchors, classes, rng):

@@ -16,19 +16,9 @@ import squeezedet_torch as st
 from squeezedet_torch.checkpoint import importer
 from squeezedet_torch.weights import to_jax_params
 from squeezedet_tpu.checkpoint import importer as jax_importer
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 tf = pytest.importorskip("tensorflow")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test's torch ops on one thread: the tensors are small, and
-    in a run of several test processes on the same cores more threads
-    only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _save(path, variables, **saver_kw):

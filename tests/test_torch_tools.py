@@ -36,17 +36,7 @@ from test_caffemodel import (_blob_double, _blob_legacy, _blob_modern, _ld,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch_from_jax_checkpoint  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test's torch ops on one thread: the tensors are small, and
-    in a run of several test processes on the same cores more threads
-    only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 
 def _caffemodels():

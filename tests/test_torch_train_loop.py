@@ -36,6 +36,7 @@ from squeezedet_tpu.data import Kitti as JaxKitti
 from squeezedet_tpu.models import get_model as jax_get_model
 from squeezedet_tpu.trainer import train as jax_train
 from synth_kitti import make_synth_kitti
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL, STEP_TOL = 1e-4, 2e-2
 CFG_KW = dict(keep_prob=1.0, data_augmentation=True, drift_x=20,
