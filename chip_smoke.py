@@ -11,15 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    each, started together; ptxas' register, shared-memory and spill
    reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads and
    stores (UTMALDG, UTMASTG) in each kernel's SASS, by ``cuobjdump
-   -sass``: K1's bf16 kernel must have HMMA, UTMALDG and UTMASTG, K2's
+   -sass``: K1's bf16 kernel must have HMMA, UTMALDG and UTMASTG, its
+   f32 kernel the cp.async copies (LDGSTS) of its halo rows, K2's
    bf16 kernels HGMMA and UTMALDG (``filter_grad_wgmma``) and HMMA
    (``filter_grad_tc_partial``, its small 1x1 calls), K2's f32 TMA
-   kernel UTMALDG; K1's bf16 kernel and K2's f32 TMA kernel must spill
-   0 bytes;
+   kernel UTMALDG; K1's bf16 and f32 kernels and K2's f32 TMA kernel
+   must spill 0 bytes;
 3. K1 against its plain PyTorch version on the card, at the flagship
-   shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, then
-   timed with CUDA events at B=128 in bf16 and in f32 (TF32 off), each
-   beside its plain version, the unfused cuDNN layers and its bound;
+   shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, and in f32
+   on a spatial tile's window and on images starting 4 bytes past a
+   16-byte boundary; the f32 launch plan the kernel computes equals
+   ``fused_frontend.f32_plan`` at the paths' shapes; then K1 timed with
+   CUDA events at B=128 in bf16 and in f32 (TF32 off), each beside its
+   plain version, the unfused cuDNN layers and its bound;
 4. K2 against its plain version on the card in f32 (TF32 off) and bf16,
    at every conv shape the train step routes to it (B=20, 1248x384) and
    at five odd shapes (B=2); two launches must be bitwise equal; K2, its
@@ -66,8 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    1920x1080 (cropped to 375x1242).  K1 launches once per eval batch and
    demo frame, K2 never.  Prints each eval mode's time per image and
    mAP, and the demo's per-frame times; then, with launches no longer
-   counted, K1 timed at the eval and demo shapes and the f32 B=1 eval
-   forward's host time against its device time;
+   counted, K1 timed at the eval and demo shapes (the f32 B=1 shapes,
+   384x1248 and 375x1242, also graph-replayed beside the unfused cuDNN
+   layers) and the f32 B=1 eval forward's host time against its device
+   time;
 9. the other backbones, squeezeDet+ (B=20), VGG16 (B=5) and ResNet50
    (B=20) at 1242x375 with seeded weights.  First, not counted: K2
    against its plain version in f32 and bf16 at every conv shape their
@@ -203,7 +209,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  The last lines are a JSON object describing
-each kernel (its times, its launches on the paths, and its bound: the
+each kernel (its times, its launches on the paths, K1's f32 route's
+share of them, and its bound: the
 larger of the bytes it must move over the card's memory rate and its
 operations over the peak rate of their type), and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -248,17 +255,19 @@ HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 KERNELS = ("conv1_pool1", "filter_grad")
 # kernel functions of each source, by name, and the SASS instructions each
 # must hold: K1 bf16 mma.sync (HMMA) fed by TMA loads (UTMALDG), its
-# output written by TMA stores (UTMASTG); K2 bf16 wgmma (HGMMA) fed by TMA
-# loads, mma.sync for its small 1x1 calls, and K2 f32 fed by TMA loads
+# output written by TMA stores (UTMASTG); K1 f32 fed by cp.async (LDGSTS);
+# K2 bf16 wgmma (HGMMA) fed by TMA loads, mma.sync for its small 1x1
+# calls, and K2 f32 fed by TMA loads
 SASS_NEEDS = {
-    "conv1_pool1": {"conv1_pool1_tma": ("HMMA", "UTMALDG", "UTMASTG")},
+    "conv1_pool1": {"conv1_pool1_tma": ("HMMA", "UTMALDG", "UTMASTG"),
+                    "conv1_pool1_f32_strip": ("LDGSTS",)},
     "filter_grad": {"filter_grad_wgmma": ("HGMMA", "UTMALDG"),
                     "filter_grad_tc_partial": ("HMMA",),
                     "filter_grad_f32_tma": ("UTMALDG",)}}
-SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG")
-# the kernels ptxas must build with no spill
-NO_SPILLS = {"conv1_pool1": "conv1_pool1_tma",
-             "filter_grad": "filter_grad_f32_tma"}
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
+# the kernels of each source that ptxas must build with no spill
+NO_SPILLS = {"conv1_pool1": ("conv1_pool1_tma", "conv1_pool1_f32_strip"),
+             "filter_grad": ("filter_grad_f32_tma",)}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -565,7 +574,7 @@ def k1_tile_bytes(b, h, w):
 def sass_counts(so):
     """{kernel function: {op: instructions}} for the SASS_OPS in a
     library's SASS (HMMA counts mma.sync, HGMMA wgmma, UTMALDG TMA loads,
-    UTMASTG TMA stores)."""
+    UTMASTG TMA stores, LDGSTS cp.async copies)."""
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -656,7 +665,7 @@ def phase_build():
             for fn, n in sorted(spills.items()):
                 log("[build] {}: ptxas spill bytes (stores + loads) {} "
                     "in {}".format(name, n, fn))
-            if kernel == NO_SPILLS[name] and (not spills or any(
+            if kernel in NO_SPILLS[name] and (not spills or any(
                     spills.values())):
                 raise AssertionError("{} spills (or ptxas reported none of "
                                      "it): {}".format(kernel, spills))
@@ -685,10 +694,12 @@ def bf16_ulp(p):
                        torch.ldexp(torch.ones_like(p), exp - 8))
 
 
-def check_k1(b, h, w, dtype, seed, window=None, geo=None):
+def check_k1(b, h, w, dtype, seed, window=None, geo=None, offset=0):
     """K1 against its plain version on seeded b x h x w images, or on
     their ``window`` ((r0, r1), (c0, c1)) at a tile's ``geo``
-    (``fused_frontend.tile_geometry``).  Returns the max abs error."""
+    (``fused_frontend.tile_geometry``); with ``offset``, on a copy that
+    starts ``offset`` elements past a 16-byte boundary.  Returns the max
+    abs error."""
     import torch
 
     from squeezedet_torch.ops import fused_frontend as ff
@@ -696,6 +707,10 @@ def check_k1(b, h, w, dtype, seed, window=None, geo=None):
     if window is not None:
         (r0, r1), (c0, c1) = window
         x = x[:, r0:r1, c0:c1].contiguous()
+    if offset:
+        buf = torch.empty(x.numel() + 8, dtype=dtype, device=x.device)
+        x = buf[offset:offset + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == offset * x.element_size()
     got = ff.conv1_pool1(x, k, bias, geo)
     want = ff.conv1_pool1_reference(x, k, bias, geo)
     torch.cuda.synchronize()
@@ -711,11 +726,13 @@ def check_k1(b, h, w, dtype, seed, window=None, geo=None):
         allowed = torch.maximum(allowed, K1_BF16_ULPS * bf16_ulp(p))
     worst = (err / allowed).max().item()
     max_err = err.max().item()
-    log("[k1] {}x{}x{} {}{}: max abs err {:.3e}, worst err/tolerance "
+    log("[k1] {}x{}x{} {}{}{}: max abs err {:.3e}, worst err/tolerance "
         "{:.3f}".format(b, h, w, str(dtype).replace("torch.", ""),
                         "" if window is None else
                         ", window {} at geometry {}".format(window, geo),
-                        max_err, worst))
+                        "" if not offset else
+                        ", {} bytes past a 16-byte boundary".format(
+                            x.data_ptr() % 16), max_err, worst))
     if worst > 1.0:
         raise AssertionError("K1 disagrees with its plain version")
     return max_err
@@ -734,10 +751,18 @@ def phase_k1(card):
 
 def _phase_k1(card):
     import torch
-    check_k1(8, 384, 1248, torch.float32, 0)
-    max_err = check_k1(8, 384, 1248, torch.bfloat16, 1)
-    check_k1(2, 375, 1242, torch.float32, 2)
-    check_k1(2, 375, 1242, torch.bfloat16, 3)
+    errs = [check_k1(8, 384, 1248, torch.float32, 0),
+            check_k1(8, 384, 1248, torch.bfloat16, 1),
+            check_k1(2, 375, 1242, torch.float32, 2),
+            check_k1(2, 375, 1242, torch.bfloat16, 3)]
+    # the f32 route on a spatial tile's window (tile (1, 1) of 2x2) and on
+    # images 4 bytes past a 16-byte boundary
+    win, geo = tile_windows(384, 1248, (2, 2))[3]
+    errs.append(check_k1(1, 384, 1248, torch.float32, 33, window=win,
+                         geo=list(geo)))
+    errs.append(check_k1(2, 375, 1242, torch.float32, 34, offset=1))
+    max_err = max(errs)
+    check_f32_plan(card)
 
     row = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -748,10 +773,62 @@ def _phase_k1(card):
                 f32=row[torch.float32])
 
 
-def time_k1(card, b, h, w, dtype):
+def tile_windows(h, w, grid):
+    """(window, geometry) of every tile of the n_h x n_w ``grid`` of an
+    h x w frame: the pool bounds the model's tiled K1 gives each tile
+    (``fused_frontend.tile_geometry``)."""
+    from squeezedet_torch.models import halo
+    from squeezedet_torch.ops import fused_frontend as ff
+    hc, wc, hp, wp = ff.geometry(h, w)[:4]
+    rows = halo.next_bounds(halo.next_bounds(
+        halo.image_bounds(h, h // 16, grid[0]), 2, hc), 2, hp)
+    cols = halo.next_bounds(halo.next_bounds(
+        halo.image_bounds(w, w // 16, grid[1]), 2, wc), 2, wp)
+    return [ff.tile_geometry(h, w, q, p)
+            for q in zip(rows, rows[1:]) for p in zip(cols, cols[1:])]
+
+
+def check_f32_plan(card):
+    """The f32 K1's launch plan as the kernel computes it
+    (``sdt_conv1_pool1_f32_plan``) equals ``fused_frontend.f32_plan`` on
+    this card's SM count, at the batches and frames of the paths and at
+    the tile windows of SPATIAL_K1_GRIDS."""
+    import ctypes
+
+    import torch
+
+    from squeezedet_torch.ops import _cuda
+    from squeezedet_torch.ops import fused_frontend as ff
+    fn = _cuda.function("conv1_pool1", "sdt_conv1_pool1_f32_plan",
+                        [ctypes.c_int] * 4 + [ctypes.POINTER(
+                            ctypes.c_int64)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geos = [ff.geometry(h, w) for h, w in ((384, 1248), (375, 1242),
+                                           (96, 320), (33, 47), (1, 1))]
+    geos += [geo for grid in SPATIAL_K1_GRIDS
+             for _, geo in tile_windows(384, 1248, grid)]
+    for b in (1, 2, 4, 5, 8, 20, 128, 1500):
+        for geo in geos:
+            got = (ctypes.c_int64 * 5)()
+            fn(b, geo[2], geo[3], sms, got)
+            want = ff.f32_plan(b, geo[2], geo[3], sms)
+            if tuple(got) != tuple(want):
+                raise AssertionError("K1 f32 plan at B={} {}: kernel {}, "
+                                     "fused_frontend.f32_plan {}".format(
+                                         b, geo, tuple(got), want))
+    for b in (128, 1):
+        log("[k1] f32 launch plan at B={} 384x1248 on {} SMs: {}".format(
+            b, sms, ff.f32_plan(b, 96, 312, sms)))
+    log("[k1] f32 launch plan: the kernel's equals fused_frontend.f32_plan "
+        "at {} shapes; on {}".format(8 * len(geos), card))
+
+
+def time_k1(card, b, h, w, dtype, iters=10, replay=False):
     """K1, its plain version and the unfused cuDNN layers (conv + bias,
     ReLU, pool; TF32 off) timed in turns at b x h x w, with K1's bound
-    (and, in bf16, the bytes its TMA boxes ask for)."""
+    (and, in bf16, the bytes its TMA boxes ask for).  ``replay``: each
+    call's device time alone, ``iters`` calls replayed from a CUDA graph
+    (``graph_ms``; at B=1 a call launched one by one waits on the host)."""
     import torch
 
     from squeezedet_torch.models import layers as L
@@ -766,22 +843,23 @@ def time_k1(card, b, h, w, dtype):
     for name in ("plain", "kernel", "unfused", "unfused", "kernel",
                  "plain"):
         fn = {"plain": plain, "kernel": kern, "unfused": unfused}[name]
-        times[name].append(cuda_ms(fn, iters=10))
+        times[name].append(graph_ms(fn, iters=iters) if replay
+                           else cuda_ms(fn, iters=iters))
     ms = {n: sum(v) / len(v) for n, v in times.items()}
     f32 = dtype == torch.float32
     bound_ms, bound_by = k1_bound(b, h, w, f32=f32)
     name = str(dtype).replace("torch.", "")
     asked = "" if f32 else ", its TMA boxes ask {:.1f} MB of the memory " \
         "system".format(k1_tile_bytes(b, h, w) / 1e6)
-    log("[k1] B={} {}x{} {} on {}: kernel {:.4f} ms, plain {:.4f} ms, "
+    log("[k1] B={} {}x{} {}{} on {}: kernel {:.4f} ms, plain {:.4f} ms, "
         "unfused {} cuDNN layers {:.4f} ms, bound {:.4f} ms ({}){} (runs: "
-        "{})".format(b, h, w, name, card, ms["kernel"], ms["plain"], name,
-                     ms["unfused"], bound_ms, bound_by, asked,
-                     json.dumps(times)))
+        "{})".format(b, h, w, name, ", graph-replayed" if replay else "",
+                     card, ms["kernel"], ms["plain"], name, ms["unfused"],
+                     bound_ms, bound_by, asked, json.dumps(times)))
     del x
     return {"ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "unfused_ms": ms["unfused"]}
+            "unfused_ms": ms["unfused"], "shape": [b, h, w]}
 
 
 def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
@@ -1907,9 +1985,11 @@ def phase_eval_demo(card):
 
 def probe_eval_shapes(card, weights):
     """After phase 8, outside its counted window: K1 at the shapes of the
-    eval and demo forwards beside its plain version and bound, and the
-    f32 B=1 eval forward's host time (forward, copy of the outputs to the
-    host) against its kernels' device time (torch.profiler)."""
+    eval and demo forwards beside its plain version and bound, launched
+    one by one, and at the f32 B=1 shapes also graph-replayed beside the
+    unfused cuDNN layers (``time_k1``); then the f32 B=1 eval forward's
+    host time (forward, copy of the outputs to the host) against its
+    kernels' device time (torch.profiler).  Returns the f32 B=1 rows."""
     import numpy as np
     import torch
 
@@ -1933,6 +2013,15 @@ def probe_eval_shapes(card, weights):
                 "plain {:.4f} ms, bound {:.4f} ms ({}); on {}".format(
                     what, b, h, w, str(dtype).replace("torch.", ""),
                     ms["kernel"], ms["plain"], bound_ms, bound_by, card))
+            del x
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            rows = [time_k1(card, 1, h, w, torch.float32, iters=20,
+                            replay=True) for h, w in ((384, 1248),
+                                                      (375, 1242))]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
 
     cfg = kitti_squeezedet_config()
     det = get_model("squeezeDet", cfg, device="cuda")
@@ -1970,6 +2059,7 @@ def probe_eval_shapes(card, weights):
             "not measured (no device events)",
             "{:.1f} %".format(100 * device_ms / wall) if device_ms else
             "not measured", card))
+    return rows
 
 
 def phase_k2_backbones(card):
@@ -3855,28 +3945,18 @@ def check_k1_tiles(card):
     model's tiled K1 gives each tile), in f32 (TF32 off) and bf16.
     Returns the max abs error; its launches are not counted."""
     import torch
-
-    from squeezedet_torch.models import halo
-    from squeezedet_torch.ops import fused_frontend as ff
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     h, w = 384, 1248
-    hc, wc, hp, wp = ff.geometry(h, w)[:4]
     err, checked = 0.0, 0
     with torch.inference_mode():
-        for n_h, n_w in SPATIAL_K1_GRIDS:
-            rows = halo.next_bounds(halo.next_bounds(
-                halo.image_bounds(h, h // 16, n_h), 2, hc), 2, hp)
-            cols = halo.next_bounds(halo.next_bounds(
-                halo.image_bounds(w, w // 16, n_w), 2, wc), 2, wp)
-            for q in zip(rows, rows[1:]):
-                for p in zip(cols, cols[1:]):
-                    win, geo = ff.tile_geometry(h, w, q, p)
-                    for seed, dtype in ((31, torch.float32),
-                                        (32, torch.bfloat16)):
-                        err = max(err, check_k1(1, h, w, dtype, seed,
-                                                window=win, geo=list(geo)))
-                        checked += 1
+        for grid in SPATIAL_K1_GRIDS:
+            for win, geo in tile_windows(h, w, grid):
+                for seed, dtype in ((31, torch.float32),
+                                    (32, torch.bfloat16)):
+                    err = max(err, check_k1(1, h, w, dtype, seed,
+                                            window=win, geo=list(geo)))
+                    checked += 1
     log("[spatial] K1 on {} tile windows of {} at {}x{}: within the K1 "
         "check's tolerances of its plain version, max abs err {:.3e}; on "
         "{}".format(checked, SPATIAL_K1_GRIDS, w, h, err, card))
@@ -4359,10 +4439,11 @@ def main():
     from squeezedet_torch.ops import fused_frontend as ff
 
     # serving path: counts from 0 just before it, read just after
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     forwards = phase_main_path(card)
     forwards += phase_server()
-    serve = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    serve = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+             "k2": fg.LAUNCHES}
     if serve["k1"] == 0 or serve["k1"] != forwards or serve["k2"] != 0:
         raise AssertionError("serving path: K1 launches {k1}, K2 launches "
                              "{k2}, {0} forwards".format(forwards, **serve))
@@ -4372,12 +4453,13 @@ def main():
     weights = get_model("squeezeDet", kitti_squeezedet_config(),
                         device="cpu").backbone.state_dict()
     cfg = kitti_squeezedet_config()
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     steps = phase_train_check(weights, cfg)
     steps += phase_train_modes(weights, cfg, 20, K2_PER_STEP)
     run_steps, run_k2 = phase_train_run(card, weights)
     L.set_filter_grad(False)
-    train = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    train = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+             "k2": fg.LAUNCHES}
     want_k2 = K2_PER_STEP[True] + sum(K2_PER_STEP.values()) + run_k2
     steps += run_steps
     if train["k1"] != steps or train["k2"] == 0 or train["k2"] != want_k2:
@@ -4388,9 +4470,10 @@ def main():
         steps, train["k1"], train["k2"]))
 
     # train loop through the CLI: counts from 0 just before it
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     loop_run = phase_train_loop(card)
-    loop = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    loop = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+            "k2": fg.LAUNCHES}
     if loop["k1"] != loop_run["forwards"] or \
             loop["k2"] != K2_PER_STEP["1x1"] * loop_run["steps"]:
         raise AssertionError("train loop: K1 launches {k1} for {0} forwards, "
@@ -4401,9 +4484,10 @@ def main():
         loop_run["steps"], loop["k1"], loop["k2"]))
 
     # eval and demo from a checkpoint: counts from 0 just before them
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     forwards, eval_weights = phase_eval_demo(card)
-    evald = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    evald = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+             "k2": fg.LAUNCHES}
     if evald["k1"] != forwards or evald["k2"] != 0:
         raise AssertionError("eval and demo: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}".format(forwards,
@@ -4411,14 +4495,15 @@ def main():
     log("[eval] path: {} forwards (eval batches and demo frames), K1 "
         "launches {}, K2 launches {}".format(forwards, evald["k1"],
                                              evald["k2"]))
-    probe_eval_shapes(card, eval_weights)
+    k1_f32_b1 = probe_eval_shapes(card, eval_weights)
 
     # the other backbones: K2 at their shapes (not counted), then the
     # paths, with the counts from 0 just before them
     k2_err, k2_rows = phase_k2_backbones(card)
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     want_k2 = phase_backbones(card)
-    backbones = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    backbones = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+                 "k2": fg.LAUNCHES}
     if backbones["k1"] != 0 or backbones["k2"] != want_k2:
         raise AssertionError("other backbones: K1 launches {k1}, K2 launches "
                              "{k2}, expected 0 and {0}".format(
@@ -4427,9 +4512,10 @@ def main():
         backbones["k1"], backbones["k2"]))
 
     # int8 and the exported artifact: counts from 0 just before them
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     want_k1, qdet, det16 = phase_int8_export(card, eval_weights)
-    int8 = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    int8 = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+            "k2": fg.LAUNCHES}
     if int8["k1"] != want_k1 or int8["k2"] != 0:
         raise AssertionError("int8 and export: K1 launches {k1}, expected "
                              "{0}; K2 launches {k2}".format(want_k1, **int8))
@@ -4441,20 +4527,21 @@ def main():
 
     # data parallelism: counts from 0 just before it; the ranks, in their
     # own processes, report theirs
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     want_k1, ranks = phase_data_parallel(card, weights)
     if ff.LAUNCHES != want_k1 or fg.LAUNCHES != 0:
         raise AssertionError("data parallelism: K1 launches {}, expected {}; "
                              "K2 launches {}".format(ff.LAUNCHES, want_k1,
                                                      fg.LAUNCHES))
-    dp = {"k1": ff.LAUNCHES + ranks["k1"], "k2": fg.LAUNCHES + ranks["k2"]}
+    dp = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
+          "k2": fg.LAUNCHES + ranks["k2"]}
     log("[dp] path: K1 launches {} ({} in this process, {} on the ranks), "
         "K2 launches {} (on the ranks)".format(dp["k1"], ff.LAUNCHES,
                                                ranks["k1"], dp["k2"]))
 
     # K steps per dispatch as captured CUDA graphs: counts from 0 just
     # before it; the NCCL rank, in its own process, reports its own
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     steps, gloo_k1 = phase_graph_step(card, weights)
     forwards, backwards, nccl = phase_graph_cli(card)
     learn_steps, eval_batches = phase_learning(card)
@@ -4465,6 +4552,7 @@ def main():
                              "{}; K2 launches {}, expected {}".format(
                                  ff.LAUNCHES, want_k1, fg.LAUNCHES, want_k2))
     graph = {"k1": ff.LAUNCHES + nccl["k1"] + gloo_k1,
+             "k1_f32": ff.F32_LAUNCHES,
              "k2": fg.LAUNCHES + nccl["k2"]}
     log("[graph] path: K1 launches {} ({} on the NCCL rank, {} on the gloo "
         "ranks), K2 launches {} ({} on the NCCL rank)".format(
@@ -4472,7 +4560,7 @@ def main():
 
     # spatial partitioning, every tile on the card: counts from 0 just
     # before it; the gloo ranks, in their own processes, report theirs
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     want_k1 = phase_spatial_forward(card, weights)
     want_k1 += phase_spatial_eval(card, weights)
     step_k1, ranks = phase_spatial_train(card, weights)
@@ -4482,7 +4570,8 @@ def main():
                              "{}; K2 launches {} here, {} on the "
                              "ranks".format(ff.LAUNCHES, want_k1,
                                             fg.LAUNCHES, ranks["k2"]))
-    spatial = {"k1": ff.LAUNCHES + ranks["k1"], "k2": fg.LAUNCHES}
+    spatial = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
+               "k2": fg.LAUNCHES}
     log("[spatial] path: K1 launches {} ({} on the gloo ranks), K2 "
         "launches {}".format(spatial["k1"], ranks["k1"], spatial["k2"]))
     k1_tile_err = check_k1_tiles(card)
@@ -4491,9 +4580,10 @@ def main():
     # the host paths (deterministic resume, native loader, import):
     # counts from 0 just before them; the cost readings after, uncounted
     import shutil
-    ff.LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
     forwards, want_k2, work, root = phase_host_paths(card)
-    host = {"k1": ff.LAUNCHES, "k2": fg.LAUNCHES}
+    host = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+            "k2": fg.LAUNCHES}
     if host["k1"] != forwards or host["k2"] != want_k2:
         raise AssertionError("host paths: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}, expected {1}".format(
@@ -4505,18 +4595,28 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    paths = {"serve": serve, "train": train, "loop": loop, "eval": evald,
+             "backbones": backbones, "int8": int8, "dp": dp, "graph": graph,
+             "spatial": spatial, "host": host}
+    log("[k1] f32 route launches in this process by path: {}".format(
+        {n: c["k1_f32"] for n, c in paths.items()}))
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
         "source": "squeezedet_torch/csrc/conv1_pool1.cu",
         "replaces": "squeezedet_tpu/ops/fused_frontend.py:161",
-        "launches": serve["k1"] + train["k1"] + loop["k1"] + evald["k1"]
-        + backbones["k1"] + int8["k1"] + dp["k1"] + graph["k1"]
-        + spatial["k1"] + host["k1"],
+        "launches": sum(c["k1"] for c in paths.values()),
+        # the f32 route's share, counted in this process (spawned ranks
+        # report their launches without the route)
+        "f32_launches": sum(c["k1_f32"] for c in paths.values()),
         "design": "bf16: TMA halo rows into a 2-stage ring (producer warp), "
-                  "mma.sync, TMA store of the pooled tile; f32: CUDA cores",
+                  "mma.sync, TMA store of the pooled tile; f32: a warp a "
+                  "strip of 15 pool columns down a run of pool rows, "
+                  "cp.async halo rows, 9 tap planes, 8 x 8 f32 register "
+                  "tiles on the CUDA cores, the pool on the raw sums",
         "tensor_core_instructions": tc["conv1_pool1"],
-        **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err)),
+        **dict(k1, max_abs_err=max(k1["max_abs_err"], k1_tile_err),
+               f32_b1=k1_f32_b1),
     }, {
         "name": "filter_grad",
         "route": "cuda",

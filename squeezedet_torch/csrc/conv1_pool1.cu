@@ -74,9 +74,46 @@
 // and stores, and 16 consumer warps an SM hide too little of them.  More
 // stages, smaller tiles, 3 blocks an SM and the B fragments in registers
 // were each slower or spilled.
-// f32 route (CUDA cores): one block per (image, 4 x 16 pool tile); the halo
-// tile as f32, the conv tile computed in f32 (16 channels per work item,
-// weights read as float4 broadcasts), then pooled, one value per store.
+// f32 route (CUDA cores, f32 FMAs: no TF32), conv1_pool1_f32_strip: each
+// warp walks a strip of 15 pool columns (32 conv columns, 31 of them used;
+// 65 input pixels) down a run of pool rows of one image, on its own:
+//   1. its lanes keep a ring of 6 halo rows full with 4-byte cp.async
+//      copies (zero-filled outside the image), two rows a conv row, issued
+//      two conv rows ahead, so the loads overlap the FMAs;
+//   2. each halo row, once landed, is rewritten as 9 tap planes: plane
+//      (dj, ci) holds the tap's input float of each of the 32 conv
+//      columns, so a tap's operands for 8 neighbouring positions are 2
+//      float4 loads into the same registers at every tap;
+//   3. a conv row is 32 positions x 64 channels in registers: lane 8 pg +
+//      cg holds positions 8 pg .. 8 pg + 7 and channels 32 h + 4 cg + e,
+//      64 accumulators, and a tap is 2 float4 loads of inputs, 2 of
+//      weights (a warp reads 128 consecutive bytes of them) and 64 FMAs,
+//      a weight at a time over the 8 positions;
+//   4. the pool runs on the raw sums, in registers: the maxima over the
+//      3 conv columns of each of the lane's 4 outputs (the ninth column is
+//      the next lane group's first, by a shuffle), then over 3 conv rows
+//      (the row two pool rows share is carried, not recomputed), and the
+//      bias and ReLU once per pooled value, stored as float4s.  Adding the
+//      bias and ReLU are monotonic (an f32 add rounds monotonically), so
+//      relu(max + b) equals the max of relu(sum + b) bit for bit; each sum
+//      is fmaf over the 27 taps in (di, dj, ci) order from +0.0f.
+// A block is 4 such warps, 3 blocks an SM (162 registers, 0 spill bytes),
+// and is not persistent; the launch plan (f32_plan, the same function as
+// ops/fused_frontend.f32_plan) picks the run of pool rows a warp takes so
+// that the card fills at B=1 and on a tile's window, and the conv row two
+// runs share is computed seldom at B=128 (runs of 16 pool rows).
+// Addresses are 64-bit and the copies 4-byte, so any contiguous f32
+// images at any 4-byte-aligned start take one launch.
+// What binds it is FFMA issue: a conv row costs a lane 1,728 FFMAs and
+// about 330 other instructions, and about a fifth of the FFMAs read both
+// register operands from one register bank (ptxas' allocation; a stall
+// cycle each).  At B=128 384x1248 on an H100 80GB HBM3 (700 W) it takes
+// about 1.49 ms against a 0.79 ms bound (53 GFLOP at 67 TFLOP/s), and the
+// card draws its 700 W and lowers its clock under it.  Earlier builds of
+// this design took 4.2 ms with the weights in constant memory (as FFMA
+// operands), and 1.66-1.70 ms with a lane window of 52 input floats in
+// place of the planes: the window's registers change parity from tap to
+// tap, so ptxas could not keep the FFMAs' two register reads in two banks.
 // The conv1 activation never reaches device memory on either route.
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched through the runtime
@@ -98,124 +135,6 @@ struct Geometry {
   int pad_t, pad_l;    // conv SAME pads (top, left)
   int ppad_t, ppad_l;  // pool SAME pads (top, left)
 };
-
-// ---- f32 route (CUDA cores) ----------------------------------------------
-
-constexpr int kTP = 4;                  // pool rows per block
-constexpr int kTQ = 16;                 // pool cols per block
-constexpr int kCR = 2 * kTP + 1;        // conv rows per block
-constexpr int kCC = 2 * kTQ + 1;        // conv cols per block
-constexpr int kIR = 2 * kCR + 1;        // input rows per block
-constexpr int kIC = 2 * kCC + 1;        // input cols per block
-constexpr int kCStride = kCout + 1;     // padded conv-tile row: no bank conflicts
-constexpr int kGroup = 16;              // output channels per work item
-constexpr int kThreads = 256;
-
-constexpr int kSmemFloats = kTaps * kCout + kCout + kIR * kIC * kCin +
-                            kCR * kCC * kCStride;
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
-
-__global__ void __launch_bounds__(kThreads, 2)
-conv1_pool1_f32(const float* __restrict__ x, const float* __restrict__ k,
-                const float* __restrict__ bias, float* __restrict__ out,
-                Geometry g) {
-  extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // [27][64], float4-aligned
-  float* s_b = s_w + kTaps * kCout;              // [64]
-  float* s_x = s_b + kCout;                      // [kIR][kIC][3]
-  float* s_c = s_x + kIR * kIC * kCin;           // [kCR * kCC][kCStride]
-
-  const int b = blockIdx.z;
-  const int p0 = blockIdx.y * kTP;
-  const int q0 = blockIdx.x * kTQ;
-  const int cr0 = 2 * p0 - g.ppad_t;  // first conv row of the tile
-  const int cc0 = 2 * q0 - g.ppad_l;
-  const int ir0 = 2 * cr0 - g.pad_t;  // first input row of the tile
-  const int ic0 = 2 * cc0 - g.pad_l;
-
-  for (int i = threadIdx.x; i < kTaps * kCout; i += kThreads) s_w[i] = k[i];
-  if (threadIdx.x < kCout) s_b[threadIdx.x] = bias[threadIdx.x];
-
-  // 1. input halo tile; a row's 3 * kIC values are contiguous in x
-  const float* xb = x + (size_t)b * g.H * g.W * kCin;
-  for (int i = threadIdx.x; i < kIR * kIC * kCin; i += kThreads) {
-    const int r = i / (kIC * kCin);
-    const int rem = i - r * (kIC * kCin);
-    const int yy = ir0 + r;
-    const int xx = ic0 + rem / kCin;
-    float v = 0.f;
-    if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W)
-      v = xb[((size_t)yy * g.W + xx) * kCin + rem % kCin];
-    s_x[i] = v;
-  }
-  __syncthreads();
-
-  // 2. conv tile: work item = (channel group, conv position); consecutive
-  // threads take consecutive positions, so a warp reads one weight float4
-  // at a time as a broadcast
-  for (int item = threadIdx.x; item < kCR * kCC * (kCout / kGroup);
-       item += kThreads) {
-    const int grp = item / (kCR * kCC);
-    const int pos = item - grp * (kCR * kCC);
-    const int r = pos / kCC;
-    const int c = pos - r * kCC;
-    float* dst = s_c + pos * kCStride + grp * kGroup;
-    const int cy = cr0 + r;
-    const int cx = cc0 + c;
-    if (cy < 0 || cy >= g.Hc || cx < 0 || cx >= g.Wc) {
-#pragma unroll
-      for (int o = 0; o < kGroup; ++o) dst[o] = -INFINITY;
-      continue;
-    }
-    float acc[kGroup];
-#pragma unroll
-    for (int o = 0; o < kGroup; ++o) acc[o] = 0.f;
-#pragma unroll
-    for (int di = 0; di < 3; ++di) {
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-        const float* xin = s_x + ((2 * r + di) * kIC + 2 * c + dj) * kCin;
-#pragma unroll
-        for (int ci = 0; ci < kCin; ++ci) {
-          const float xv = xin[ci];
-          const float4* wv = reinterpret_cast<const float4*>(
-              s_w + ((di * 3 + dj) * kCin + ci) * kCout + grp * kGroup);
-#pragma unroll
-          for (int v = 0; v < kGroup / 4; ++v) {
-            const float4 w = wv[v];
-            acc[4 * v + 0] = fmaf(xv, w.x, acc[4 * v + 0]);
-            acc[4 * v + 1] = fmaf(xv, w.y, acc[4 * v + 1]);
-            acc[4 * v + 2] = fmaf(xv, w.z, acc[4 * v + 2]);
-            acc[4 * v + 3] = fmaf(xv, w.w, acc[4 * v + 3]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < kGroup; ++o)
-      dst[o] = fmaxf(acc[o] + s_b[grp * kGroup + o], 0.f);
-  }
-  __syncthreads();
-
-  // 3. pool out of the tile; channel-fastest threads give coalesced stores
-  float* ob = out + (size_t)b * g.Hp * g.Wp * kCout;
-  for (int i = threadIdx.x; i < kTP * kTQ * kCout; i += kThreads) {
-    const int o = i % kCout;
-    const int pq = i / kCout;
-    const int pr = pq / kTQ;
-    const int pc = pq - pr * kTQ;
-    const int p = p0 + pr;
-    const int q = q0 + pc;
-    if (p >= g.Hp || q >= g.Wp) continue;
-    float m = -INFINITY;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 3; ++bb)
-        m = fmaxf(m, s_c[((2 * pr + a) * kCC + 2 * pc + bb) * kCStride + o]);
-    ob[((size_t)p * g.Wp + q) * kCout + o] = m;
-  }
-}
 
 // ---- bf16 route (tensor cores, TMA in and out) ----------------------------
 
@@ -689,14 +608,312 @@ conv1_pool1_tma(const __grid_constant__ CUtensorMap xmap,
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ---- f32 route (CUDA cores, cp.async into a ring of halo rows) ------------
+
+constexpr int kStripQ = 15;                  // pool cols of a warp's strip
+constexpr int kStripPx = 4 * kStripQ + 5;    // its halo's input pixels (65)
+constexpr int kRowFloats = kStripPx * kCin;  // a halo row's floats (195)
+constexpr int kRowPitch = 196;               // a ring row: 16-byte rows; the
+                                             // pad float is read (zeroed)
+                                             // with the last float pair
+constexpr int kRing = 6;                     // halo rows of a warp's ring
+constexpr int kPlaneRows = 4;                // tap planes of halo rows
+constexpr int kPlane = 9 * 32;               // a halo row's 9 tap planes
+constexpr int kF32Warps = 4;                 // warps (strips) of a block
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32BlocksPerSm = 3;
+constexpr int kMinLoad = 2;                  // see f32_plan
+
+// a 4-byte copy from global to shared memory, zero-filled when bytes is 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp tile t of the launch plan: strip t % strips of image t / (strips *
+// segs), pool rows (t / strips % segs) * tile_rows onwards.  Each warp runs
+// alone after the block has staged the weights: its halo rows (tile-
+// relative r: input row ir0 + r) go to ring slot r % kRing and their tap
+// planes to plane slot r % kPlaneRows, conv row kk reads rows 2 kk ..
+// 2 kk + 2, and pool row j takes conv rows 2 j .. 2 j + 2.
+__global__ void __launch_bounds__(kF32Threads, kF32BlocksPerSm)
+conv1_pool1_f32_strip(const float* __restrict__ x, const float* __restrict__ k,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      Geometry g, int tile_rows, int segs, int strips,
+                      int64_t tiles) {
+  __shared__ __align__(16) float s_w[kTaps * kCout];  // HWIO as given
+  __shared__ __align__(16) float s_b[kCout];
+  __shared__ __align__(16) float s_ring[kF32Warps][kRing][kRowPitch];
+  __shared__ __align__(16) float s_planes[kF32Warps][kPlaneRows][kPlane];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pg = lane >> 3, cg = lane & 7;  // positions 8 pg.., channels
+  for (int i = tid; i < kTaps * kCout; i += kF32Threads) s_w[i] = k[i];
+  if (tid < kCout) s_b[tid] = bias[tid];
+  float* ring = &s_ring[warp][0][0];
+  float* planes = &s_planes[warp][0][0];
+  if (lane < kRing) ring[lane * kRowPitch + kRowFloats] = 0.f;
+  __syncthreads();
+
+  const int64_t t = (int64_t)blockIdx.x * kF32Warps + warp;
+  if (t >= tiles) return;
+  const int64_t rest = t / strips;
+  const int b = (int)(rest / segs);
+  const int p0 = (int)(rest % segs) * tile_rows;
+  const int q0 = (int)(t % strips) * kStripQ;
+  const int np = min(tile_rows, g.Hp - p0);  // pool rows of the tile
+  const int cr0 = 2 * p0 - g.ppad_t, cc0 = 2 * q0 - g.ppad_l;
+  const int ir0 = 2 * cr0 - g.pad_t, ic0 = 2 * cc0 - g.pad_l;
+  const int rows = 4 * np + 3;  // its halo rows
+
+  // 1. this lane copies elements lane + 32 j of a halo row; those inside
+  // the image's columns are [e_lo, e_hi), the rest are zero
+  const float* xb = x + (int64_t)b * g.H * g.W * kCin;
+  const int e_lo = max(-ic0, 0) * kCin;
+  const int e_hi = min(g.W - ic0, kStripPx) * kCin;
+  const bool inside = e_lo == 0 && e_hi == kRowFloats;
+  const uint32_t ring_lane = smem_addr(ring) + 4 * lane;
+  auto stage = [&](int r) {
+    const int y = ir0 + r;
+    const uint32_t dst = ring_lane + (r % kRing) * kRowPitch * 4;
+    const bool row_in = y >= 0 && y < g.H;
+    const int64_t e0 = ((int64_t)y * g.W + ic0) * kCin + lane;
+    if (row_in && inside) {
+#pragma unroll
+      for (int j = 0; j < kRowFloats / 32; ++j)
+        cp_async4(dst + 128 * j, xb + e0 + 32 * j, 4);
+      if (lane < kRowFloats % 32)
+        cp_async4(dst + 128 * (kRowFloats / 32),
+                  xb + e0 + 32 * (kRowFloats / 32), 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j <= kRowFloats / 32; ++j) {
+        const int e = lane + 32 * j;
+        const bool in = row_in && e >= e_lo && e < e_hi;
+        if (e < kRowFloats)
+          cp_async4(dst + 128 * j, in ? xb + e0 + 32 * j : x, in ? 4 : 0);
+      }
+    }
+  };
+
+  // 2. halo row r as 9 tap planes: plane (dj, ci) holds, for each of the
+  // 32 conv columns c, the tap's input float 6 c + 3 dj + ci, so that the
+  // 8 positions of a lane are 2 float4 loads a tap; lane c moves its
+  // column's 9 floats
+  auto to_planes = [&](int r) {
+    const float2* src = reinterpret_cast<const float2*>(
+        ring + (r % kRing) * kRowPitch + 6 * lane);
+    float v[10];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float2 f = src[i];
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+    float* dst = planes + (r % kPlaneRows) * kPlane + lane;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) dst[32 * tap] = v[tap];
+  };
+
+  // which of this lane's 8 positions are conv columns (the others are -inf
+  // in the pool), and its 4 outputs: stored if in the strip and the frame,
+  // -inf if their window holds no conv column (as in the plain version)
+  uint32_t pos_in = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int cx = cc0 + 8 * pg + i;
+    pos_in |= (uint32_t)(cx >= 0 && cx < g.Wc) << i;
+  }
+  const bool all_in = __all_sync(0xffffffffu, pos_in == 0xffu);
+  bool store[4], col_win[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int q = 4 * pg + u, c = cc0 + 2 * q;
+    store[u] = q < kStripQ && q0 + q < g.Wp;
+    col_win[u] = c + 2 >= 0 && c < g.Wc;
+  }
+  const float4* b4 = reinterpret_cast<const float4*>(s_b) + cg;
+
+  // rows 0-2 (conv row 0) and 3-4 (conv row 1) first; conv row kk then
+  // waits for its rows 2 kk + 1, 2 kk + 2 (the group before the newest),
+  // turns them into tap planes and issues rows 2 kk + 5, 2 kk + 6 (a
+  // group, empty past the halo) into the slots of rows already turned
+  stage(0), stage(1), stage(2);
+  cp_async_commit();
+  stage(3), stage(4);
+  cp_async_commit();
+  float m[4][8];  // the pool row's maxima so far (raw sums)
+  for (int kk = 0; kk < 2 * np + 1; ++kk) {
+    __syncwarp();  // every lane has read conv row kk - 1's tap planes
+    cp_async_wait<1>();
+    __syncwarp();  // ... and every lane's copies have landed
+    if (kk == 0) to_planes(0);
+    to_planes(2 * kk + 1);
+    to_planes(2 * kk + 2);
+    __syncwarp();  // the planes are whole, their rows read
+    if (2 * kk + 5 < rows) stage(2 * kk + 5);
+    if (2 * kk + 6 < rows) stage(2 * kk + 6);
+    cp_async_commit();
+
+    // 3. conv row kk: 8 positions x 8 channels a lane, then the maxima
+    // over each output's 3 conv columns
+    float hm[4][8];
+    const int cy = cr0 + kk;
+    if (cy >= 0 && cy < g.Hc) {  // warp-uniform
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int o = 0; o < 8; ++o) acc[i][o] = 0.f;
+#pragma unroll 1
+      for (int di = 0; di < 3; ++di) {
+        // the tap planes of halo row 2 kk + di at this lane's positions,
+        // and the weights of tap 9 di + tap: channels 32 h + 4 cg .. + 3
+        const float4* xs = reinterpret_cast<const float4*>(
+            planes + ((2 * kk + di) % kPlaneRows) * kPlane + 8 * pg);
+        const float4* ws =
+            reinterpret_cast<const float4*>(s_w + di * 9 * kCout) + cg;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {  // (dj, ci), ci fastest
+          const float4 x0 = xs[8 * tap], x1 = xs[8 * tap + 1];
+          const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+          float4 w[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) w[h] = ws[tap * (kCout / 4) + 8 * h];
+          // a weight at a time over the 8 positions: the weight stays in
+          // the operand reuse cache
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float wv = e == 0 ? w[h].x : e == 1 ? w[h].y
+                               : e == 2 ? w[h].z : w[h].w;
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                acc[i][4 * h + e] = fmaf(xv[i], wv, acc[i][4 * h + e]);
+            }
+        }
+      }
+      if (!all_in) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (!(pos_in >> i & 1))
+#pragma unroll
+            for (int o = 0; o < 8; ++o) acc[i][o] = -INFINITY;
+      }
+      // output 4 pg + u: columns 8 pg + 2 u .. 8 pg + 2 u + 2, the last
+      // of u = 3 the next lane group's first position
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const float next = __shfl_down_sync(0xffffffffu, acc[0][o], 8);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          hm[u][o] = fmaxf(fmaxf(acc[2 * u][o], acc[2 * u + 1][o]),
+                           u < 3 ? acc[2 * u + 2][o] : next);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int o = 0; o < 8; ++o) hm[u][o] = -INFINITY;
+    }
+
+    // 4. the maxima over the pool row's 3 conv rows; after its third,
+    // bias, ReLU and the store, and that row starts the next pool row
+    if (kk == 0 || (kk & 1)) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          m[u][o] = kk == 0 ? hm[u][o] : fmaxf(m[u][o], hm[u][o]);
+      continue;
+    }
+    const int j = kk / 2 - 1, c0 = cr0 + 2 * j;
+    const bool row_win = c0 + 2 >= 0 && c0 < g.Hc;
+    float* orow = out + (((int64_t)b * g.Hp + p0 + j) * g.Wp + q0) * kCout +
+                  4 * cg;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (store[u]) {
+        const bool win = row_win && col_win[u];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 bb = b4[8 * h];
+          const int o = 4 * h;
+          float4 r;
+          r.x = win ? fmaxf(fmaxf(m[u][o], hm[u][o]) + bb.x, 0.f) : -INFINITY;
+          r.y = win ? fmaxf(fmaxf(m[u][o + 1], hm[u][o + 1]) + bb.y, 0.f)
+                    : -INFINITY;
+          r.z = win ? fmaxf(fmaxf(m[u][o + 2], hm[u][o + 2]) + bb.z, 0.f)
+                    : -INFINITY;
+          r.w = win ? fmaxf(fmaxf(m[u][o + 3], hm[u][o + 3]) + bb.w, 0.f)
+                    : -INFINITY;
+          *reinterpret_cast<float4*>(orow + (4 * pg + u) * kCout + 32 * h) =
+              r;
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < 8; ++o) m[u][o] = hm[u][o];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The f32 route's launch plan: strips of kStripQ pool columns, and each
+// image's Hp pool rows cut into `segs` runs of tile_rows rows, one warp
+// tile a (image, run, strip).  Of the cuts, the one whose estimated time
+// is least, the first on a tie: the blocks an SM takes (at least kMinLoad,
+// since a block alone on an SM waits on latency more than on issue) times
+// the conv rows a warp computes (2 tile_rows + 1).
+// ops/fused_frontend.f32_plan is the same function in Python.
+struct F32Plan {
+  int tile_rows, segs, strips;
+  int64_t tiles, blocks;
+};
+
+F32Plan f32_plan(int B, int Hp, int Wp, int sms) {
+  F32Plan best{0, 0, 0, 0, 0};
+  int64_t best_cost = -1;
+  const int strips = (Wp + kStripQ - 1) / kStripQ;
+  for (int segs = 1; segs <= Hp; ++segs) {
+    const int rows = (Hp + segs - 1) / segs;
+    if ((Hp + rows - 1) / rows != segs) continue;  // a cut of fewer segs
+    const int64_t tiles = (int64_t)B * segs * strips;
+    const int64_t blocks = (tiles + kF32Warps - 1) / kF32Warps;
+    if (blocks > 0x7fffffff) continue;  // past the grid's x limit
+    const int64_t per_sm = (blocks + sms - 1) / sms;
+    const int64_t cost =
+        (per_sm > kMinLoad ? per_sm : kMinLoad) * (2 * rows + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = F32Plan{rows, segs, strips, tiles, blocks};
+    }
+  }
+  return best;
+}
+
 int launch_f32(const float* x, const float* k, const float* bias, float* out,
                int B, const Geometry& g, cudaStream_t stream) {
+  int device = 0, sms = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      conv1_pool1_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.Wp + kTQ - 1) / kTQ, (g.Hp + kTP - 1) / kTP, B);
-  conv1_pool1_f32<<<grid, kThreads, kSmemBytes, stream>>>(x, k, bias, out, g);
+      conv1_pool1_f32_strip, cudaFuncAttributePreferredSharedMemoryCarveout,
+      100);
+  if (err != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  const F32Plan p = f32_plan(B, g.Hp, g.Wp, sms);
+  if (p.blocks == 0) return (int)cudaErrorInvalidValue;
+  conv1_pool1_f32_strip<<<(unsigned)p.blocks, kF32Threads, 0, stream>>>(
+      x, k, bias, out, g, p.tile_rows, p.segs, p.strips, p.tiles);
   return (int)cudaGetLastError();
 }
 
@@ -849,6 +1066,17 @@ int sdt_conv1_pool1(const void* x, const void* k, const void* bias, void* out,
     return launch_tc(static_cast<const __nv_bfloat16*>(x), kf, bf,
                      static_cast<__nv_bfloat16*>(out), B, g, s, launches);
   return (int)cudaErrorInvalidValue;
+}
+
+// The f32 route's launch plan for B images of Hp x Wp pool outputs on a
+// card of `sms` SMs: plan = {tile rows, runs an image, strips, warp tiles,
+// blocks}, as launch_f32 computes it.  Returns 0.
+int sdt_conv1_pool1_f32_plan(int B, int Hp, int Wp, int sms,
+                             int64_t* plan) {
+  const F32Plan p = f32_plan(B, Hp, Wp, sms);
+  plan[0] = p.tile_rows, plan[1] = p.segs, plan[2] = p.strips;
+  plan[3] = p.tiles, plan[4] = p.blocks;
+  return 0;
 }
 
 const char* sdt_error_string(int err) {

@@ -96,10 +96,12 @@ def check(name: str, err: int, what: str) -> None:
             what, err, load(name).sdt_error_string(err).decode()))
 
 
-def _counted_wrappers():
-    """The kernel wrappers' modules, each with its ``LAUNCHES`` count."""
+def _counters():
+    """The kernel wrappers' launch counts, as (module, attribute): each
+    wrapper's ``LAUNCHES``, and K1's f32 route's share of its own."""
     from squeezedet_torch.ops import filter_grad, fused_frontend
-    return fused_frontend, filter_grad
+    return ((fused_frontend, "LAUNCHES"), (filter_grad, "LAUNCHES"),
+            (fused_frontend, "F32_LAUNCHES"))
 
 
 class CapturedLaunches:
@@ -113,18 +115,18 @@ class CapturedLaunches:
     once for each replay, so the counts stay launches that ran."""
 
     def __enter__(self) -> "CapturedLaunches":
-        self._before = [m.LAUNCHES for m in _counted_wrappers()]
+        self._before = [getattr(m, a) for m, a in _counters()]
         self.per_replay = None
         return self
 
     def __exit__(self, *exc) -> bool:
-        mods = _counted_wrappers()
-        self.per_replay = [m.LAUNCHES - b
-                           for m, b in zip(mods, self._before)]
-        for m, b in zip(mods, self._before):
-            m.LAUNCHES = b
+        counters = _counters()
+        self.per_replay = [getattr(m, a) - b
+                           for (m, a), b in zip(counters, self._before)]
+        for (m, a), b in zip(counters, self._before):
+            setattr(m, a, b)
         return False
 
     def replayed(self) -> None:
-        for m, n in zip(_counted_wrappers(), self.per_replay):
-            m.LAUNCHES += n
+        for (m, a), n in zip(_counters(), self.per_replay):
+            setattr(m, a, getattr(m, a) + n)

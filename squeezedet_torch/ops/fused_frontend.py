@@ -8,9 +8,11 @@ conv1_pool1_fused``: ``max_pool_3x3_s2_SAME(relu(conv_3x3_s2_SAME(x, k)
 :func:`conv1_pool1_reference`, the plain PyTorch version of the same
 function.  The images' dtype picks the kernel's route: bf16 runs the
 conv on the tensor cores (and needs 16-byte aligned images), f32 on the
-CUDA cores.  Nothing falls back: a CUDA tensor the kernel does not take
-raises, and so does a CUDA call that autograd would differentiate (the
-kernel has no backward; the plain version on the CPU does).
+CUDA cores in f32 FMAs (any 4-byte aligned start; its launch plan is
+:func:`f32_plan`).  Nothing falls back: a CUDA tensor the kernel does
+not take raises, and so does a CUDA call that autograd would
+differentiate (the kernel has no backward; the plain version on the CPU
+does).
 
 Numerics of both versions: the kernel and bias are rounded to the
 images' dtype (as the JAX layer casts them), everything after that is
@@ -44,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,13 +55,57 @@ from squeezedet_torch.models.halo import chain_window
 from squeezedet_torch.models.layers import same_padding
 from squeezedet_torch.ops import _cuda
 
-# Kernel launches by :func:`conv1_pool1` on CUDA tensors in this process.
+# Kernel launches by :func:`conv1_pool1` on CUDA tensors in this process,
+# and those of them on the f32 route.
 LAUNCHES = 0
+F32_LAUNCHES = 0
 
 FILTERS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+
+# The f32 route's launch plan (csrc/conv1_pool1.cu f32_plan, the same
+# function): a warp walks a strip of F32_STRIP pool columns down a run of
+# pool rows, F32_WARPS warps a block; SMS is the H100's SM count.
+F32_STRIP = 15
+F32_WARPS = 4
+F32_MIN_LOAD = 2
+SMS = 132
+
+
+class F32Plan(NamedTuple):
+    tile_rows: int  # pool rows of a warp tile (the last run may be short)
+    segs: int       # runs of pool rows an image
+    strips: int     # strips of F32_STRIP pool columns an image
+    tiles: int      # warp tiles: images x segs x strips
+    blocks: int
+
+
+def f32_plan(b: int, hp: int, wp: int, sms: int = SMS) -> F32Plan:
+    """The f32 kernel's launch plan for ``b`` images of ``hp`` x ``wp``
+    pool outputs: of the cuts of the pool rows into runs of equal length
+    (the last shorter), the one whose estimated time is least, the first
+    on a tie.  The estimate is the blocks an SM takes (at least
+    F32_MIN_LOAD: one block alone on an SM waits on latency more than on
+    issue) times the conv rows a warp computes for its run (2 rows + 1:
+    the row two runs share is computed by both).  All zeros when there is
+    no pool output (the kernel then refuses the call)."""
+    strips = -(-wp // F32_STRIP)
+    best = None
+    for segs in range(1, hp + 1):
+        rows = -(-hp // segs)
+        if -(-hp // rows) != segs:
+            continue  # the same cut as fewer runs
+        tiles = b * segs * strips
+        blocks = -(-tiles // F32_WARPS)
+        if blocks > 2 ** 31 - 1:
+            continue  # past the grid's x limit
+        cost = max(-(-blocks // sms), F32_MIN_LOAD) * (2 * rows + 1)
+        if best is None or cost < best[0]:
+            best = (cost, F32Plan(rows, segs, strips, tiles, blocks))
+    return F32Plan(0, 0, 0, 0, 0) if best is None else best[1]
 
 
 def geometry(height: int, width: int):
@@ -102,7 +148,8 @@ def _check(images, kernel, bias) -> None:
 def check_kernel_layout(images) -> None:
     """What the CUDA kernel needs of the images beyond :func:`_check`:
     contiguous NHWC, and for the bf16 (tensor-core) route a 16-byte
-    aligned start, which its 16-byte loads assume."""
+    aligned start, which its 16-byte loads assume (the f32 route copies
+    4 bytes at a time, so it takes any start a float may have)."""
     if not images.is_contiguous():
         raise ValueError("images must be contiguous NHWC")
     if images.dtype == torch.bfloat16 and images.data_ptr() % 16:
@@ -171,7 +218,7 @@ def conv1_pool1(images: torch.Tensor, kernel: torch.Tensor,
         return conv1_pool1_reference(images, kernel, bias, geo)
     check_no_grad(images, kernel, bias)
     if not 1 <= images.shape[0] <= 65535:
-        raise ValueError("batch must be 1..65535 (grid z), got {}".format(
+        raise ValueError("batch must be 1..65535, got {}".format(
             images.shape[0]))
     return torch.ops.squeezedet_torch.conv1_pool1(images, kernel, bias, geo)
 
@@ -194,7 +241,7 @@ def _conv1_pool1_fake(images, kernel, bias, geo=None):
 @_conv1_pool1_op.register_kernel("cuda")
 def _conv1_pool1_cuda(images, kernel, bias, geo=None):
     """Launch the kernel of csrc/conv1_pool1.cu on the current stream."""
-    global LAUNCHES
+    global LAUNCHES, F32_LAUNCHES
     check_kernel_layout(images)
     b, h, w, _ = images.shape
     geo = geometry(h, w) if geo is None else tuple(geo)
@@ -211,5 +258,7 @@ def _conv1_pool1_cuda(images, kernel, bias, geo=None):
                  out.data_ptr(), b, h, w, *geo, _DTYPES[dtype], stream,
                  ctypes.byref(launches))
     LAUNCHES += launches.value
+    if dtype == torch.float32:
+        F32_LAUNCHES += launches.value
     _cuda.check("conv1_pool1", err, "conv1_pool1 kernel launch")
     return out
