@@ -26,14 +26,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version, the unfused cuDNN layers and its bound;
 4. K2 against its plain version on the card in f32 (TF32 off) and bf16,
    at every conv shape the train step routes to it (B=20, 1248x384) and
-   at five odd shapes (B=2); two launches must be bitwise equal; K2, its
+   at five odd shapes (B=2); two launches must be bitwise equal; K2 on
+   one-signed operands (X = |N(0, 1)|, as after a ReLU, dY = -|N(0, 1)|)
+   at the train shapes at B=20 and B=128 in f32 and bf16, every route
+   (``mma.sync``, ``wgmma``, f32 TMA): its error over the largest output
+   against the plain version's sums in f64 must stay within twice
+   cuDNN's f32 weight gradient's (TF32 off) on the same rounded operands,
+   or 1e-5 (cuDNN's bf16 result, rounded to bf16, is logged beside); K2, its
    plain version and cuDNN's weight gradient timed per call at the train
    shapes (B=20) in f32 and bf16, each against its bound, and K2 and
    cuDNN in bf16 at B=128;
 5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
    B=128 for throughput; then the HTTP server at --max_batch 8:
-   /healthz, then 16 concurrent single-frame requests;
+   /healthz, then 16 concurrent single-frame requests; then, counted as
+   a path of its own, ``Detector.predict_raw_resize`` (the on-device
+   resize of native-resolution frames) at B=8 on 375x1242 and 384x1248
+   frames in f32 and bf16: the card's resized and normalised input
+   against the CPU's, K1 once a call on its f32 or bf16 route, equal to
+   ``predict`` on that input bit for bit, f32 against the CPU with the
+   serving check's tolerances, bf16 near the CPU's f32 preds; then ms a
+   call beside ``predict_raw`` on frames resized on the host;
 6. train path: ``make_train_step_device`` at 1248x384: one f32 B=2 step
    on the card against the same step on the CPU (equal matcher targets;
    loss, params and momentum within tolerance); one f32 B=20 step in each
@@ -245,6 +258,14 @@ BOX_ATOL, PROB_ATOL = 1e-3, 1e-5
 # MIN_IOU_MARGIN away from nms_thresh: many times the GPU-CPU f32
 # differences of the scores (~1e-6) and IoUs (~3e-6), which the run prints.
 MIN_GAP, MIN_IOU_MARGIN = 5e-6, 1e-4
+# predict_raw_resize (phase 5): B=8 uint8 frames at KITTI's size and at
+# the model's; the card's resized frames against the CPU's to RESIZE_ATOL
+# plus RESIZE_POSITION_ULPS f32 spacings of the frame's extent times 255
+# (the two round the sample positions in f32 in other orders); bf16 raw
+# preds within K1_RESIZE_BF16_SHARE of the largest of the CPU's f32 run
+# (rounding at other places, as tests/test_torch_models.py holds it)
+RESIZE_BATCH, RESIZE_FRAMES = 8, ((375, 1242), (384, 1248))
+RESIZE_ATOL, RESIZE_POSITION_ULPS, K1_RESIZE_BF16_SHARE = 1e-4, 2, 5e-2
 # Phase 9's deeper backbones (VGG16: 14 convs without normalisation)
 # carry more f32 rounding into the box deltas: the card and the CPU gave
 # VGG16 boxes 1.6e-3 px (5.2e-6 relative) apart on an H100, so there the
@@ -267,7 +288,8 @@ SASS_NEEDS = {
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 # the kernels of each source that ptxas must build with no spill
 NO_SPILLS = {"conv1_pool1": ("conv1_pool1_tma", "conv1_pool1_f32_strip"),
-             "filter_grad": ("filter_grad_f32_tma",)}
+             "filter_grad": ("filter_grad_f32_tma", "filter_grad_wgmma",
+                             "filter_grad_tc_partial")}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -288,6 +310,17 @@ K2_BIG_BATCH = 128  # the device-bound train step (PERF.md section 5)
 # the odd shapes of tests/test_filter_grad.py: (kh, kw, H, W), C = O = 128
 K2_ODD_SHAPES = [(1, 1, 4, 4), (1, 1, 5, 7), (3, 3, 6, 10), (3, 3, 5, 7),
                  (5, 5, 9, 11)]
+# K2 on one-signed operands, the train step's case (X ReLU-positive, dY
+# often of one sign), where no term cancels and the rounding of the f32
+# sums adds up: each route's worst error over max|ref| (ref: the plain
+# version's sums in f64 on the same rounded operands) must stay within
+# K2_SIGNED_FACTOR times cuDNN's f32 weight gradient's (TF32 off) on the
+# same rounded operands, or K2_SIGNED_FLOOR, whichever is larger; at
+# every train shape at B=20 and B=128, in f32 and bf16.  For bf16 the
+# yardstick is f32 too: K2 sums bf16 products in f32 and returns f32,
+# while cuDNN's bf16 weight gradient is rounded to bf16 (2.7e-3-4.6e-3).
+K2_SIGNED_FACTOR, K2_SIGNED_FLOOR = 2.0, 1e-5
+K2_SIGNED_BATCHES = (20, 128)
 # K2 launches per backward of one train step, by filter-grad mode
 K2_PER_STEP = {False: 0, "1x1": 10, True: 12}
 # Train step, card against CPU (f32, TF32 off): loss terms to rtol
@@ -890,6 +923,77 @@ def check_k2(b, kh, kw, h, w, c, o, dtype, gen):
     return err.max().item()
 
 
+def check_k2_one_signed(gen):
+    """K2 on one-signed operands at every train shape, B=20 and B=128, in
+    f32 and bf16: X = |N(0, 1)| and dY = -|N(0, 1)|, from ``gen``.  Logs
+    each route's relative error (max |err| / max |ref|, ref the plain
+    version's sums in f64) beside cuDNN's f32 weight gradient's (TF32
+    off) on the same rounded operands, and for bf16 cuDNN's bf16 one;
+    raises where K2's exceeds max(K2_SIGNED_FACTOR x cuDNN's f32,
+    K2_SIGNED_FLOOR).  Returns the rows and the worst error by dtype and
+    design."""
+    import torch
+
+    from squeezedet_torch.ops import filter_grad as fg
+    rows, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for batch in K2_SIGNED_BATCHES:
+            for _, kh, c, o, h, w in K2_TRAIN_SHAPES:
+                x = torch.randn(batch, h, w, c, device="cuda",
+                                generator=gen).abs_().to(dtype)
+                dy = torch.randn(batch, h, w, o, device="cuda",
+                                 generator=gen).abs_().neg_().to(dtype)
+                design = {0: "f32", 1: "wgmma", 2: "mma.sync",
+                          3: "f32 tma"}[fg.plan(batch, h, w, c, o, kh, kh,
+                                                dtype).kernel]
+                got = fg.filter_grad(x, dy, kh, kh)
+                ref = fg.filter_grad_reference(x.double(), dy.double(), kh,
+                                               kh)
+                scale = ref.abs().max()
+
+                def rel_err(dw):
+                    return ((dw.double() - ref).abs().max() / scale).item()
+
+                def cudnn(a, b):
+                    return torch.nn.grad.conv2d_weight(
+                        a.permute(0, 3, 1, 2), (o, c, kh, kh),
+                        b.permute(0, 3, 1, 2),
+                        padding=kh // 2).permute(2, 3, 1, 0)
+                err = rel_err(got)
+                tf32 = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    lib = rel_err(cudnn(x.float(), dy.float()))
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32
+                lib16 = rel_err(cudnn(x, dy)) if dtype == torch.bfloat16 \
+                    else None
+                limit = max(K2_SIGNED_FACTOR * lib, K2_SIGNED_FLOOR)
+                log("[k2] one-signed B={} {}x{} C={} O={} {}x{} {} ({}, {} "
+                    "positions a sum): K2 rel err {:.3e}, cuDNN f32 (TF32 "
+                    "off) {:.3e}{}, limit {:.3e}".format(
+                        batch, kh, kh, c, o, h, w, name, design,
+                        batch * h * w, err, lib,
+                        "" if lib16 is None else
+                        ", cuDNN bf16 {:.3e}".format(lib16), limit))
+                if err > limit:
+                    raise AssertionError(
+                        "K2 ({}, {}) on one-signed operands: relative error "
+                        "{:.3e} over its limit {:.3e} (cuDNN f32 {:.3e})"
+                        .format(name, design, err, limit, lib))
+                rows.append({"batch": batch, "kh": kh, "C": c, "O": o,
+                             "H": h, "W": w, "dtype": name, "design": design,
+                             "rel_err": err, "cudnn_rel_err": lib,
+                             "cudnn_bf16_rel_err": lib16})
+                key = "{} {}".format(name, design)
+                worst[key] = max(worst.get(key, 0.0), err)
+                del x, dy, got, ref
+    log("[k2] one-signed operands, worst relative error by route: {}".format(
+        {k: "{:.3e}".format(v) for k, v in worst.items()}))
+    return rows, worst
+
+
 def graph_ms(fn, iters=10, replays=3):
     """Mean device time of ``fn`` in ms: ``iters`` calls captured in one
     CUDA graph, replayed ``replays`` times between CUDA events (the
@@ -1043,9 +1147,10 @@ def time_k2(card, batch, dtype, gen, with_plain, shapes=K2_TRAIN_SHAPES,
 
 def phase_k2(card):
     """K2 against its plain version at the train step's and the odd
-    shapes, then K2, its plain version and cuDNN's weight gradient timed
-    at the train step's shapes (B=20) in f32 and bf16, and K2 and cuDNN
-    in bf16 at B=128."""
+    shapes, then on one-signed operands (``check_k2_one_signed``), then
+    K2, its plain version and cuDNN's weight gradient timed at the train
+    step's shapes (B=20) in f32 and bf16, and K2 and cuDNN in bf16 at
+    B=128."""
     import torch
 
     from squeezedet_torch.ops import filter_grad as fg
@@ -1058,6 +1163,9 @@ def phase_k2(card):
         for kh, kw, h, w in K2_ODD_SHAPES:
             max_err = max(max_err, check_k2(2, kh, kw, h, w, 128, 128, dtype,
                                             gen))
+
+    signed_rows, signed_worst = check_k2_one_signed(gen)
+    torch.cuda.empty_cache()
 
     t32, rows = time_k2(card, K2_TRAIN_BATCH, torch.float32, gen, True)
     t16, rows16 = time_k2(card, K2_TRAIN_BATCH, torch.bfloat16, gen, True)
@@ -1074,7 +1182,8 @@ def phase_k2(card):
     return {"max_abs_err": max_err, "ms": t16["kernel"],
             "plain_ms": t16["plain"], "bound_ms": t16["bound"],
             "bound_by": bound_by, "library_ms": t16["cudnn"],
-            "f32": f32}, rows
+            "f32": f32, "one_signed_rel_err": signed_worst,
+            "one_signed": signed_rows}, rows
 
 
 def _top_gap(probs):
@@ -1094,6 +1203,17 @@ def _same_class_iou(boxes, classes):
     same = classes[:, :, None] == classes[:, None, :]
     off = torch.eye(boxes.shape[1], dtype=torch.bool)[None]
     return iou[same & ~off]
+
+
+def separated(interp, out, nms_thresh):
+    """The near-tie rule: a forward's top-65 score gap and its same-class
+    top-64 IoUs' margin to nms_thresh (``out`` on the CPU), and whether
+    they clear MIN_GAP and MIN_IOU_MARGIN, so that its ranks and NMS
+    choices are well defined."""
+    gap = _top_gap(interp.det_probs)
+    iou = _same_class_iou(out[0], out[2])
+    margin = (iou - nms_thresh).abs().min().item() if iou.numel() else 1.0
+    return gap, margin, gap >= MIN_GAP and margin >= MIN_IOU_MARGIN
 
 
 def rescaled_detector(net, cfg, u8):
@@ -1130,39 +1250,49 @@ def serving_check(det, tag, box_rtol=0.0):
             0, 256, shape, dtype=np.uint8))
         cpu_interp = cpu.predict_raw(u8)
         cpu_out = cpu.postprocess_device(cpu_interp)
-        gap = _top_gap(cpu_interp.det_probs)
-        cpu_iou = _same_class_iou(cpu_out[0], cpu_out[2])
-        margin = (cpu_iou - cfg.nms_thresh).abs().min().item()
-        if gap >= MIN_GAP and margin >= MIN_IOU_MARGIN:
+        if separated(cpu_interp, cpu_out, cfg.nms_thresh)[2]:
             break
     else:
         raise AssertionError("no seeded batch with separated top-64 ranks")
 
     gpu_interp = det.predict_raw(u8.cuda())
     gpu_out = det.predict_raw_postprocessed(u8.cuda())
+    hold_to_cpu(gpu_interp, gpu_out, cpu_interp, cpu_out, cfg.nms_thresh,
+                "[{}] {} f32 B={}, input seed {}".format(
+                    tag, det.net, cfg.batch_size, seed), box_rtol)
+    return 2
+
+
+def hold_to_cpu(gpu_interp, gpu_out, cpu_interp, cpu_out, nms_thresh, what,
+                box_rtol=0.0):
+    """A forward's Interpretation and detections on the card against the
+    CPU's (f32): raw preds within PRED_RTOL / PRED_ATOL, boxes within
+    BOX_ATOL px plus ``box_rtol`` of their value, probs within PROB_ATOL,
+    classes and keep equal; the top-65 score gap and the IoU margin to
+    nms_thresh logged beside the differences they must exceed."""
+    import torch
     for name in ("pred_class_logits", "pred_conf", "pred_box_delta"):
         torch.testing.assert_close(getattr(gpu_interp, name).cpu(),
                                    getattr(cpu_interp, name),
                                    rtol=PRED_RTOL, atol=PRED_ATOL)
     boxes, probs, classes, keep = [o.cpu() for o in gpu_out]
+    gap, margin, _ = separated(cpu_interp, cpu_out, nms_thresh)
     noise = (gpu_interp.det_probs.cpu() - cpu_interp.det_probs).abs().max()
-    iou_noise = (_same_class_iou(boxes, cpu_out[2]) - cpu_iou).abs().max()
-    log("[{}] {} f32 B={}, input seed {}: preds match the CPU; top-65 score "
-        "gap {:.3e} vs max score difference {:.3e}; IoU margin to "
-        "nms_thresh {:.3e} vs max IoU difference {:.3e}".format(
-            tag, det.net, cfg.batch_size, seed, gap, noise.item(), margin,
-            iou_noise.item()))
+    iou_noise = (_same_class_iou(boxes, cpu_out[2]) -
+                 _same_class_iou(cpu_out[0], cpu_out[2])).abs().max()
+    log("{}: preds match the CPU; top-65 score gap {:.3e} vs max score "
+        "difference {:.3e}; IoU margin to nms_thresh {:.3e} vs max IoU "
+        "difference {:.3e}".format(what, gap, noise.item(), margin,
+                                   iou_noise.item()))
     torch.testing.assert_close(boxes, cpu_out[0], rtol=box_rtol,
                                atol=BOX_ATOL)
     torch.testing.assert_close(probs, cpu_out[1], rtol=0, atol=PROB_ATOL)
     if not (torch.equal(classes, cpu_out[2]) and
             torch.equal(keep, cpu_out[3])):
         raise AssertionError("classes/keep differ between GPU and CPU")
-    log("[{}] {} f32 B={}: boxes (max difference {:.3e} px), probs, "
-        "classes and keep agree with the CPU ({} kept)".format(
-            tag, det.net, cfg.batch_size,
-            (boxes - cpu_out[0]).abs().max().item(), int(keep.sum())))
-    return 2
+    log("{}: boxes (max difference {:.3e} px), probs, classes and keep "
+        "agree with the CPU ({} kept)".format(
+            what, (boxes - cpu_out[0]).abs().max().item(), int(keep.sum())))
 
 
 def serving_reading(det, batch, warmup, iters, card, tag):
@@ -1259,6 +1389,154 @@ def phase_server():
     log("[serve] /healthz 200; 16 requests in {} batches of 8".format(
         batcher.batches_run))
     return 1 + batcher.batches_run  # warm-up forward + batches
+
+
+def separated_frames(cpu, shape, n):
+    """The first ``n`` seeded uint8 frames of ``shape`` (H0, W0) whose
+    ``predict_raw_resize`` on the CPU keeps its top-65 scores MIN_GAP
+    apart and its same-class top-64 IoUs MIN_IOU_MARGIN from nms_thresh
+    (serving_check's rule, frame by frame), as one [n, H0, W0, 3] batch,
+    and their seeds."""
+    import numpy as np
+    import torch
+    frames, seeds = [], []
+    for seed in range(1, 257):
+        u8 = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, 256, (1,) + tuple(shape) + (3,), dtype=np.uint8))
+        interp = cpu.predict_raw_resize(u8)
+        if separated(interp, cpu.postprocess_device(interp),
+                     cpu.cfg.nms_thresh)[2]:
+            frames.append(u8)
+            seeds.append(seed)
+            if len(frames) == n:
+                return torch.cat(frames), seeds
+    raise AssertionError("fewer than {} seeded {} frames with separated "
+                         "top-64 ranks".format(n, shape))
+
+
+def resize_tolerance(shape):
+    """Card against CPU for a resize of uint8 frames of ``shape``:
+    RESIZE_ATOL plus RESIZE_POSITION_ULPS f32 spacings of the larger
+    extent times 255, the largest step between neighbouring pixels (the
+    two round the sample positions in f32 in other orders)."""
+    import numpy as np
+    return RESIZE_ATOL + RESIZE_POSITION_ULPS * float(
+        np.spacing(np.float32(max(shape)))) * 255.0
+
+
+def phase_resize(card):
+    """``Detector.predict_raw_resize`` (uint8 frames at any fixed size ->
+    on-device bilinear resize -> mean subtraction -> forward) at B=8 on
+    KITTI's 375x1242 frames and on 384x1248 ones (the identity resize),
+    in f32 and bf16, with phase 5's rescaled head.  Per frame size: the
+    card's resized frames against ``resize_images`` on the CPU
+    (``resize_tolerance``), and its normalised input in each dtype
+    against the CPU's (plus one ulp of the dtype); each call launches K1
+    once (its f32 route in f32 only) and equals ``predict`` on that
+    normalised input bit for bit; f32 against the same detector on the
+    CPU with serving_check's tolerances (frames chosen by
+    ``separated_frames``), bf16 within K1_RESIZE_BF16_SHARE of the
+    largest raw pred of the CPU's f32 run.  Then readings (CUDA events):
+    ms a call at 375x1242 in f32 and bf16 beside ``predict_raw`` on
+    384x1248 frames resized on the host, and the resize alone.  Returns
+    the forwards run on the card."""
+    import numpy as np
+    import torch
+
+    from squeezedet_torch.config import kitti_squeezedet_config
+    from squeezedet_torch.data.device_pipeline import (normalize_images,
+                                                       resize_images)
+    from squeezedet_torch.models import get_model
+    from squeezedet_torch.ops import fused_frontend as ff
+    cfg = kitti_squeezedet_config().replace(batch_size=RESIZE_BATCH)
+    h, w = cfg.image_height, cfg.image_width
+    probe = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, h, w, 3), dtype=np.uint8))
+    det = rescaled_detector("squeezeDet", cfg, probe)
+    forwards = 1
+    cpu = get_model("squeezeDet", cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    det16 = get_model("squeezeDet", cfg.replace(compute_dtype="bfloat16"),
+                      device="cuda")
+    det16.load_state_dict(det.state_dict())
+    for shape in RESIZE_FRAMES:
+        u8, seeds = separated_frames(cpu, shape, RESIZE_BATCH)
+        cpu_interp = cpu.predict_raw_resize(u8)
+        cpu_out = cpu.postprocess_device(cpu_interp)
+        x = u8.cuda()
+        resized = resize_images(x, h, w)
+        want = resize_images(u8, h, w)
+        tol = resize_tolerance(shape)
+        err = (resized.cpu() - want).abs().max().item()
+        log("[resize] {}x{} -> {}x{} B={}: resized frames within {:.3e} of "
+            "the CPU's (tolerance {:.3e})".format(*shape, h, w,
+                                                  RESIZE_BATCH, err, tol))
+        if err > tol or resized.shape != (RESIZE_BATCH, h, w, 3):
+            raise AssertionError("the card's resize disagrees with the CPU's")
+        for model, dtype in ((det, torch.float32), (det16, torch.bfloat16)):
+            name = str(dtype).replace("torch.", "")
+            k1 = ff.LAUNCHES, ff.F32_LAUNCHES
+            interp = model.predict_raw_resize(x)
+            torch.cuda.synchronize()
+            launched = ff.LAUNCHES - k1[0], ff.F32_LAUNCHES - k1[1]
+            if launched != (1, int(dtype == torch.float32)):
+                raise AssertionError(
+                    "predict_raw_resize {}: K1 launches (all, f32 route) "
+                    "{}".format(name, launched))
+            norm = normalize_images(resized, cfg.bgr_means, dtype)
+            cpu_norm = normalize_images(want, cfg.bgr_means, dtype).float()
+            # the cast rounds the resized value, the subtraction its
+            # difference: an ulp of each
+            ulp = torch.finfo(dtype).eps * (want.abs() + cpu_norm.abs())
+            over = ((norm.float().cpu() - cpu_norm).abs() - ulp).max().item()
+            if over > tol:
+                raise AssertionError("{} normalised input: {:.3e} past one "
+                                     "ulp".format(name, over))
+            again = model.predict(norm)
+            forwards += 2
+            for field in interp._fields:
+                if not torch.equal(getattr(interp, field),
+                                   getattr(again, field)):
+                    raise AssertionError(
+                        "predict_raw_resize {} != predict on its normalised "
+                        "input ({})".format(name, field))
+            what = "[resize] {} {}x{} B={} seeds {}".format(
+                name, *shape, RESIZE_BATCH, seeds)
+            if dtype == torch.float32:
+                hold_to_cpu(interp, det.postprocess_device(interp),
+                            cpu_interp, cpu_out, cfg.nms_thresh, what)
+                continue
+            worst = 0.0
+            for field in ("pred_class_logits", "pred_conf",
+                          "pred_box_delta"):
+                got = getattr(interp, field).cpu()
+                ref = getattr(cpu_interp, field)
+                if not torch.isfinite(got).all():
+                    raise AssertionError("bf16 {} not finite".format(field))
+                worst = max(worst, ((got - ref).abs().max()
+                                    / ref.abs().max()).item())
+            log("{}: K1 once, = predict on its input; raw preds within "
+                "{:.3e} of the CPU f32 run's largest (limit {})".format(
+                    what, worst, K1_RESIZE_BF16_SHARE))
+            if worst > K1_RESIZE_BF16_SHARE:
+                raise AssertionError("bf16 predict_raw_resize strays from "
+                                     "the f32 CPU run")
+
+    # readings, not a benchmark: ms a call at B=8, by CUDA events
+    frames = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (RESIZE_BATCH,) + RESIZE_FRAMES[0] + (3,),
+        dtype=np.uint8)).cuda()
+    model_size = resize_images(frames, h, w).round().to(torch.uint8)
+    reading = {"resize": cuda_ms(lambda: resize_images(frames, h, w), 10)}
+    for model, name in ((det, "f32"), (det16, "bf16")):
+        reading[name] = cuda_ms(lambda: model.predict_raw_resize(frames), 10)
+        reading[name + " host-resized"] = cuda_ms(
+            lambda: model.predict_raw(model_size), 10)
+        forwards += 24
+    log("[resize] readings, B={} 375x1242 -> 384x1248 on {}: {}".format(
+        RESIZE_BATCH, card, {k: "{:.3f} ms".format(v)
+                             for k, v in reading.items()}))
+    return forwards
 
 
 def gt_batch(rs, b, cfg):
@@ -3535,11 +3813,8 @@ def _separated_frame(det, shape):
         u8 = torch.from_numpy(np.random.RandomState(seed).randint(
             0, 256, shape, dtype=np.uint8)).cuda()
         want = spatial_forward(det, u8, None)
-        iou = _same_class_iou(want[2][0].cpu(), want[2][2].cpu())
-        margin = (iou - det.cfg.nms_thresh).abs().min().item() \
-            if iou.numel() else 1.0
-        if _top_gap(want[1].det_probs) >= MIN_GAP and \
-                margin >= MIN_IOU_MARGIN:
+        if separated(want[1], [o.cpu() for o in want[2]],
+                     det.cfg.nms_thresh)[2]:
             return seed, u8, want
     raise AssertionError("no seeded frame with separated top-64 ranks")
 
@@ -4448,6 +4723,19 @@ def main():
         raise AssertionError("serving path: K1 launches {k1}, K2 launches "
                              "{k2}, {0} forwards".format(forwards, **serve))
 
+    # the on-device resize serving path: counts from 0 just before it
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    forwards = phase_resize(card)
+    resize = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
+              "k2": fg.LAUNCHES}
+    if resize["k1"] != forwards or resize["k2"] != 0:
+        raise AssertionError("resize path: K1 launches {k1} for {0} "
+                             "forwards, K2 launches {k2}".format(forwards,
+                                                                 **resize))
+    log("[resize] path: {} forwards, K1 launches {} ({} on the f32 "
+        "route), K2 launches {}".format(forwards, resize["k1"],
+                                        resize["k1_f32"], resize["k2"]))
+
     # train path, from one set of seeded weights
     from squeezedet_torch.config import kitti_squeezedet_config
     weights = get_model("squeezeDet", kitti_squeezedet_config(),
@@ -4595,7 +4883,8 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    paths = {"serve": serve, "train": train, "loop": loop, "eval": evald,
+    paths = {"serve": serve, "resize": resize, "train": train,
+             "loop": loop, "eval": evald,
              "backbones": backbones, "int8": int8, "dp": dp, "graph": graph,
              "spatial": spatial, "host": host}
     log("[k1] f32 route launches in this process by path: {}".format(

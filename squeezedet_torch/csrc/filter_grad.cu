@@ -34,6 +34,7 @@
 //   position, 128-byte swizzle), so X^T is an M-major A and dY an N-major B
 //   operand: two consumer warpgroups (64 C rows each, registers taken from
 //   the producer by setmaxnreg) run wgmma.m64nNk16 bf16 -> f32 on them
+//   (N = 64, 72 or 128; a wider tile as two products of 128 and N - 128)
 //   straight from shared memory with the transpose bits set.
 //   The splits are summed inside the launch: each block writes its f32
 //   partial; an int arrival counter per group of splits picks the group's
@@ -41,7 +42,9 @@
 //   tile's last group sums the groups' sums in group order into dW.  The
 //   counters order only who sums, never the order of a sum.  The tensor
 //   cores' f32 accumulation truncates, so on operands of one sign the
-//   error grows with a split's chain of k-steps (mma.sync's too).
+//   error would grow with a split's chain of k-steps: a stage's product is
+//   taken from zero and added to the block's sums by f32 adds (mma.sync:
+//   each k-step's product).
 // f32 route (CUDA cores), filter_grad_f32_tma<N>: every product an f32
 //   product and every sum an f32 sum (no TF32).  Bound by the FMA pipes
 //   (conv12's 3x3 halves: 18.6 GFLOP each at B=20, 0.28 ms at 67 TFLOP/s)
@@ -269,14 +272,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+// d += a (16x16 bf16, row) * b (16x8 bf16, col): the k-step's product is
+// taken from zero on the tensor cores and added to the f32 accumulators d
+// by f32 adds, which round to nearest.  The tensor cores' own accumulation
+// truncates, so a chain of k-steps into d would drift on operands of one
+// sign (on an H100, 1.2e-5 of the largest sum at 228 k-steps a split).
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          const uint32_t* b) {
+  float p[4];
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+#pragma unroll
+  for (int v = 0; v < 4; ++v) d[v] += p[v];
 }
 
 // byte offset of 16-byte chunk `chunk` of staged row `row` (XOR swizzle)
@@ -556,16 +567,16 @@ __device__ __forceinline__ uint64_t desc_addr(uint32_t smem) {
   return (smem >> 4) & 0x3FFF;
 }
 
-// d (64 x N f32, the warpgroup's fragment) += A (64 x 16) * B (16 x N), both
-// bf16 in shared memory as described by the descriptors, both MN-major
-// (transpose bits 1, 1)
+// d (64 x N f32, the warpgroup's fragment) = A (64 x 16) * B (16 x N) + d,
+// or + 0 when scale_d is 0; A and B bf16 in shared memory as described by
+// the descriptors, both MN-major (transpose bits 1, 1)
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<64> {
   __device__ __forceinline__ static void run(float* d, uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -581,14 +592,14 @@ struct Wgmma<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<72> {
   __device__ __forceinline__ static void run(float* d, uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
@@ -606,14 +617,14 @@ struct Wgmma<72> {
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
         "+f"(d[35])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<128> {
   __device__ __forceinline__ static void run(float* d, uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -639,105 +650,7 @@ struct Wgmma<128> {
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<192> {
-  __device__ __forceinline__ static void run(float* d, uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95},"
-      " %96, %97, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  __device__ __forceinline__ static void run(float* d, uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
@@ -854,37 +767,75 @@ __device__ __forceinline__ void sum_slots(const float* slots, int64_t stride,
   }
 }
 
+// The registers of an accumulator fragment, touched after a wgmma wait so
+// that no read of them is scheduled before it.
+template <int R>
+__device__ __forceinline__ void fence_fragment(float* t) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(t[i])::"memory");
+}
+
+// One stage's product for NC columns of the tile: t = A * B over the
+// stage's P positions (k-steps from zero), then sum += t by f32 adds.  The
+// tensor cores' f32 accumulation truncates, so on operands of one sign a
+// split's whole chain of k-steps in one fragment drifts (on an H100,
+// 8.8e-5 of the largest sum at 1104 k-steps); a stage's chain is P / 16
+// k-steps, and the adds across stages round to nearest.
+template <int NC>
+__device__ __forceinline__ void stage_product(float* t, float* sum,
+                                              uint32_t a, uint32_t b, int P,
+                                              uint64_t desc_hi) {
+  wgmma_fence();
+  for (int k = 0; k < P / 16; ++k)
+    Wgmma<NC>::run(t, desc_hi | desc_addr(a + k * 2048),
+                   desc_hi | desc_addr(b + k * 2048), k > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_fragment<NC / 2>(t);
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) sum[i] += t[i];
+}
+
 // The consumers: warpgroup wg multiplies its 64-channel X box (A, M-major)
-// by the stage's dY boxes (B, N-major) into its 64 x N sum.  Descriptors:
-// 128-byte swizzle (layout 1 at bit 62); SBO = 1 KB between groups of 8
-// positions; LBO = one box between 64-wide groups along M or N; the start
-// address advances 16 positions (2 KB) per k-step.  Then the epilogue.
+// by the stage's dY boxes (B, N-major) into its 64 x N sum, 128 columns at
+// a time: a product takes NC / 2 registers besides the sum's N / 2, 192 in
+// all at N = 256, where a 256-wide product would need 256.  At the 3x3s of
+// N = 256 two products a stage take 1.3-1.5x the time of one 256-wide
+// chain a stage without the adds (on an H100, PERF.md section 6); products
+// spanning two stages, and 64-wide products two in flight, were slower
+// still.  Descriptors: 128-byte swizzle (layout 1 at bit 62); SBO = 1 KB
+// between groups of 8 positions; LBO = one box between 64-wide groups
+// along M or N; the start address advances 16 positions (2 KB) per k-step.
+// Then the epilogue.
 template <int N>
 __device__ __forceinline__ void consume(float* out, float* part, int* count,
                                         int* flag, uint64_t* full,
                                         uint64_t* empty, const Geo& g,
                                         const Work& w) {
+  constexpr int NC = N > 128 ? 128 : N;  // columns of the first product
   const int wg = threadIdx.x / 128;
   const int P = g.hbox * g.wbox;
   const uint64_t desc_hi = ((uint64_t)(w.box_bytes >> 4) << 16) |
                            ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
   Frag<N> f;
+  float t[NC / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) f.acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) t[i] = 0.f;
   for (int it = 0; it < w.n_iter; ++it) {
     const int slot = it % g.stages;
     mbar_wait(smem_addr(&full[slot]), (it / g.stages) & 1);
     const uint32_t st = w.ring + slot * w.stage_bytes;
     const uint32_t a = st + wg * w.box_bytes, b = st + 2 * w.box_bytes;
-    wgmma_fence();
-    for (int k = 0; k < P / 16; ++k)
-      Wgmma<N>::run(f.acc, desc_hi | desc_addr(a + k * 2048),
-                    desc_hi | desc_addr(b + k * 2048));
-    wgmma_commit();
+    stage_product<NC>(t, f.acc, a, b, P, desc_hi);
+    // columns 128 on: two 64-column dY boxes on, fragment index 64 on
+    if constexpr (N > 128)
+      stage_product<N - 128>(t, f.acc + 64, a, b + 2 * w.box_bytes, P,
+                             desc_hi);
     // free the stage as soon as its wgmmas are done, not once the next
     // stage has arrived too: the producer keeps one stage more in flight,
     // which the 3-stage rings of the wide tiles need to hide the loads
-    wgmma_wait<0>();
     if (threadIdx.x % 128 == 0) mbar_arrive(smem_addr(&empty[slot]));
   }
 

@@ -11,6 +11,7 @@ CUDA graph runs all of it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from squeezedet_torch.models.skeleton import Targets
 from squeezedet_torch.ops.boxes import batch_iou
@@ -36,6 +37,27 @@ def normalize_images(images_u8: torch.Tensor, bgr_means,
     """
     return images_u8.to(dtype) - bgr_means_tensor(bgr_means,
                                                   images_u8.device, dtype)
+
+
+def resize_images(images: torch.Tensor, height: int,
+                  width: int) -> torch.Tensor:
+    """Batched bilinear resize on the images' device (serving path):
+    NHWC uint8 or float -> NHWC f32 [B, height, width, C].
+
+    Computes ``jax.image.resize(..., method="linear", antialias=False)``:
+    the half-pixel convention, two taps an output pixel and no
+    antialiasing when it downsamples; at the edges JAX drops the tap
+    outside the image and renormalises the other to 1, which is the
+    clamp of ``F.interpolate``'s bilinear mode without
+    ``align_corners``.  The two round the sample positions ``(o + 0.5) *
+    in / out - 0.5`` in f32 in other orders (so do XLA's fused program
+    and the CUDA kernel), which moves a sample by an ulp of the input's
+    extent and its pixel by that times the step to its neighbour.
+    """
+    x = images.float().permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(height, width), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def _resample_weights(out_n: int, src_n: int, extent: torch.Tensor,

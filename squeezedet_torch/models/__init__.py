@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from squeezedet_torch.config import ModelConfig, config_for_net
-from squeezedet_torch.data.device_pipeline import normalize_images
+from squeezedet_torch.data.device_pipeline import (normalize_images,
+                                                   resize_images)
 from squeezedet_torch.models import layers as L
 from squeezedet_torch.models import (resnet50, squeezedet, squeezedet_plus,
                                      vgg16)
@@ -175,6 +176,18 @@ class Detector(nn.Module):
                                   self.compute_dtype)
         return self.interpret(self.run_backbone(images,
                                                 spatial=spatial).float())
+
+    @torch.inference_mode()
+    def predict_raw_resize(self, images_u8: torch.Tensor) -> Interpretation:
+        """Serving path for native-resolution frames: uint8 BGR at any
+        fixed [B, H0, W0, 3] -> bilinear resize to the model resolution
+        (``resize_images``, f32) -> mean subtraction in the compute dtype
+        -> Interpretation, all on the images' device.  The caller scales
+        the boxes back by the frame's size over the model's."""
+        cfg = self.cfg
+        resized = resize_images(images_u8, cfg.image_height, cfg.image_width)
+        images = normalize_images(resized, cfg.bgr_means, self.compute_dtype)
+        return self.interpret(self.run_backbone(images).float())
 
     @torch.inference_mode()
     def activation_stats(self, images: torch.Tensor, sample: int = 65536

@@ -143,9 +143,6 @@ def _check(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int) -> None:
         raise ValueError("x and dy must not be empty")
     if kh < 1 or kw < 1 or kh % 2 != 1 or kw % 2 != 1:
         raise ValueError("kh and kw must be odd, got {}x{}".format(kh, kw))
-    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
-        raise TypeError("x and dy must both be float32 or both bfloat16, "
-                        "got {} and {}".format(x.dtype, dy.dtype))
     if dy.device != x.device:
         raise ValueError("x and dy must share a device")
 
@@ -153,14 +150,16 @@ def _check(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int) -> None:
 def filter_grad_reference(x: torch.Tensor, dy: torch.Tensor, kh: int,
                           kw: int) -> torch.Tensor:
     """Plain PyTorch K2: kh*kw f32 matmuls of the shifted, zero-padded X
-    against dY -> [kh, kw, C, O] f32."""
+    against dY -> [kh, kw, C, O] f32 (f64 matmuls and result for f64
+    operands, which hold the kernel's error)."""
     _check(x, dy, kh, kw)
+    dtype = torch.promote_types(x.dtype, torch.float32)
     _, h, w, c = x.shape
     o = dy.shape[-1]
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
-    xp = F.pad(x.float(), (0, 0, pw, pw, ph, ph))
-    d = dy.float().reshape(-1, o)
-    out = torch.empty((kh, kw, c, o), dtype=torch.float32, device=x.device)
+    xp = F.pad(x.to(dtype), (0, 0, pw, pw, ph, ph))
+    d = dy.to(dtype).reshape(-1, o)
+    out = torch.empty((kh, kw, c, o), dtype=dtype, device=x.device)
     for i in range(kh):
         for j in range(kw):
             out[i, j] = xp[:, i:i + h, j:j + w, :].reshape(-1, c).T @ d
@@ -415,6 +414,9 @@ def filter_grad(x: torch.Tensor, dy: torch.Tensor, kh: int,
     both bf16), odd kh and kw -> dW [kh, kw, C, O] f32 of the stride-1
     SAME conv of x."""
     _check(x, dy, kh, kw)
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise TypeError("x and dy must both be float32 or both bfloat16, "
+                        "got {} and {}".format(x.dtype, dy.dtype))
     if x.device.type == "cpu":
         return filter_grad_reference(x, dy, kh, kw)
     if x.device.type != "cuda":
