@@ -1041,7 +1041,55 @@ int launch_tc(const __nv_bfloat16* x, const float* k, const float* bias,
 
 }  // namespace
 
+// Span markers (utils/profiling.span): an empty kernel for each boundary of
+// each device span of the program, named for it, launched <<<1, 1>>> on the
+// span's stream where the span begins and where it ends.  They read and
+// write nothing.  In a profiler's trace they mark where a span's work
+// begins and ends on the device, also inside a replayed CUDA graph, which
+// the host's ranges do not reach.  The order is profiling.DEVICE_SPANS':
+// span i begins with marker 2 i and ends with marker 2 i + 1.
+#define SDT_SPANS(X)                                                      \
+  X(ingest) X(matcher) X(forward) X(backward) X(optimizer) X(backbone)    \
+  X(interpret) X(postprocess)
+#define SDT_SPAN_KERNELS(name)                                            \
+  extern "C" __global__ void squeezedet_span_##name##_begin() {}          \
+  extern "C" __global__ void squeezedet_span_##name##_end() {}
+#define SDT_SPAN_POINTERS(name)                                           \
+  squeezedet_span_##name##_begin, squeezedet_span_##name##_end,
+SDT_SPANS(SDT_SPAN_KERNELS)
+
+namespace {
+void (*const kSpanMarkers[])() = {SDT_SPANS(SDT_SPAN_POINTERS)};
+constexpr int kSpanMarkerCount =
+    sizeof(kSpanMarkers) / sizeof(kSpanMarkers[0]);
+}  // namespace
+
 extern "C" {
+
+// Enqueues span marker `index` on `stream`; returns the launch's
+// cudaError_t.
+int sdt_span_marker(int index, void* stream) {
+  if (index < 0 || index >= kSpanMarkerCount)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaLaunchKernel(
+      reinterpret_cast<const void*>(kSpanMarkers[index]), dim3(1), dim3(1),
+      nullptr, 0, static_cast<cudaStream_t>(stream));
+}
+
+// Sets *count to the number of span markers and loads each into the
+// current device's context (cudaFuncGetAttributes loads a function that
+// lazy loading has not loaded yet), so that a stream capture may launch
+// them.  Returns the cudaError_t.
+int sdt_span_markers_load(int* count) {
+  *count = kSpanMarkerCount;
+  cudaFuncAttributes attributes;
+  for (int i = 0; i < kSpanMarkerCount; ++i) {
+    const cudaError_t err = cudaFuncGetAttributes(
+        &attributes, reinterpret_cast<const void*>(kSpanMarkers[i]));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; x must be
 // 16-byte aligned, as its tensor map's base).  Sets *launches to the

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from squeezedet_torch.models.skeleton import Targets
 from squeezedet_torch.ops.boxes import batch_iou
+from squeezedet_torch.utils.profiling import span
 
 
 def bgr_means_tensor(bgr_means, device, dtype: torch.dtype) -> torch.Tensor:
@@ -167,17 +168,25 @@ def assign_anchors_device(anchors: torch.Tensor, gt_boxes: torch.Tensor,
 
 def ingest_and_assign(det, images: torch.Tensor, gt_boxes: torch.Tensor,
                       gt_labels: torch.Tensor, num_gt: torch.Tensor,
-                      uint8_ingest: bool, aug=None):
+                      uint8_ingest: bool, aug=None, gather=None):
     """The train-step ingest: uint8 normalisation (or, with ``aug``, the
     augment + resize program over a raw canvas batch) plus the anchor
-    matcher.  Returns (images, Targets)."""
+    matcher, as the spans ``ingest`` and ``matcher``
+    (``utils/profiling.span``).  ``gather``: takes ``images`` (a canvas
+    dataset) to the step's canvas batch, inside the ``ingest`` span.
+    Returns (images, Targets)."""
     cfg = det.cfg
-    if aug is not None:
-        images = augment_resize_normalize(
-            images, aug, cfg.image_height, cfg.image_width, cfg.bgr_means,
-            det.compute_dtype)
-    elif uint8_ingest:
-        images = normalize_images(images, cfg.bgr_means, det.compute_dtype)
-    targets = assign_anchors_device(det.anchors, gt_boxes.float(),
-                                    gt_labels, num_gt, cfg.classes)
+    with span("ingest", images.device):
+        if gather is not None:
+            images = gather(images)
+        if aug is not None:
+            images = augment_resize_normalize(
+                images, aug, cfg.image_height, cfg.image_width,
+                cfg.bgr_means, det.compute_dtype)
+        elif uint8_ingest:
+            images = normalize_images(images, cfg.bgr_means,
+                                      det.compute_dtype)
+    with span("matcher", det.anchors.device):
+        targets = assign_anchors_device(det.anchors, gt_boxes.float(),
+                                        gt_labels, num_gt, cfg.classes)
     return images, targets

@@ -34,6 +34,7 @@ from squeezedet_torch.models.skeleton import (Interpretation, LossBreakdown,
                                               Targets, detection_loss,
                                               interpret)
 from squeezedet_torch.ops.postprocess import filter_prediction_device
+from squeezedet_torch.utils.profiling import span
 
 _BACKBONES = {
     "squeezeDet": squeezedet.SqueezeDet,
@@ -171,11 +172,16 @@ class Detector(nn.Module):
     def predict_raw(self, images_u8: torch.Tensor,
                     spatial=None) -> Interpretation:
         """Serving path: uint8 BGR images [B, H, W, 3] -> Interpretation,
-        with the mean subtraction on the device."""
-        images = normalize_images(images_u8, self.cfg.bgr_means,
-                                  self.compute_dtype)
-        return self.interpret(self.run_backbone(images,
-                                                spatial=spatial).float())
+        with the mean subtraction on the device: the spans ``ingest``,
+        ``backbone`` and ``interpret`` (``utils/profiling.span``)."""
+        dev = images_u8.device
+        with span("ingest", dev):
+            images = normalize_images(images_u8, self.cfg.bgr_means,
+                                      self.compute_dtype)
+        with span("backbone", dev):
+            preds = self.run_backbone(images, spatial=spatial).float()
+        with span("interpret", dev):
+            return self.interpret(preds)
 
     @torch.inference_mode()
     def predict_raw_resize(self, images_u8: torch.Tensor) -> Interpretation:
@@ -317,12 +323,14 @@ class Detector(nn.Module):
             prob_thresh=cfg.prob_thresh, nms_thresh=cfg.nms_thresh)
 
     def postprocess_device(self, interp: Interpretation):
-        """On-device top-K + per-class NMS with this model's thresholds."""
+        """On-device top-K + per-class NMS with this model's thresholds
+        (the span ``postprocess``)."""
         cfg = self.cfg
-        return filter_prediction_device(
-            interp.det_boxes, interp.det_probs, interp.det_class,
-            top_n=cfg.top_n_detection, nms_thresh=cfg.nms_thresh,
-            num_classes=cfg.classes, prob_thresh=cfg.prob_thresh)
+        with span("postprocess", interp.det_boxes.device):
+            return filter_prediction_device(
+                interp.det_boxes, interp.det_probs, interp.det_class,
+                top_n=cfg.top_n_detection, nms_thresh=cfg.nms_thresh,
+                num_classes=cfg.classes, prob_thresh=cfg.prob_thresh)
 
     @torch.inference_mode()
     def predict_postprocessed(self, images: torch.Tensor, spatial=None):

@@ -73,6 +73,7 @@ from squeezedet_torch.models import Detector
 from squeezedet_torch.models import layers as L
 from squeezedet_torch.models.skeleton import LossBreakdown, Targets
 from squeezedet_torch.optim import Momentum, build_optimizer, learning_rate_at
+from squeezedet_torch.utils.profiling import load_markers, span
 
 # cuBLAS' fixed workspace for deterministic results, set before the first
 # cuBLAS handle (``train.main`` sets it when the environment does not)
@@ -175,18 +176,23 @@ def _apply_update(state: TrainState, images: torch.Tensor, targets: Targets,
     are the global batch's (summed over the ranks).  ``spatial``: the
     forward's tiling; the tiles' gradients are already summed into the
     parameters when the ranks' all-reduce starts."""
-    state.opt.zero_grad()
-    lb = _rank_loss(state.det, images, targets, generator, dp, spatial)
-    lb.total.backward()
+    dev = state.det.anchors.device
+    with span("forward", dev):
+        state.opt.zero_grad()
+        lb = _rank_loss(state.det, images, targets, generator, dp, spatial)
+    with span("backward", dev):
+        lb.total.backward()
     if dp is not None:
         grads = [p.grad for p in state.opt.params.values()]
         for g, total in zip(grads, _sum_over_ranks(dp, grads)):
             g.copy_(total)
-    state.opt.update(neg_lr)  # clips the summed gradient, alike on every rank
+    with span("optimizer", dev):
+        # clips the summed gradient, alike on every rank
+        state.opt.update(neg_lr)
+        terms = [t.detach() for t in lb]
     if dp is None:
-        return LossBreakdown(*(t.detach() for t in lb))
-    return LossBreakdown(*dp.all_reduce_(
-        torch.stack([t.detach() for t in lb])).unbind())
+        return LossBreakdown(*terms)
+    return LossBreakdown(*dp.all_reduce_(torch.stack(terms)).unbind())
 
 
 def _warn_filter_grad(dp, spatial) -> None:
@@ -252,11 +258,12 @@ def make_train_step_device(state: TrainState, *, uint8_ingest: bool = False,
     if device_dataset:
         def step_fn(dataset, pos, aug, gt_boxes, gt_labels, num_gt,
                     generator=None, neg_lr=None):
-            canvas = local_shard_gather(dp.rank, dataset, pos) \
-                if sharded else torch.index_select(dataset, 0, pos.long())
+            def gather(rows):
+                return local_shard_gather(dp.rank, rows, pos) \
+                    if sharded else torch.index_select(rows, 0, pos.long())
             images, targets = ingest_and_assign(
-                det, canvas, gt_boxes, gt_labels, num_gt, uint8_ingest,
-                aug=aug)
+                det, dataset, gt_boxes, gt_labels, num_gt, uint8_ingest,
+                aug=aug, gather=gather)
             return update(images, targets, generator, neg_lr)
     elif device_augment:
         def step_fn(images, aug, gt_boxes, gt_labels, num_gt,
@@ -411,10 +418,12 @@ class _ScanStep:
                 any(a is not b for a, b in zip(head, self.head)):
             raise ValueError("a captured dispatch replays with the "
                              "generator and dataset it was captured with")
-        for buf, x in zip(self.inputs, stacked):
-            buf.copy_(x, non_blocking=True)
-        self.neg_rates.copy_(neg_rates)
-        self.chain.replay(self.host)
+        with span("dispatch.stage"):
+            for buf, x in zip(self.inputs, stacked):
+                buf.copy_(x, non_blocking=True)
+            self.neg_rates.copy_(neg_rates)
+        with span("dispatch.replay"):
+            self.chain.replay(self.host)
         self.launches.replayed()
         opt.step += self.k
         return LossBreakdown(*(t.clone() for t in self.outputs))
@@ -430,6 +439,7 @@ class _ScanStep:
         step = opt.step
         if self.host is not None:
             self.host.chain = chain
+        load_markers(dev)  # the capture takes the steps' span markers
         try:
             with CapturedLaunches() as self.launches, chain.capture(dev):
                 self.outputs = self._eager(head, self.inputs, generator,
