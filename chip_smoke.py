@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch's CUDA
    version and ``nvcc --version``;
-2. build: the K1 and K2 kernels from ``squeezedet_torch/csrc``, one nvcc
+2. build: the K1, K2 and K3 kernels from ``squeezedet_torch/csrc``, one nvcc
    each, started together; ptxas' register, shared-memory and spill
    reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads and
    stores (UTMALDG, UTMASTG) in each kernel's SASS, by ``cuobjdump
@@ -15,7 +15,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32 kernel the cp.async copies (LDGSTS) of its halo rows, K2's
    bf16 kernels HGMMA and UTMALDG (``filter_grad_wgmma``) and HMMA
    (``filter_grad_tc_partial``, its small 1x1 calls), K2's f32 TMA
-   kernel UTMALDG; K1's bf16 and f32 kernels and K2's f32 TMA kernel
+   kernel UTMALDG; K1's bf16 and f32 kernels, K2's and K3's kernels
    must spill 0 bytes;
 3. K1 against its plain PyTorch version on the card, at the flagship
    shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, and in f32
@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    or 1e-5 (cuDNN's bf16 result, rounded to bf16, is logged beside); K2, its
    plain version and cuDNN's weight gradient timed per call at the train
    shapes (B=20) in f32 and bf16, each against its bound, and K2 and
-   cuDNN in bf16 at B=128;
+   cuDNN in bf16 at B=128; then K3, the anchor matcher
+   (``csrc/anchor_match.cu``), against its plain version on the card bit
+   for bit at B=20, G=48 with the train cell's boxes at squeezeDet's and
+   squeezeDet+'s anchors, and timed graph-replayed beside its plain
+   version and its bound on the train cell's counts and on 48 slots in
+   every image;
 5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
    B=128 for throughput; then the HTTP server at --max_batch 8:
@@ -273,7 +278,7 @@ RESIZE_ATOL, RESIZE_POSITION_ULPS, K1_RESIZE_BF16_SHARE = 1e-4, 2, 5e-2
 BACKBONE_BOX_RTOL = 2e-5
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
-KERNELS = ("conv1_pool1", "filter_grad")
+KERNELS = ("conv1_pool1", "filter_grad", "anchor_match")
 # kernel functions of each source, by name, and the SASS instructions each
 # must hold: K1 bf16 mma.sync (HMMA) fed by TMA loads (UTMALDG), its
 # output written by TMA stores (UTMASTG); K1 f32 fed by cp.async (LDGSTS);
@@ -284,12 +289,14 @@ SASS_NEEDS = {
                     "conv1_pool1_f32_strip": ("LDGSTS",)},
     "filter_grad": {"filter_grad_wgmma": ("HGMMA", "UTMALDG"),
                     "filter_grad_tc_partial": ("HMMA",),
-                    "filter_grad_f32_tma": ("UTMALDG",)}}
+                    "filter_grad_f32_tma": ("UTMALDG",)},
+    "anchor_match": {"anchor_match_cluster": ()}}
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 # the kernels of each source that ptxas must build with no spill
 NO_SPILLS = {"conv1_pool1": ("conv1_pool1_tma", "conv1_pool1_f32_strip"),
              "filter_grad": ("filter_grad_f32_tma", "filter_grad_wgmma",
-                             "filter_grad_tc_partial")}
+                             "filter_grad_tc_partial"),
+             "anchor_match": ("anchor_match_cluster",)}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -323,6 +330,9 @@ K2_SIGNED_FACTOR, K2_SIGNED_FLOOR = 2.0, 1e-5
 K2_SIGNED_BATCHES = (20, 128)
 # K2 launches per backward of one train step, by filter-grad mode
 K2_PER_STEP = {False: 0, "1x1": 10, True: 12}
+# K3 against its plain version: the train step's batch, the seeds of the
+# train cell's boxes, and the slot counts planted in the first images
+K3_BATCH, K3_SEEDS, K3_COUNTS = 20, (1, 3000000419), (0, 1, 5, 48)
 # Train step, card against CPU (f32, TF32 off): loss terms to rtol
 # LOSS_RTOL; each updated param and momentum leaf within STEP_TOL of that
 # leaf's update norm (L2).  STEP_TOL is wide because a weight or bias
@@ -1184,6 +1194,103 @@ def phase_k2(card):
             "bound_by": bound_by, "library_ms": t16["cudnn"],
             "f32": f32, "one_signed_rel_err": signed_worst,
             "one_signed": signed_rows}, rows
+
+
+def k3_inputs(net, seed, counts=K3_COUNTS):
+    """The matcher's inputs on the card: ``net``'s anchors and K3_BATCH
+    images of MAX_GT slots with the train cell's boxes and counts
+    (``portbench/traffic/train_recipe.json``, drawn by its generator from
+    ``seed`` and scaled to ``net``'s frame), the first images' counts set
+    to ``counts`` and the slots they open filled with seeded boxes."""
+    import numpy as np
+    import torch
+
+    from portbench.traffic import train_feed
+    from squeezedet_torch.config import config_for_net
+    cfg = config_for_net(net)
+    with open(os.path.join(HERE, "portbench/traffic/train_recipe.json")) \
+            as f:
+        mix = json.load(f)
+    with open(os.path.join(HERE, "portbench/configs/squeezedet_kitti.json")) \
+            as f:
+        model = json.load(f)
+    feed = train_feed(seed, model, dict(mix, steps_per_dispatch=1,
+                                        batch=K3_BATCH), 1)[0]
+    boxes, labels = feed["gt_boxes"][0], feed["gt_labels"][0]
+    boxes[..., 0::2] *= cfg.image_width / model["image_width"]
+    boxes[..., 1::2] *= cfg.image_height / model["image_height"]
+    num_gt = feed["num_gt"][0]
+    rs = np.random.RandomState(seed)
+    for i, n in enumerate(counts):
+        more = np.arange(MAX_GT) >= num_gt[i]
+        boxes[i, more, 0] = rs.uniform(20, cfg.image_width - 20, more.sum())
+        boxes[i, more, 1] = rs.uniform(20, cfg.image_height - 20, more.sum())
+        boxes[i, more, 2:] = rs.uniform(12, 200, (more.sum(), 2))
+        num_gt[i] = n
+    return (torch.tensor(np.asarray(cfg.anchor_box), dtype=torch.float32,
+                         device="cuda"),
+            torch.from_numpy(boxes).cuda(), torch.from_numpy(labels).cuda(),
+            torch.from_numpy(num_gt).cuda(), cfg.classes)
+
+
+def phase_k3(card):
+    """K3 against its plain version on the card, bit for bit, at the
+    train step's B and G with the train cell's boxes, at squeezeDet's and
+    squeezeDet+'s anchors, each image's slot index also given as its
+    label (the one-hot rows then name each slot's anchor); then K3 and
+    its plain version timed graph-replayed at squeezeDet's anchors, on
+    the train cell's counts and on MAX_GT slots in every image."""
+    import torch
+
+    from squeezedet_torch.data import device_pipeline as dp
+    from squeezedet_torch.ops import anchor_match as am
+    checked, plans = 0, {}
+    for net in ("squeezeDet", "squeezeDet+"):
+        for seed in K3_SEEDS:
+            args = k3_inputs(net, seed)
+            plans[net] = am.plan(K3_BATCH, MAX_GT, args[0].shape[0])
+            slots = torch.arange(MAX_GT, device="cuda", dtype=args[2].dtype)
+            for call in (args, args[:2] + (slots.expand_as(
+                    args[2]).contiguous(), args[3], MAX_GT)):
+                got = dp.assign_anchors_device(*call)
+                want = dp.assign_anchors_reference(*call)
+                for name, x, y in zip(got._fields, got, want):
+                    if not torch.equal(x.view(torch.int32),
+                                       y.contiguous().view(torch.int32)):
+                        raise AssertionError("K3's {} differs from the plain "
+                                             "version's ({}, seed {})".format(
+                                                 name, net, seed))
+                checked += 1
+    log("[k3] {} calls bit for bit the plain version's (squeezeDet and "
+        "squeezeDet+, B={}, G={}, counts {} and the train mix's); plans "
+        "(CTAs a cluster, anchors a CTA): {}".format(
+            checked, K3_BATCH, MAX_GT, K3_COUNTS,
+            {n: tuple(p) for n, p in plans.items()}))
+    rows = []
+    for what, counts in (("train mix", ()), ("G slots an image",
+                                              (MAX_GT,) * K3_BATCH)):
+        args = k3_inputs("squeezeDet", K3_SEEDS[0], counts)
+        b, g = args[2].shape
+        a, c = args[0].shape[0], args[4]
+        kernel = graph_ms(lambda: dp.assign_anchors_device(*args), iters=20)
+        plain = graph_ms(lambda: dp.assign_anchors_reference(*args),
+                         iters=2)
+        # the dense targets written, the anchors, boxes, labels and counts
+        # read, once each
+        nbytes = 4 * (b * a * (9 + c) + 4 * a + 4 * b * g + b * g + b)
+        bound_ms, by = bound(nbytes, 0, F32_FLOPS)
+        rounds = int(args[3].clamp(0, g).max())
+        rows.append({"what": what, "rounds": rounds, "graph_ms": kernel,
+                     "plain_graph_ms": plain, "bound_ms": bound_ms,
+                     "bound_by": by, "card": card})
+        log("[k3] {}: B={} G={} A={}, {} rounds in the slowest image: K3 "
+            "{:.4f} ms graph-replayed, plain version {:.4f} ms, bound "
+            "{:.4f} ms ({}); {}".format(what, b, g, a, rounds, kernel, plain,
+                                        bound_ms, by, card))
+    return {"max_abs_err": 0.0, "graph_ms": rows[0]["graph_ms"],
+            "plain_ms": rows[0]["plain_graph_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": "bytes",
+            "readings": rows}
 
 
 def _top_gap(probs):
@@ -3123,7 +3230,7 @@ def phase_data_parallel(card, weights):
     tf32 = torch.backends.cudnn.allow_tf32, \
         torch.backends.cuda.matmul.allow_tf32
     k1 = 0
-    child = {"k1": 0, "k2": 0}
+    child = {"k1": 0, "k2": 0, "k3": 0}
     try:
         # (a) the f32 step: two gloo ranks on the card, one NCCL rank
         cfg = kitti_squeezedet_config().replace(batch_size=DP_STEP_BATCH)
@@ -3161,6 +3268,7 @@ def phase_data_parallel(card, weights):
                         got["k2"] != 0:
                     raise AssertionError("data-parallel step disagrees")
                 child["k1"] += got["k1"]
+                child["k3"] += got["k3"]
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -3213,6 +3321,7 @@ def phase_data_parallel(card, weights):
         for row in rows + nccl:
             child["k1"] += row["k1"]
             child["k2"] += row["k2"]
+            child["k3"] += row["k3"]
 
         # (c) eval over two replicas on the card against one replica
         val = os.path.join(work, "val")
@@ -4084,7 +4193,7 @@ def phase_spatial_train(card, weights):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     k1 = 0
-    child = {"k1": 0, "k2": 0}
+    child = {"k1": 0, "k2": 0, "k3": 0}
 
     def check(got, want, tag, ranks=None):
         torch.testing.assert_close(got["loss"], want["loss"],
@@ -4132,6 +4241,7 @@ def phase_spatial_train(card, weights):
                       batch, r, world, got["backend"], SPATIAL_TILES))
             child["k1"] += got["k1"]
             child["k2"] += got["k2"]
+            child["k3"] += got["k3"]
 
     # a captured K-step dispatch over the tiles against its eager steps
     k = SPATIAL_SCAN_K
@@ -4707,27 +4817,29 @@ def main():
     tc = phase_build()
     k1 = phase_k1(card)
     k2, k2_train_rows = phase_k2(card)
+    k3 = phase_k3(card)
 
     from squeezedet_torch.models import get_model
     from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import anchor_match as am
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
 
     # serving path: counts from 0 just before it, read just after
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     forwards = phase_main_path(card)
     forwards += phase_server()
     serve = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if serve["k1"] == 0 or serve["k1"] != forwards or serve["k2"] != 0:
         raise AssertionError("serving path: K1 launches {k1}, K2 launches "
                              "{k2}, {0} forwards".format(forwards, **serve))
 
     # the on-device resize serving path: counts from 0 just before it
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     forwards = phase_resize(card)
     resize = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-              "k2": fg.LAUNCHES}
+              "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if resize["k1"] != forwards or resize["k2"] != 0:
         raise AssertionError("resize path: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}".format(forwards,
@@ -4741,13 +4853,13 @@ def main():
     weights = get_model("squeezeDet", kitti_squeezedet_config(),
                         device="cpu").backbone.state_dict()
     cfg = kitti_squeezedet_config()
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     steps = phase_train_check(weights, cfg)
     steps += phase_train_modes(weights, cfg, 20, K2_PER_STEP)
     run_steps, run_k2 = phase_train_run(card, weights)
     L.set_filter_grad(False)
     train = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     want_k2 = K2_PER_STEP[True] + sum(K2_PER_STEP.values()) + run_k2
     steps += run_steps
     if train["k1"] != steps or train["k2"] == 0 or train["k2"] != want_k2:
@@ -4758,10 +4870,10 @@ def main():
         steps, train["k1"], train["k2"]))
 
     # train loop through the CLI: counts from 0 just before it
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     loop_run = phase_train_loop(card)
     loop = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if loop["k1"] != loop_run["forwards"] or \
             loop["k2"] != K2_PER_STEP["1x1"] * loop_run["steps"]:
         raise AssertionError("train loop: K1 launches {k1} for {0} forwards, "
@@ -4772,10 +4884,10 @@ def main():
         loop_run["steps"], loop["k1"], loop["k2"]))
 
     # eval and demo from a checkpoint: counts from 0 just before them
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     forwards, eval_weights = phase_eval_demo(card)
     evald = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if evald["k1"] != forwards or evald["k2"] != 0:
         raise AssertionError("eval and demo: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}".format(forwards,
@@ -4788,10 +4900,10 @@ def main():
     # the other backbones: K2 at their shapes (not counted), then the
     # paths, with the counts from 0 just before them
     k2_err, k2_rows = phase_k2_backbones(card)
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     want_k2 = phase_backbones(card)
     backbones = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-                 "k2": fg.LAUNCHES}
+                 "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if backbones["k1"] != 0 or backbones["k2"] != want_k2:
         raise AssertionError("other backbones: K1 launches {k1}, K2 launches "
                              "{k2}, expected 0 and {0}".format(
@@ -4800,10 +4912,10 @@ def main():
         backbones["k1"], backbones["k2"]))
 
     # int8 and the exported artifact: counts from 0 just before them
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     want_k1, qdet, det16 = phase_int8_export(card, eval_weights)
     int8 = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if int8["k1"] != want_k1 or int8["k2"] != 0:
         raise AssertionError("int8 and export: K1 launches {k1}, expected "
                              "{0}; K2 launches {k2}".format(want_k1, **int8))
@@ -4815,21 +4927,21 @@ def main():
 
     # data parallelism: counts from 0 just before it; the ranks, in their
     # own processes, report theirs
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     want_k1, ranks = phase_data_parallel(card, weights)
     if ff.LAUNCHES != want_k1 or fg.LAUNCHES != 0:
         raise AssertionError("data parallelism: K1 launches {}, expected {}; "
                              "K2 launches {}".format(ff.LAUNCHES, want_k1,
                                                      fg.LAUNCHES))
     dp = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
-          "k2": fg.LAUNCHES + ranks["k2"]}
+          "k2": fg.LAUNCHES + ranks["k2"], "k3": am.LAUNCHES + ranks["k3"]}
     log("[dp] path: K1 launches {} ({} in this process, {} on the ranks), "
         "K2 launches {} (on the ranks)".format(dp["k1"], ff.LAUNCHES,
                                                ranks["k1"], dp["k2"]))
 
     # K steps per dispatch as captured CUDA graphs: counts from 0 just
     # before it; the NCCL rank, in its own process, reports its own
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     steps, gloo_k1 = phase_graph_step(card, weights)
     forwards, backwards, nccl = phase_graph_cli(card)
     learn_steps, eval_batches = phase_learning(card)
@@ -4841,14 +4953,14 @@ def main():
                                  ff.LAUNCHES, want_k1, fg.LAUNCHES, want_k2))
     graph = {"k1": ff.LAUNCHES + nccl["k1"] + gloo_k1,
              "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES + nccl["k2"]}
+             "k2": fg.LAUNCHES + nccl["k2"], "k3": am.LAUNCHES + nccl["k3"]}
     log("[graph] path: K1 launches {} ({} on the NCCL rank, {} on the gloo "
         "ranks), K2 launches {} ({} on the NCCL rank)".format(
             graph["k1"], nccl["k1"], gloo_k1, graph["k2"], nccl["k2"]))
 
     # spatial partitioning, every tile on the card: counts from 0 just
     # before it; the gloo ranks, in their own processes, report theirs
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     want_k1 = phase_spatial_forward(card, weights)
     want_k1 += phase_spatial_eval(card, weights)
     step_k1, ranks = phase_spatial_train(card, weights)
@@ -4859,7 +4971,7 @@ def main():
                              "ranks".format(ff.LAUNCHES, want_k1,
                                             fg.LAUNCHES, ranks["k2"]))
     spatial = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
-               "k2": fg.LAUNCHES}
+               "k2": fg.LAUNCHES, "k3": am.LAUNCHES + ranks["k3"]}
     log("[spatial] path: K1 launches {} ({} on the gloo ranks), K2 "
         "launches {}".format(spatial["k1"], ranks["k1"], spatial["k2"]))
     k1_tile_err = check_k1_tiles(card)
@@ -4868,10 +4980,10 @@ def main():
     # the host paths (deterministic resume, native loader, import):
     # counts from 0 just before them; the cost readings after, uncounted
     import shutil
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
     forwards, want_k2, work, root = phase_host_paths(card)
     host = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
     if host["k1"] != forwards or host["k2"] != want_k2:
         raise AssertionError("host paths: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}, expected {1}".format(
@@ -4889,6 +5001,11 @@ def main():
              "spatial": spatial, "host": host}
     log("[k1] f32 route launches in this process by path: {}".format(
         {n: c["k1_f32"] for n, c in paths.items()}))
+    k3_paths = {n: c["k3"] for n, c in paths.items()}
+    log("[k3] launches by path: {}".format(k3_paths))
+    if any(k3_paths[n] for n in ("serve", "resize", "eval")) or \
+            not all(k3_paths[n] for n in ("train", "loop", "graph")):
+        raise AssertionError("K3 launches by path: {}".format(k3_paths))
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
@@ -4922,6 +5039,19 @@ def main():
         **dict(k2, max_abs_err=max(k2["max_abs_err"], k2_err)),
         "train_shapes": k2_train_rows,
         "backbone_shapes": k2_rows,
+    }, {
+        "name": "anchor_match",
+        "route": "cuda",
+        "source": "squeezedet_torch/csrc/anchor_match.cu",
+        "replaces": None,
+        "launches": sum(k3_paths.values()),
+        "design": "one thread-block cluster an image, a slice of the "
+                  "anchors a CTA, one round a valid slot: packed (IoU, "
+                  "index) and (distance, index) keys reduced by shuffles "
+                  "and across the cluster through distributed shared "
+                  "memory; the dense targets written once",
+        "tensor_core_instructions": tc["anchor_match"],
+        **k3,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

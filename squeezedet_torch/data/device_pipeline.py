@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from squeezedet_torch.models.skeleton import Targets
+from squeezedet_torch.ops.anchor_match import anchor_match
 from squeezedet_torch.ops.boxes import batch_iou
 from squeezedet_torch.utils.profiling import span
 
@@ -123,7 +124,28 @@ def assign_anchors_device(anchors: torch.Tensor, gt_boxes: torch.Tensor,
 
     Args: anchors [A, 4]; gt_boxes [B, G, 4] center format; gt_labels
     [B, G] int; num_gt [B].
+
+    On CUDA anchors this is one launch of K3 (``ops/anchor_match.py``),
+    which takes float32 boxes and int32 or int64 labels and counts, all
+    on the anchors' device, or raises; on CPU anchors it is the plain
+    version, :func:`assign_anchors_reference`.
     """
+    if anchors.device.type == "cuda":
+        return anchor_match(anchors, gt_boxes, gt_labels, num_gt,
+                            num_classes)
+    if anchors.device.type != "cpu":
+        raise ValueError("the matcher runs on cpu or cuda tensors, got "
+                         "{}".format(anchors.device))
+    return assign_anchors_reference(anchors, gt_boxes, gt_labels, num_gt,
+                                    num_classes)
+
+
+def assign_anchors_reference(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                             gt_labels: torch.Tensor, num_gt: torch.Tensor,
+                             num_classes: int) -> Targets:
+    """The plain version of :func:`assign_anchors_device`: a loop of torch
+    ops over the G slots, each op over [B, A], then a scatter of the
+    chosen rows into zeroed targets (on any device)."""
     b, g = gt_labels.shape
     a = anchors.shape[0]
     dev = anchors.device

@@ -147,6 +147,7 @@ def _run(case: dict, dp, state, generator, steps) -> dict:
     several); the result :func:`one_step` describes."""
     from squeezedet_torch.models import halo
     from squeezedet_torch.models import layers as L
+    from squeezedet_torch.ops import anchor_match as am
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
     from squeezedet_torch.trainer import deterministic
@@ -155,7 +156,7 @@ def _run(case: dict, dp, state, generator, steps) -> dict:
     prev = L.filter_grad_mode()
     L.set_filter_grad(case["filter_grad"] if dp is None or dp.world == 1
                       else False)
-    launches = ff.LAUNCHES, fg.LAUNCHES
+    launches = ff.LAUNCHES, fg.LAUNCHES, am.LAUNCHES
     copies = halo.COPIES
     t0 = time.perf_counter()
     try:
@@ -170,7 +171,7 @@ def _run(case: dict, dp, state, generator, steps) -> dict:
                        for k, v in state.det.backbone.state_dict().items()},
             "momentum": {k: t.cpu() for k, t in state.opt.trace.items()},
             "step": state.step, "k1": ff.LAUNCHES - launches[0],
-            "k2": fg.LAUNCHES - launches[1],
+            "k2": fg.LAUNCHES - launches[1], "k3": am.LAUNCHES - launches[2],
             "halo_copies": halo.COPIES - copies,
             "generator": generator.get_state(),
             "seconds": time.perf_counter() - t0,

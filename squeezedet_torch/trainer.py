@@ -688,21 +688,22 @@ def trainable_grads(det: Detector, images, targets: Targets, generator,
 
 
 def _report_ranks(dp, before, forwards: int, starts, sizes) -> None:
-    """Rank 0 prints, for every rank, this run's K1 and K2 launches beside
-    its forwards and steps (the launch counters are per process), the
-    median time a step, from the intervals between dispatch starts after
-    the first two (µs; ``sizes``: the steps of each dispatch) and the
-    device's peak memory (MiB)."""
-    from squeezedet_torch.ops import filter_grad, fused_frontend
+    """Rank 0 prints, for every rank, this run's K1, K2 and K3 launches
+    beside its forwards and steps (the launch counters are per process),
+    the median time a step, from the intervals between dispatch starts
+    after the first two (µs; ``sizes``: the steps of each dispatch) and
+    the device's peak memory (MiB)."""
+    from squeezedet_torch.ops import anchor_match, filter_grad, fused_frontend
     gaps = (np.diff(starts) / np.asarray(sizes[:-1]))[2:]
     peak = torch.cuda.max_memory_allocated(dp.device) \
         if dp.device.type == "cuda" else 0
     rows = dp.all_gather_ints([
         fused_frontend.LAUNCHES - before[0], filter_grad.LAUNCHES - before[1],
-        forwards, int(sum(sizes)),
+        anchor_match.LAUNCHES - before[2], forwards, int(sum(sizes)),
         int(np.median(gaps) * 1e6) if gaps.size else 0, peak >> 20])
     if dp.primary:
-        keys = ("k1", "k2", "forwards", "steps", "step_us", "peak_mib")
+        keys = ("k1", "k2", "k3", "forwards", "steps", "step_us",
+                "peak_mib")
         print("data-parallel ranks " + json.dumps([
             dict(zip(keys, (int(v) for v in row))) for row in rows]),
             flush=True)
@@ -751,7 +752,7 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
                                                      latest_step)
     from squeezedet_torch.loader import PrefetchLoader
     from squeezedet_torch.models import layers
-    from squeezedet_torch.ops import filter_grad, fused_frontend
+    from squeezedet_torch.ops import anchor_match, filter_grad, fused_frontend
     from squeezedet_torch.parallel.mesh import local_shard_gather
     from squeezedet_torch.utils.metrics import write_model_metrics
 
@@ -940,7 +941,8 @@ def train(det: Detector, imdb, *, train_dir: str, max_steps: int,
     prev_mode = layers.filter_grad_mode()
     if pallas_grads:
         layers.set_filter_grad("1x1")
-    launches = fused_frontend.LAUNCHES, filter_grad.LAUNCHES
+    launches = (fused_frontend.LAUNCHES, filter_grad.LAUNCHES,
+                anchor_match.LAUNCHES)
     forwards, starts, sizes = 0, [], []
     try:
         if steps_per_dispatch > 1:
