@@ -9,8 +9,10 @@ Copied from commit c1706961c078b8aff91fbae120593a245d34c53b:
   ``fused_frontend.geometry``; the TF SAME output geometry is worked out
   here instead (:func:`same_out`).
 * :func:`conv_flops`, the per-conv FLOP count of
-  ``squeezedet_torch/models/layers.py`` ``NetTracer.conv``, and the walk
-  of a configuration's layers in :func:`forward_flops`.
+  ``squeezedet_torch/models/layers.py`` ``NetTracer.conv``, summed over
+  a configuration's convs in :func:`forward_flops`.
+* :func:`k2_1x1_routed`, the ``"1x1"`` mode's rule of
+  ``layers.filter_grad_eligible`` for a bfloat16 stride-1 SAME conv.
 
 The peaks are the NVIDIA H100 SXM data sheet's dense rates at 700 W.
 """
@@ -118,9 +120,21 @@ def conv_flops(in_ch, filters, size, out_h, out_w, relu=True):
 
 
 def forward_flops(cfg):
-    """FLOP of one image's forward through a configuration's convs, in
-    ``NetTracer``'s accounting (pools, dropout and the interpretation are
-    not counted)."""
-    from portbench.reference.model import conv_shapes
+    """FLOP of one image's forward through a configuration's convs (its
+    reference network's ``conv_shapes``), in ``NetTracer``'s accounting
+    (pools, dropout, batch norm, joins and the interpretation are not
+    counted)."""
+    from portbench.reference import network
+    shapes = network(cfg).conv_shapes(cfg)
     return sum(conv_flops(c, o, k, h, w, relu)
-               for _, c, o, k, _, h, w, relu in conv_shapes(cfg))
+               for _, c, o, k, _, h, w, relu in shapes)
+
+
+def k2_1x1_routed(size, stride, parts, height, width, filters):
+    """Whether the ``"1x1"`` route gives K2 the weight gradient of a
+    bfloat16 stride-1 SAME conv taken by the program's plain conv: a 1x1
+    kernel, every input part (``parts``, channels; the program takes a
+    fire's two halves apart) a multiple of 128 channels, the positions
+    of an image a multiple of 16, and the filters a multiple of 8."""
+    return (size == 1 and stride == 1 and all(p % 128 == 0 for p in parts)
+            and (height * width) % 16 == 0 and filters % 8 == 0)

@@ -22,8 +22,8 @@ def anchors(cfg, device):
     """[A, 4] (cx, cy, w, h) float32: centers at ``i * W / (Gw + 1)``,
     ``i = 1..Gw`` (and so for y), the shape table at every cell, index
     ``(row * Gw + col) * APG + shape``."""
-    from portbench.reference.model import grid
-    gh, gw = grid(cfg)
+    from portbench.reference import network
+    gh, gw = network(cfg).grid(cfg)
     shapes = torch.tensor(cfg["anchor_shapes"], dtype=torch.float64)
     cx = torch.arange(1, gw + 1, dtype=torch.float64) * cfg["image_width"] \
         / (gw + 1)

@@ -12,6 +12,9 @@ on.
 
 ``quant``, when given, is applied to every conv's input and weight
 before the conv (the control's lower precision, :mod:`.precision`).
+
+This is the network of a configuration that names no ``"reference"``;
+it gives what :mod:`portbench.reference` lists.  It keeps no buffers.
 """
 
 from __future__ import annotations
@@ -68,6 +71,67 @@ def param_shapes(cfg):
         shapes[name + ".weight"] = (o, c, k, k)
         shapes[name + ".bias"] = (o,)
     return shapes
+
+
+def buffer_shapes(cfg):
+    """{name: shape} of the program's buffers: a layer list has none."""
+    return {}
+
+
+def head(cfg):
+    """The head conv's name: the last conv."""
+    return conv_shapes(cfg)[-1][0]
+
+
+def dropout_parts(cfg):
+    """For each ``dropout`` entry in order: (height, width, channel parts
+    of its input).  The entry before it decides: a fire gives its two
+    expand halves, which the program masks one after the other; a conv
+    gives its filters as one part."""
+    shapes = conv_shapes(cfg)
+    out, seen, parts = [], 0, None
+    for layer in cfg["layers"]:
+        if "conv" in layer:
+            seen, parts = seen + 1, (layer["filters"],)
+        elif "fire" in layer:
+            seen, parts = seen + 3, (layer["e1x1"], layer["e3x3"])
+        elif "dropout" in layer:
+            if parts is None:
+                raise ValueError("{}: {} follows no conv or fire".format(
+                    cfg.get("name"), layer["dropout"]))
+            out.append(shapes[seen - 1][5:7] + (parts,))
+        else:
+            parts = None
+    return out
+
+
+def k2_routed(cfg):
+    """(kernel size, in channels, filters, height, width) of each conv
+    whose weight gradient the "1x1" route gives K2
+    (:func:`portbench.frozen.k2_1x1_routed`).  A fire's squeeze takes the
+    two halves of the previous fire's output as two parts."""
+    from portbench import frozen
+    parts, out = {}, []
+    prev = None
+    for layer in cfg["layers"]:
+        if "fire" in layer:
+            parts[layer["fire"]] = prev
+            prev = (layer["e1x1"], layer["e3x3"])
+        elif "conv" in layer:
+            prev = (layer["filters"],)
+    for name, c, o, k, s, h, w, _ in conv_shapes(cfg):
+        fire, _, part = name.partition(".")
+        ins = parts.get(fire) if part == "squeeze1x1" else (c,)
+        if ins and frozen.k2_1x1_routed(k, s, ins, h, w, o):
+            out.append((k, c, o, h, w))
+    return out
+
+
+def draw(seed, cfg, device):
+    """The parameters from the seed: :func:`portbench.traffic.he_weights`
+    over :func:`param_shapes`, in one draw."""
+    from portbench import traffic
+    return traffic.he_weights(seed, param_shapes(cfg), cfg["init"], device)
 
 
 def frozen_params(cfg):

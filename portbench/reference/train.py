@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from portbench.reference import detect, model
+from portbench.reference import detect, network
 
 
 def augment(cfg, canvas, aug):
@@ -159,19 +159,21 @@ def loss(cfg, interp, targets, params, trainable):
 
 
 def draw_masks(cfg, generator, batch):
-    """The dropout keep masks of one step (NHWC bool, the dropout layer's
-    input), drawn from ``generator`` as the benchmark hands it to the
-    program: one uint8 per element, kept below ``keep_prob * 256``, for
-    each of the preceding fire module's two expand halves in turn."""
-    gh, gw = model.grid(cfg)
-    fire = [layer for layer in cfg["layers"] if "fire" in layer][-1]
+    """The dropout keep masks of one step, one a dropout layer in order
+    (NHWC bool over the layer's whole input), drawn from ``generator`` as
+    the benchmark hands it to the program: one uint8 per element, kept
+    below ``keep_prob * 256``, for each channel part of the layer's input
+    in turn (the network's ``dropout_parts``), joined on channels."""
     q = round(cfg["keep_prob"] * 256)
-    halves = []
-    for c in (fire["e1x1"], fire["e3x3"]):
-        bits = torch.randint(0, 256, (batch, gh, gw, c), dtype=torch.uint8,
-                             device=generator.device, generator=generator)
-        halves.append(bits < q)
-    return [torch.cat(halves, dim=-1)]
+    masks = []
+    for h, w, parts in network(cfg).dropout_parts(cfg):
+        drawn = []
+        for c in parts:
+            bits = torch.randint(0, 256, (batch, h, w, c), dtype=torch.uint8,
+                                 device=generator.device, generator=generator)
+            drawn.append(bits < q)
+        masks.append(torch.cat(drawn, dim=-1))
+    return masks
 
 
 def lr_at(cfg, step):
@@ -183,16 +185,19 @@ def lr_at(cfg, step):
 def run_steps(cfg, params, dataset, feed, generator, quant=None,
               rows=None, first_grads=None, momentum=None, start_step=0,
               step_masks=None):
-    """Train from ``params`` (float32, copied) with ``momentum`` (zero when
-    None), the first step being ``start_step`` of the schedule, through
-    every step of ``feed`` (dicts of ``pos`` [K, B], ``aug`` [K, B, 5],
+    """Train from ``params`` (float32, copied; the network's buffers
+    among them, which do not train) with ``momentum`` (zero when None),
+    the first step being ``start_step`` of the schedule, through every
+    step of ``feed`` (dicts of ``pos`` [K, B], ``aug`` [K, B, 5],
     ``gt_boxes`` [K, B, G, 4], ``gt_labels``, ``num_gt``), dropout drawn
     from ``generator``.  ``rows``: a slice of each batch to train on in
     place of all of it (a planted fault).  ``first_grads``: a dict that
     receives the first step's unclipped gradients.  ``step_masks``: each
     step's dropout masks in order, in place of drawing them.  Returns
     (losses, momentum, params) after the last step."""
-    trainable = [n for n in params if n not in model.frozen_params(cfg)]
+    net = network(cfg)
+    shapes, frozen = net.param_shapes(cfg), net.frozen_params(cfg)
+    trainable = [n for n in params if n in shapes and n not in frozen]
     params = {n: t.detach().clone() for n, t in params.items()}
     momentum = {n: torch.zeros_like(params[n]) if momentum is None
                 else momentum[n].clone() for n in trainable}
@@ -214,7 +219,7 @@ def run_steps(cfg, params, dataset, feed, generator, quant=None,
                                            "num_gt")))
             for n in trainable:
                 params[n].requires_grad_(True)
-            preds = model.forward(cfg, params, images,
+            preds = net.forward(cfg, params, images,
                                   [pick(m) for m in masks], quant)
             total = loss(cfg, detect.interpret(cfg, preds, anchor_box),
                          targets, params, trainable)

@@ -8,7 +8,8 @@ and a traffic mix (``portbench/traffic/<traffic>.json``), whose
 ``runner`` (``portbench/runners/<runner>.py``) builds the program and
 the inputs from the seed, warms every shape the cell uses, and drives
 the measured window.  ``--trace 0`` reports the cell's end-to-end
-metrics; ``--trace 1`` profiles a window of the mix's ``trace_seconds``
+metrics; ``--trace 1`` loads the program's span markers after the
+runner's set-up, then profiles a window of the mix's ``trace_seconds``
 and reports the per-layer metrics, each read by
 ``portbench/metrics/<metric>.py`` (or the reader named by the metric's
 name before its first dot).  Then the window's outputs are judged
@@ -144,7 +145,7 @@ def judge(values, limits):
 def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None):
     """One run of ``cell`` (:func:`cell_spec`); returns the result dict."""
     import torch
-    from portbench import trace as tracing
+    from portbench import program, trace as tracing
     t_start = T_START if t_start is None else t_start
     mix = cell["mix"]
     runner = importlib.import_module("portbench.runners." + mix["runner"]) \
@@ -158,6 +159,8 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None):
     setup_s = time.perf_counter() - t_start
     metrics, breakdown, dev = {}, None, {}
     if trace:
+        if on_card:  # their first load (a build, in a fresh checkout)
+            program.load_markers(device)
         with tracing.Window(cell["chips"], on_card) as tw:
             win = runner.window(mix["trace_seconds"])
         ctx = Context(cell, win, tw.summary)

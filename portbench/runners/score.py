@@ -13,19 +13,20 @@ import time
 import torch
 
 from portbench import program, traffic
-from portbench.reference import compare, detect, model, precision
+from portbench.reference import compare, detect, network, precision
 
 
 def reference_detections(cfg, weights, images_u8, block, quant=None):
     """The reference's interpretation of uint8 frames, image-aligned, in
     blocks of ``block`` images; ``quant`` puts the control in its place."""
     anchor_box = detect.anchors(cfg, images_u8.device)
+    net = network(cfg)
     means = torch.tensor(cfg["bgr_means"], device=images_u8.device)
     parts = []
     for s in range(0, images_u8.shape[0], block):
         x = images_u8[s:s + block].float() - means
         parts.append(detect.interpret(
-            cfg, model.forward(cfg, weights, x, quant=quant), anchor_box))
+            cfg, net.forward(cfg, weights, x, quant=quant), anchor_box))
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 

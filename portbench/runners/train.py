@@ -33,7 +33,7 @@ import torch
 
 from portbench import program, traffic
 from portbench.runners.score import reference_mode
-from portbench.reference import model
+from portbench.reference import network
 from portbench.reference import train as ref_train
 
 FEED_KEYS = ("pos", "aug", "gt_boxes", "gt_labels", "num_gt")
@@ -163,13 +163,19 @@ class Runner:
         finally:
             del opt.update
             layers.dropout = dropout
+        # a step's keep masks, one a dropout layer over its whole input,
+        # as the reference takes them; none read, or not the network's
+        # parts: drawn again from the state
         k = self.mix["steps_per_dispatch"]
-        per = len(drawn) // k
-        # one keep mask a step over the dropout layer's whole input, as
-        # the reference takes it; none read: drawn again from the state
-        self.first_masks = None if not drawn or len(drawn) % k else [
-            [torch.cat(drawn[i * per:(i + 1) * per], dim=-1)]
-            for i in range(k)]
+        layout = [len(p) for _, _, p in
+                  network(self.cfg).dropout_parts(self.cfg)]
+        per = sum(layout)
+        self.first_masks = None
+        if drawn and len(drawn) == k * per:
+            parts = iter(drawn)
+            self.first_masks = [
+                [torch.cat([next(parts) for _ in range(n)], dim=-1)
+                 for n in layout] for _ in range(k)]
 
     def _state(self):
         """(parameters that train, momentum, step) as they stand."""
@@ -272,9 +278,12 @@ class Runner:
             return None
         gen = torch.Generator(device=self.device)
         gen.set_state(self.gen_state)
-        return all(torch.equal(ref_train.draw_masks(
-            self.cfg, gen, self.mix["batch"])[0], m[0])
-            for m in self.first_masks)
+        for masks in self.first_masks:
+            drawn = ref_train.draw_masks(self.cfg, gen, self.mix["batch"])
+            if len(drawn) != len(masks) or not all(
+                    torch.equal(a, b) for a, b in zip(drawn, masks)):
+                return False
+        return True
 
     def program_run(self):
         """The program's own, as :meth:`reference_run` gives it."""
@@ -324,7 +333,7 @@ class Runner:
         angles = leaf_angles(mine["first"], first, keep)
         grads = leaf_gaps(mine["first"], first, keep)
         head = [n for n in keep if n.startswith(
-            model.conv_shapes(self.cfg)[-1][0] + ".")]
+            network(self.cfg).head(self.cfg) + ".")]
         head_angle = leaf_angles(
             {"head": torch.cat([mine["first"][n].flatten() for n in head])},
             {"head": torch.cat([first[n].flatten() for n in head])},

@@ -4,7 +4,7 @@ was copied from."""
 import pytest
 
 from portbench import frozen, run
-from portbench.reference import model
+from portbench.reference import network
 
 
 @pytest.mark.parametrize("name,flops,params", [
@@ -22,7 +22,7 @@ def test_flops_equal_the_port_tracer(name, flops, params):
         pcfg, device="cpu", generator=torch.Generator().manual_seed(0))
     assert sum(f for _, f in net.tracer.flop_counter) == flops
     assert net.tracer.total_params() == params == cfg["params"]
-    assert (net.tracer.height, net.tracer.width) == model.grid(cfg)
+    assert (net.tracer.height, net.tracer.width) == network(cfg).grid(cfg)
 
 
 @pytest.mark.parametrize("h,w", [(384, 1248), (375, 1242), (64, 128),
@@ -45,9 +45,8 @@ def test_k2_routed_convs_follow_the_port_rule():
     import torch
     from squeezedet_torch.config import config_for_net
     from squeezedet_torch.models import get_model, layers
-    from portbench.run import reader
     cfg = run.load_json("portbench", "configs", "squeezedet_kitti.json")
-    routed = reader("k2_roofline.train").routed(cfg)
+    routed = network(cfg).k2_routed(cfg)
     seen = []
     orig = layers.filter_grad_eligible
 

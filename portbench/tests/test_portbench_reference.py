@@ -12,8 +12,12 @@ from portbench.reference import compare, detect
 from portbench.tests import tiny
 
 
-def _runner(name, mix, seed):
+def _runner(name, mix, seed, cfg=None):
+    """The runner of cell ``name`` at the tiny size (``cfg`` in place of
+    its configuration), the program in float32."""
     c = tiny.cell(name, **mix)
+    if cfg is not None:
+        c["cfg"] = cfg
     c["cfg"]["compute_dtype"] = "float32"
     return importlib.import_module(
         "portbench.runners." + c["mix"]["runner"]).Runner(
@@ -23,7 +27,11 @@ def _runner(name, mix, seed):
 @pytest.mark.parametrize("name", ["sqdet.score.b128",
                                   "sqdetplus.score.b128"])
 def test_scoring_path(name):
-    d = _runner(name, tiny.SCORE, 11)
+    scores_as_the_reference(_runner(name, tiny.SCORE, 11))
+
+
+def scores_as_the_reference(d):
+    """The score runner ``d``'s window agrees with the reference."""
     d.setup()
     d.window(0.05)
     d.release()
@@ -42,12 +50,19 @@ def test_scoring_path(name):
     assert numbers["nms_flips"] == 0
 
 
+# two steps: a max-pool's or a ReLU's choice that flips on float32's
+# rounding in a later step parts the two trajectories
+TRAIN_1 = dict(tiny.TRAIN, steps_per_dispatch=1)
+
+
 @pytest.mark.parametrize("seed", [12, 13])
 def test_training_path(seed):
-    # two steps: a max-pool's or a ReLU's choice that flips on float32's
-    # rounding in a later step parts the two trajectories
-    d = _runner("sqdet.train.b20k8", dict(tiny.TRAIN, steps_per_dispatch=1),
-                seed)
+    trains_as_the_reference(_runner("sqdet.train.b20k8", TRAIN_1, seed))
+
+
+def trains_as_the_reference(d):
+    """The train runner ``d``'s set-up and window agree with the
+    reference."""
     d.setup()
     d.window(0.05)
     d.release()

@@ -141,3 +141,47 @@ def test_jax_loaded_refuses_result(capsys, monkeypatch):
                                   "--seed", "3", "--seconds", "0.1",
                                   "--trace", "0"], cell=cell, device="cpu")
     assert rc == 4 and out == "" and "jax" in err
+
+
+@pytest.mark.cuda
+def test_markers_load_in_set_up_never_in_the_traced_window(capsys,
+                                                           monkeypatch):
+    """squeezeDet+ never launches K1, whose library holds the span
+    markers: a traced run loads them after set-up, before the window
+    opens, and the window's first span finds them loaded."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from squeezedet_torch.utils import profiling
+    from portbench import trace as tracing
+    events = []
+    load, enter, leave = (profiling.load_markers, tracing.Window.__enter__,
+                          tracing.Window.__exit__)
+
+    def spy_load(device):
+        events.append("load")
+        return load(device)
+
+    def spy_enter(self):
+        events.append("open")
+        return enter(self)
+
+    def spy_exit(self, *exc):
+        events.append("close")
+        return leave(self, *exc)
+    # as in a process that has loaded none
+    monkeypatch.setattr(profiling, "_MARKERS_LOADED", set())
+    monkeypatch.setattr(profiling, "load_markers", spy_load)
+    monkeypatch.setattr(tracing.Window, "__enter__", spy_enter)
+    monkeypatch.setattr(tracing.Window, "__exit__", spy_exit)
+    cell = tiny.cell("sqdetplus.score.b128", **tiny.SCORE)
+    rc, out, _ = _main(capsys, ["--workload", "sqdetplus.score.b128",
+                                "--seed", "17", "--seconds", "0.2",
+                                "--trace", "1"], cell=cell, device="cuda")
+    assert rc == 0
+    assert events.count("open") == events.count("close") == 1
+    opened, closed = events.index("open"), events.index("close")
+    assert "load" in events[:opened]
+    assert "load" not in events[opened:closed]
+    result = json.loads(out.strip().splitlines()[-1])
+    assert "span_ms.score.backbone" in result["metrics"]

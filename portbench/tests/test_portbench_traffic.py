@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from portbench import run, traffic
-from portbench.reference import model
+from portbench.reference import network
 
 BIG = 2 ** 31 + 12345
 
@@ -30,7 +30,7 @@ def test_frames_repeat_from_seed(seed):
 
 def test_weights_repeat_from_seed():
     cfg = _cfg("squeezedet_kitti")
-    shapes = model.param_shapes(cfg)
+    shapes = network(cfg).param_shapes(cfg)
     a = traffic.he_weights(BIG, shapes, cfg["init"], "cpu")
     b = traffic.he_weights(BIG, shapes, cfg["init"], "cpu")
     c = traffic.he_weights(BIG + 1, shapes, cfg["init"], "cpu")

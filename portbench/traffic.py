@@ -31,41 +31,52 @@ def uint8_images(seed: int, tag: str, shape, device):
                          generator=device_generator(seed, tag, device))
 
 
-def he_weights(seed: int, shapes: dict, init: dict, device):
-    """{name: float32 tensor} for ``shapes`` ({name: shape}) drawn on
-    ``device`` in one normal draw: conv kernels at He's standard
-    deviation sqrt(2 / fan_in) times ``init["gain"][layer]`` (1 where
-    not given), or at ``init["std"][layer]``; biases at 0.01 of their
-    kernel's."""
+def normal_parts(seed: int, tag: str, shapes: dict, device):
+    """{name: float32 tensor} for ``shapes`` ({name: shape}): one standard
+    normal draw on ``device`` under ``tag``, cut into the shapes in
+    order."""
     import torch
     total = sum(int(np.prod(s)) for s in shapes.values())
     flat = torch.randn(total, device=device,
-                       generator=device_generator(seed, "weights", device))
+                       generator=device_generator(seed, tag, device))
     out, at = {}, 0
     for name, shape in shapes.items():
         n = int(np.prod(shape))
+        out[name] = flat[at:at + n].reshape(shape)
+        at += n
+    return out
+
+
+def he_weights(seed: int, shapes: dict, init: dict, device):
+    """{name: float32 tensor} for ``shapes`` ({name: shape}) drawn on
+    ``device`` in one normal draw (:func:`normal_parts` under
+    ``"weights"``): conv kernels at He's standard deviation
+    sqrt(2 / fan_in) times ``init["gain"][layer]`` (1 where not given), or
+    at ``init["std"][layer]``; biases at 0.01 of their kernel's."""
+    out = normal_parts(seed, "weights", shapes, device)
+    for name in shapes:
         layer = name.rsplit(".", 1)[0]
         fan_in = int(np.prod(shapes[layer + ".weight"][1:]))
         std = init["std"].get(layer, (2.0 / fan_in) ** 0.5 *
                               init["gain"].get(layer, 1.0))
         if name.endswith(".bias"):
             std *= 0.01
-        out[name] = (flat[at:at + n] * std).reshape(shape)
-        at += n
+        out[name] = out[name] * std
     return out
 
 
 def model_weights(seed: int, cfg: dict, device):
-    """The configuration's weights from the seed (:func:`he_weights`),
-    the head's kernel then scaled so that the reference's head outputs
-    on a frame drawn from the seed have the root mean square
-    ``cfg["init"]["head_rms"]``: the depth's random gains would
-    otherwise spread the head's scale over seeds by ten times, and a
-    head that saturates its softmax and sigmoid hides a precision's
-    errors."""
+    """The configuration's weights and buffers from the seed (its
+    reference network's ``draw``), the head's kernel and bias then scaled
+    so that the reference's head outputs on a frame drawn from the seed
+    have the root mean square ``cfg["init"]["head_rms"]``: the depth's
+    random gains would otherwise spread the head's scale over seeds by ten
+    times, and a head that saturates its softmax and sigmoid hides a
+    precision's errors."""
     import torch
-    from portbench.reference import model
-    weights = he_weights(seed, model.param_shapes(cfg), cfg["init"], device)
+    from portbench.reference import network
+    net = network(cfg)
+    weights = net.draw(seed, cfg, device)
     frame = uint8_images(seed, "probe_frame", (1, cfg["image_height"],
                                                  cfg["image_width"], 3),
                          device).float()
@@ -75,13 +86,13 @@ def model_weights(seed: int, cfg: dict, device):
     cudnn.deterministic, cudnn.allow_tf32 = True, False
     try:
         with torch.no_grad():
-            head = model.forward(cfg, weights, frame - means)
+            head = net.forward(cfg, weights, frame - means)
     finally:
         cudnn.deterministic, cudnn.allow_tf32 = saved
     rms = float(head.double().pow(2).mean().sqrt())
     # three digits: the probe's own rounding does not reach the weights
     gain = float("{:.3g}".format(cfg["init"]["head_rms"] / rms))
-    last = model.conv_shapes(cfg)[-1][0]
+    last = net.head(cfg)
     for name in (last + ".weight", last + ".bias"):
         weights[name] = weights[name] * gain
     return weights
