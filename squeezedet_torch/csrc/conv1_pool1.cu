@@ -1050,7 +1050,7 @@ int launch_tc(const __nv_bfloat16* x, const float* k, const float* bias,
 // span i begins with marker 2 i and ends with marker 2 i + 1.
 #define SDT_SPANS(X)                                                      \
   X(ingest) X(matcher) X(forward) X(backward) X(optimizer) X(backbone)    \
-  X(interpret) X(postprocess)
+  X(interpret) X(postprocess) X(res2) X(res3) X(res4)
 #define SDT_SPAN_KERNELS(name)                                            \
   extern "C" __global__ void squeezedet_span_##name##_begin() {}          \
   extern "C" __global__ void squeezedet_span_##name##_end() {}

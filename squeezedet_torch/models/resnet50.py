@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from squeezedet_torch.models import layers as L
+from squeezedet_torch.utils.profiling import span
 
 # (stage, blocks, in_filters, out_filters, frozen)
 _STAGES = [
@@ -100,6 +101,10 @@ class ResNet50(nn.Module):
         each block's branch2a and branch2b and each block's output under
         the JAX backbone's names (``res2a_branch2a``, ``res2a``).
 
+        Each stage's blocks are the device span ``res<stage>``
+        (``utils/profiling.span``) on the images' device; over a spatial
+        mesh's tiles, a host range only.
+
         An int8 block (``quant._quantize_resnet``) carries buffers: its
         identity shortcut, when int8, is dequantized at ``shortcut_scale``
         (branch2c and a projection shortcut already come out f32), the join
@@ -109,32 +114,39 @@ class ResNet50(nn.Module):
         x = L.conv_bn(self.conv1, images, 2, eps=eps)
         L.record(tape, "conv1", x)
         x = L.max_pool(x, 3, 2, "VALID")
+        dev = images.device if torch.is_tensor(images) else None
         for stage, blocks, _, _, _ in _STAGES:
-            for block in blocks:
-                name = "res" + stage + block
-                res = getattr(self, name)
-                stride = 1
-                shortcut = x
-                if block == "a":
-                    stride = 1 if stage == "2" else 2
-                    shortcut = L.conv_bn(res.branch1, x, stride, relu=False,
-                                         eps=eps)
-                elif getattr(res, "shortcut_scale", None) is not None:
-                    shortcut = L.pointwise(
-                        lambda s, scale=res.shortcut_scale:
-                        s.float() * scale.to(s.device), shortcut)
-                b2 = res.branch2
-                y = L.conv_bn(b2.branch2a, x, stride, eps=eps)
-                L.record(tape, name + "_branch2a", y)
-                y = L.conv_bn(b2.branch2b, y, 1, eps=eps)
-                L.record(tape, name + "_branch2b", y)
-                y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps)
-                x = L.pointwise(lambda s, t: F.relu(s + t), shortcut, y)
-                if getattr(res, "out_scale", None) is not None:
-                    x = L.pointwise(lambda t, scale=res.out_scale:
-                                    L.quantize_activation(t, scale), x)
-                L.record(tape, name, x)
+            with span("res" + stage, dev):
+                for block in blocks:
+                    x = self._block(stage, block, x, tape)
         x = L.dropout(x, self.keep_prob, generator, train)
         out = L.conv2d(self.conv5, x, 1, relu=False)
         L.record(tape, "conv5", out)
         return out
+
+    def _block(self, stage: str, block: str, x, tape):
+        """Block ``res<stage><block>`` on ``x``."""
+        eps = self.eps
+        name = "res" + stage + block
+        res = getattr(self, name)
+        stride = 1
+        shortcut = x
+        if block == "a":
+            stride = 1 if stage == "2" else 2
+            shortcut = L.conv_bn(res.branch1, x, stride, relu=False, eps=eps)
+        elif getattr(res, "shortcut_scale", None) is not None:
+            shortcut = L.pointwise(
+                lambda s, scale=res.shortcut_scale:
+                s.float() * scale.to(s.device), shortcut)
+        b2 = res.branch2
+        y = L.conv_bn(b2.branch2a, x, stride, eps=eps)
+        L.record(tape, name + "_branch2a", y)
+        y = L.conv_bn(b2.branch2b, y, 1, eps=eps)
+        L.record(tape, name + "_branch2b", y)
+        y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps)
+        x = L.pointwise(lambda s, t: F.relu(s + t), shortcut, y)
+        if getattr(res, "out_scale", None) is not None:
+            x = L.pointwise(lambda t, scale=res.out_scale:
+                            L.quantize_activation(t, scale), x)
+        L.record(tape, name, x)
+        return x

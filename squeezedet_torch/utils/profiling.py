@@ -26,7 +26,8 @@ PREFIX = "squeezedet."
 # csrc/conv1_pool1.cu (built with K1): span i begins with marker 2 i and
 # ends with marker 2 i + 1.
 DEVICE_SPANS = ("ingest", "matcher", "forward", "backward", "optimizer",
-                "backbone", "interpret", "postprocess")
+                "backbone", "interpret", "postprocess", "res2", "res3",
+                "res4")
 _MARKER = {name: 2 * i for i, name in enumerate(DEVICE_SPANS)}
 _MARKER_LIB = "conv1_pool1"
 # the CUDA devices whose contexts hold the marker kernels

@@ -1,10 +1,12 @@
 """The program's spans (``squeezedet_torch/utils/profiling.span``): the
 host ranges ``squeezedet.<name>`` a profiler records around the scoring
 call's and the train step's phases, in order; nothing entered and no
-marker enqueued without a profiler; the marker kernels' names and order
-in ``csrc/conv1_pool1.cu``; and, on the card (``cuda``-marked), a
-captured dispatch whose traced replay holds each step's marker pairs in
-order while the kernels' ``LAUNCHES`` count no marker."""
+marker enqueued without a profiler; ResNet50's stage spans inside its
+backbone's; the marker kernels' names and order in
+``csrc/conv1_pool1.cu``, each span's markers where they stood; and, on
+the card (``cuda``-marked), a captured dispatch whose traced replay
+holds each step's marker pairs in order while the kernels' ``LAUNCHES``
+count no marker."""
 
 import re
 from pathlib import Path
@@ -159,6 +161,69 @@ def test_marker_kernels_follow_device_spans():
     body = re.search(r"#define SDT_SPANS\(X\)(.*?)\n#define", source,
                      re.S).group(1)
     assert tuple(re.findall(r"X\((\w+)\)", body)) == profiling.DEVICE_SPANS
+
+
+# the device spans as they stood before ResNet50's stages were added: a
+# marker's index is its place in the C source's list, which only grows
+FIRST_SPANS = ("ingest", "matcher", "forward", "backward", "optimizer",
+               "backbone", "interpret", "postprocess")
+STAGES = ["res2", "res3", "res4"]
+
+
+@pytest.fixture(scope="module")
+def resnet():
+    from squeezedet_torch.config.kitti import custom_kitti_config
+    return st.get_model("resnet50", custom_kitti_config("resnet50", 96, 64),
+                        device="cpu")
+
+
+def test_resnet_stage_spans_lie_inside_the_backbone_in_order(resnet):
+    """A ResNet50 scoring call while a profiler records: the ranges
+    ``squeezedet.res2``, ``.res3`` and ``.res4`` once each, in order, each
+    inside ``squeezedet.backbone``."""
+    u8 = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 64, 96, 3)).astype(np.uint8))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        resnet.predict_raw_postprocessed(u8)
+    assert _ranges(prof) == SCORE_SPANS[:2] + STAGES + SCORE_SPANS[2:]
+    spans = {e.name()[len(profiling.PREFIX):]: (e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(profiling.PREFIX)
+             and str(e.device_type()).endswith("CPU")}
+    lo, hi = spans["backbone"]
+    bounds = [spans[n] for n in STAGES]
+    assert lo <= bounds[0][0] and bounds[-1][1] <= hi
+    assert all(a[1] <= b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+def test_resnet_without_profiler_enqueues_no_marker(resnet, monkeypatch):
+    def refuse(name):
+        raise AssertionError("record_function({!r}) entered".format(name))
+    marks = []
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_mark",
+                        lambda index, device: marks.append(index))
+    resnet.predict_raw_postprocessed(torch.zeros((2, 64, 96, 3),
+                                                 dtype=torch.uint8))
+    assert marks == []
+
+
+@pytest.mark.parametrize("name", FIRST_SPANS + tuple(STAGES))
+def test_device_spans_keep_their_marker_indices(monkeypatch, name):
+    """The first eight spans keep markers 2 i and 2 i + 1; the stages
+    follow them.  A captured span of each enqueues its own pair (the
+    capture and the launch stood in for)."""
+    assert profiling.DEVICE_SPANS[:len(FIRST_SPANS)] == FIRST_SPANS
+    assert profiling.DEVICE_SPANS[len(FIRST_SPANS):] == tuple(STAGES)
+    i = profiling.DEVICE_SPANS.index(name)
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(profiling, "_mark",
+                        lambda index, device: launched.append(index))
+    with profiling.span(name, torch.device("cuda")):
+        pass
+    assert launched == [2 * i, 2 * i + 1]
 
 
 @pytest.mark.cuda
