@@ -7,15 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch's CUDA
    version and ``nvcc --version``;
-2. build: the K1, K2 and K3 kernels from ``squeezedet_torch/csrc``, one nvcc
-   each, started together; ptxas' register, shared-memory and spill
+2. build: the K1, K2, K3 and K4 kernels from ``squeezedet_torch/csrc``, one
+   nvcc each, started together; ptxas' register, shared-memory and spill
    reports; the tensor-core instructions (HMMA, HGMMA) and TMA loads and
    stores (UTMALDG, UTMASTG) in each kernel's SASS, by ``cuobjdump
    -sass``: K1's bf16 kernel must have HMMA, UTMALDG and UTMASTG, its
    f32 kernel the cp.async copies (LDGSTS) of its halo rows, K2's
    bf16 kernels HGMMA and UTMALDG (``filter_grad_wgmma``) and HMMA
    (``filter_grad_tc_partial``, its small 1x1 calls), K2's f32 TMA
-   kernel UTMALDG; K1's bf16 and f32 kernels, K2's and K3's kernels
+   kernel UTMALDG; K1's bf16 and f32 kernels, K2's, K3's and K4's kernels
    must spill 0 bytes;
 3. K1 against its plain PyTorch version on the card, at the flagship
    shape (B=8, 384x1248) in f32 and bf16 and at an odd shape, and in f32
@@ -40,7 +40,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    for bit at B=20, G=48 with the train cell's boxes at squeezeDet's and
    squeezeDet+'s anchors, and timed graph-replayed beside its plain
    version and its bound on the train cell's counts and on 48 slots in
-   every image;
+   every image; then K4, ResNet's conv + batch-norm epilogue
+   (``csrc/bn_act.cu``), against its plain version bit for bit at the
+   ``res50.score.b128`` cell's shapes (B=128, 1242x375, bf16: conv1, the
+   res2 2a/2b map, the res2 joins, the res4 join) and timed there by CUDA
+   events and graph-replayed beside its byte bound and the plain version
+   (the torch passes it replaced), with each kernel's ptxas registers;
 5. serving path: uint8 -> detections at 1248x384 with seeded random
    weights: f32 at B=2 against the same weights on the CPU, then bf16 at
    B=128 for throughput; then the HTTP server at --max_batch 8:
@@ -278,7 +283,7 @@ RESIZE_ATOL, RESIZE_POSITION_ULPS, K1_RESIZE_BF16_SHARE = 1e-4, 2, 5e-2
 BACKBONE_BOX_RTOL = 2e-5
 HEAD_SPREAD = 0.5  # std of the rescaled head's box deltas (see below)
 
-KERNELS = ("conv1_pool1", "filter_grad", "anchor_match")
+KERNELS = ("conv1_pool1", "filter_grad", "anchor_match", "bn_act")
 # kernel functions of each source, by name, and the SASS instructions each
 # must hold: K1 bf16 mma.sync (HMMA) fed by TMA loads (UTMALDG), its
 # output written by TMA stores (UTMASTG); K1 f32 fed by cp.async (LDGSTS);
@@ -290,13 +295,15 @@ SASS_NEEDS = {
     "filter_grad": {"filter_grad_wgmma": ("HGMMA", "UTMALDG"),
                     "filter_grad_tc_partial": ("HMMA",),
                     "filter_grad_f32_tma": ("UTMALDG",)},
-    "anchor_match": {"anchor_match_cluster": ()}}
+    "anchor_match": {"anchor_match_cluster": ()},
+    "bn_act": {"bn_act": ()}}
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "LDGSTS")
 # the kernels of each source that ptxas must build with no spill
 NO_SPILLS = {"conv1_pool1": ("conv1_pool1_tma", "conv1_pool1_f32_strip"),
              "filter_grad": ("filter_grad_f32_tma", "filter_grad_wgmma",
                              "filter_grad_tc_partial"),
-             "anchor_match": ("anchor_match_cluster",)}
+             "anchor_match": ("anchor_match_cluster",),
+             "bn_act": ("bn_act",)}
 # H100 SXM data sheet peaks (at 700 W): HBM bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -333,6 +340,15 @@ K2_PER_STEP = {False: 0, "1x1": 10, True: 12}
 # K3 against its plain version: the train step's batch, the seeds of the
 # train cell's boxes, and the slot counts planted in the first images
 K3_BATCH, K3_SEEDS, K3_COUNTS = 20, (1, 3000000419), (0, 1, 5, 48)
+# K4 at the res50.score.b128 cell's shapes (B=128, 1242x375, bf16): (what,
+# channels, height, width, bias, shortcut), the shortcut None, "identity"
+# or "projection"; each ends in ReLU, as every K4 launch does
+K4_BATCH = 128
+K4_SHAPES = [("conv1", 64, 188, 621, True, None),
+             ("res2 2a/2b", 64, 93, 310, False, None),
+             ("res2a join", 256, 93, 310, False, "projection"),
+             ("res2b/c join", 256, 93, 310, False, "identity"),
+             ("res4b-f join", 1024, 24, 78, False, "identity")]
 # Train step, card against CPU (f32, TF32 off): loss terms to rtol
 # LOSS_RTOL; each updated param and momentum leaf within STEP_TOL of that
 # leaf's update norm (L2).  STEP_TOL is wide because a weight or bias
@@ -636,19 +652,25 @@ def sass_counts(so):
     return counts
 
 
-def spill_bytes(log, function):
-    """Spill stores + loads ptxas reported for each kernel whose mangled
-    name holds ``function``, from an ``-Xptxas -v`` build log."""
-    spills, name = {}, None
+def ptxas_usage(log, function):
+    """{"registers", "spill_bytes" (stores + loads)} ptxas reported for
+    each kernel whose mangled name holds ``function``, from an ``-Xptxas
+    -v`` build log."""
+    usage, name = {}, None
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[1].strip()
-        elif name is not None and "spill stores" in line and \
-                function in name:
-            words = line.replace(",", "").split()
-            spills[name] = (int(words[words.index("spill") - 2])
-                            + int(words[-4]))
-    return spills
+            continue
+        if name is None or function not in name:
+            continue
+        words = line.replace(",", "").split()
+        if "spill stores" in line:
+            usage.setdefault(name, {})["spill_bytes"] = (
+                int(words[words.index("spill") - 2]) + int(words[-4]))
+        elif "Used" in words and "registers" in words:
+            usage.setdefault(name, {})["registers"] = int(
+                words[words.index("registers") - 1])
+    return usage
 
 
 def _nvcc():
@@ -704,10 +726,12 @@ def phase_build():
             tc[name] += sum(n["HMMA"] + n["HGMMA"] for n in mine)
             if name not in _cuda.BUILD_LOGS:
                 continue
-            spills = spill_bytes(_cuda.BUILD_LOGS[name], kernel)
-            for fn, n in sorted(spills.items()):
-                log("[build] {}: ptxas spill bytes (stores + loads) {} "
-                    "in {}".format(name, n, fn))
+            usage = ptxas_usage(_cuda.BUILD_LOGS[name], kernel)
+            for fn, u in sorted(usage.items()):
+                log("[build] {}: ptxas registers {}, spill bytes (stores + "
+                    "loads) {} in {}".format(name, u.get("registers"),
+                                             u.get("spill_bytes"), fn))
+            spills = {fn: u.get("spill_bytes") for fn, u in usage.items()}
             if kernel in NO_SPILLS[name] and (not spills or any(
                     spills.values())):
                 raise AssertionError("{} spills (or ptxas reported none of "
@@ -1291,6 +1315,91 @@ def phase_k3(card):
             "plain_ms": rows[0]["plain_graph_ms"],
             "bound_ms": rows[0]["bound_ms"], "bound_by": "bytes",
             "readings": rows}
+
+
+def k4_operands(c, h, w, bias, shortcut, seed):
+    """Raw conv outputs (channels_last, bf16, K4_BATCH images) and batch
+    norms drawn as the ResNet50 cell draws them (gamma exp(0.2 z), beta
+    0.1 z, mean 0.1 z, var exp(0.4 z)), on the card."""
+    import torch
+
+    from squeezedet_torch.models.layers import ConvBN
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def conv_out():
+        return (torch.randn(K4_BATCH, h, w, c, device="cuda",
+                            generator=gen) * 3).to(torch.bfloat16) \
+            .permute(0, 3, 1, 2)
+
+    def norm(with_bias):
+        z = lambda: torch.randn(c, device="cuda", generator=gen)  # noqa
+        layer = ConvBN(torch.zeros(c, 1, 1, 1, device="cuda"),
+                       0.1 * z() if with_bias else None, c)
+        for name, v in (("gamma", torch.exp(0.2 * z())), ("beta", 0.1 * z()),
+                        ("mean", 0.1 * z()), ("var", torch.exp(0.4 * z()))):
+            getattr(layer, name).data.copy_(v)
+        return layer.requires_grad_(False)
+    kw = {}
+    if shortcut is not None:
+        kw["shortcut"] = conv_out()
+    if shortcut == "projection":
+        kw["shortcut_layer"] = norm(False)
+    return conv_out(), norm(bias), kw
+
+
+def phase_k4(card):
+    """K4 against its plain version on the card, bit for bit, at the
+    ResNet50 score cell's shapes (K4_SHAPES, B=128, bf16); then each
+    timed by CUDA events (launch after launch) and graph-replayed beside
+    its byte bound and the plain version, the torch passes it replaced
+    (graph-replayed); and the kernels' ptxas registers."""
+    import torch
+
+    from squeezedet_torch.ops import _cuda
+    from squeezedet_torch.ops import bn_act as ba
+    eps = 1e-5
+    rows = []
+    with torch.no_grad():
+        for i, (what, c, h, w, bias, kind) in enumerate(K4_SHAPES):
+            y, layer, kw = k4_operands(c, h, w, bias, kind, 23 + i)
+            want = ba.bn_act_reference(y, layer, eps, relu=True, **kw)
+            got = ba.bn_act(y.clone(memory_format=torch.channels_last),
+                            layer, eps, relu=True, **kw)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError("K4 differs from its plain version at "
+                                     "{}".format(what))
+            del got, want
+            # in place over y: the values drift from call to call, the
+            # work does not
+            kernel = cuda_ms(lambda: ba.bn_act(y, layer, eps, relu=True,
+                                               **kw), iters=10)
+            graph = graph_ms(lambda: ba.bn_act(y, layer, eps, relu=True,
+                                               **kw), iters=10)
+            plain = graph_ms(lambda: ba.bn_act_reference(
+                y, layer, eps, relu=True, **kw), iters=3)
+            maps = 2 if kind is None else 3  # y (, s) read, the result written
+            nbytes = maps * y.numel() * 2
+            bound_ms, by = bound(nbytes, 0, BF16_FLOPS)
+            rows.append({"what": what, "shape": [K4_BATCH, h, w, c],
+                         "form": kind or ("bias, relu" if bias else "relu"),
+                         "ms": kernel, "graph_ms": graph,
+                         "plain_graph_ms": plain, "bound_ms": bound_ms,
+                         "bound_by": by, "tb_s": nbytes / graph / 1e9,
+                         "card": card})
+            log("[k4] {} B={} {}x{}x{} ({}): K4 {:.4f} ms, {:.4f} "
+                "graph-replayed ({:.2f} TB/s), plain version {:.4f} ms, "
+                "bound {:.4f} ms ({}); {}".format(
+                    what, K4_BATCH, h, w, c, rows[-1]["form"], kernel, graph,
+                    rows[-1]["tb_s"], plain, bound_ms, by, card))
+            del y, layer, kw
+            torch.cuda.empty_cache()
+    # phase 2 logs them beside the spills
+    regs = {fn: u.get("registers") for fn, u in ptxas_usage(
+        _cuda.BUILD_LOGS.get("bn_act", ""), "bn_act").items()}
+    return {"max_abs_err": 0.0, "graph_ms": rows[1]["graph_ms"],
+            "plain_ms": rows[1]["plain_graph_ms"],
+            "bound_ms": rows[1]["bound_ms"], "bound_by": "bytes",
+            "registers": regs, "readings": rows}
 
 
 def _top_gap(probs):
@@ -4818,28 +4927,34 @@ def main():
     k1 = phase_k1(card)
     k2, k2_train_rows = phase_k2(card)
     k3 = phase_k3(card)
+    k4 = phase_k4(card)
 
     from squeezedet_torch.models import get_model
     from squeezedet_torch.models import layers as L
     from squeezedet_torch.ops import anchor_match as am
+    from squeezedet_torch.ops import bn_act as ba
     from squeezedet_torch.ops import filter_grad as fg
     from squeezedet_torch.ops import fused_frontend as ff
 
     # serving path: counts from 0 just before it, read just after
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     forwards = phase_main_path(card)
     forwards += phase_server()
     serve = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+             "k4": ba.LAUNCHES}
     if serve["k1"] == 0 or serve["k1"] != forwards or serve["k2"] != 0:
         raise AssertionError("serving path: K1 launches {k1}, K2 launches "
                              "{k2}, {0} forwards".format(forwards, **serve))
 
     # the on-device resize serving path: counts from 0 just before it
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     forwards = phase_resize(card)
     resize = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-              "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+              "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+              "k4": ba.LAUNCHES}
     if resize["k1"] != forwards or resize["k2"] != 0:
         raise AssertionError("resize path: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}".format(forwards,
@@ -4853,13 +4968,15 @@ def main():
     weights = get_model("squeezeDet", kitti_squeezedet_config(),
                         device="cpu").backbone.state_dict()
     cfg = kitti_squeezedet_config()
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     steps = phase_train_check(weights, cfg)
     steps += phase_train_modes(weights, cfg, 20, K2_PER_STEP)
     run_steps, run_k2 = phase_train_run(card, weights)
     L.set_filter_grad(False)
     train = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+             "k4": ba.LAUNCHES}
     want_k2 = K2_PER_STEP[True] + sum(K2_PER_STEP.values()) + run_k2
     steps += run_steps
     if train["k1"] != steps or train["k2"] == 0 or train["k2"] != want_k2:
@@ -4870,10 +4987,12 @@ def main():
         steps, train["k1"], train["k2"]))
 
     # train loop through the CLI: counts from 0 just before it
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     loop_run = phase_train_loop(card)
     loop = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+            "k4": ba.LAUNCHES}
     if loop["k1"] != loop_run["forwards"] or \
             loop["k2"] != K2_PER_STEP["1x1"] * loop_run["steps"]:
         raise AssertionError("train loop: K1 launches {k1} for {0} forwards, "
@@ -4884,10 +5003,12 @@ def main():
         loop_run["steps"], loop["k1"], loop["k2"]))
 
     # eval and demo from a checkpoint: counts from 0 just before them
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     forwards, eval_weights = phase_eval_demo(card)
     evald = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+             "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+             "k4": ba.LAUNCHES}
     if evald["k1"] != forwards or evald["k2"] != 0:
         raise AssertionError("eval and demo: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}".format(forwards,
@@ -4900,10 +5021,12 @@ def main():
     # the other backbones: K2 at their shapes (not counted), then the
     # paths, with the counts from 0 just before them
     k2_err, k2_rows = phase_k2_backbones(card)
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     want_k2 = phase_backbones(card)
     backbones = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-                 "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+                 "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+                 "k4": ba.LAUNCHES}
     if backbones["k1"] != 0 or backbones["k2"] != want_k2:
         raise AssertionError("other backbones: K1 launches {k1}, K2 launches "
                              "{k2}, expected 0 and {0}".format(
@@ -4912,10 +5035,12 @@ def main():
         backbones["k1"], backbones["k2"]))
 
     # int8 and the exported artifact: counts from 0 just before them
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     want_k1, qdet, det16 = phase_int8_export(card, eval_weights)
     int8 = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+            "k4": ba.LAUNCHES}
     if int8["k1"] != want_k1 or int8["k2"] != 0:
         raise AssertionError("int8 and export: K1 launches {k1}, expected "
                              "{0}; K2 launches {k2}".format(want_k1, **int8))
@@ -4927,21 +5052,24 @@ def main():
 
     # data parallelism: counts from 0 just before it; the ranks, in their
     # own processes, report theirs
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     want_k1, ranks = phase_data_parallel(card, weights)
     if ff.LAUNCHES != want_k1 or fg.LAUNCHES != 0:
         raise AssertionError("data parallelism: K1 launches {}, expected {}; "
                              "K2 launches {}".format(ff.LAUNCHES, want_k1,
                                                      fg.LAUNCHES))
     dp = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
-          "k2": fg.LAUNCHES + ranks["k2"], "k3": am.LAUNCHES + ranks["k3"]}
+          "k2": fg.LAUNCHES + ranks["k2"], "k3": am.LAUNCHES + ranks["k3"],
+          "k4": ba.LAUNCHES}
     log("[dp] path: K1 launches {} ({} in this process, {} on the ranks), "
         "K2 launches {} (on the ranks)".format(dp["k1"], ff.LAUNCHES,
                                                ranks["k1"], dp["k2"]))
 
     # K steps per dispatch as captured CUDA graphs: counts from 0 just
     # before it; the NCCL rank, in its own process, reports its own
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     steps, gloo_k1 = phase_graph_step(card, weights)
     forwards, backwards, nccl = phase_graph_cli(card)
     learn_steps, eval_batches = phase_learning(card)
@@ -4953,14 +5081,16 @@ def main():
                                  ff.LAUNCHES, want_k1, fg.LAUNCHES, want_k2))
     graph = {"k1": ff.LAUNCHES + nccl["k1"] + gloo_k1,
              "k1_f32": ff.F32_LAUNCHES,
-             "k2": fg.LAUNCHES + nccl["k2"], "k3": am.LAUNCHES + nccl["k3"]}
+             "k2": fg.LAUNCHES + nccl["k2"], "k3": am.LAUNCHES + nccl["k3"],
+             "k4": ba.LAUNCHES}
     log("[graph] path: K1 launches {} ({} on the NCCL rank, {} on the gloo "
         "ranks), K2 launches {} ({} on the NCCL rank)".format(
             graph["k1"], nccl["k1"], gloo_k1, graph["k2"], nccl["k2"]))
 
     # spatial partitioning, every tile on the card: counts from 0 just
     # before it; the gloo ranks, in their own processes, report theirs
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     want_k1 = phase_spatial_forward(card, weights)
     want_k1 += phase_spatial_eval(card, weights)
     step_k1, ranks = phase_spatial_train(card, weights)
@@ -4971,7 +5101,8 @@ def main():
                              "ranks".format(ff.LAUNCHES, want_k1,
                                             fg.LAUNCHES, ranks["k2"]))
     spatial = {"k1": ff.LAUNCHES + ranks["k1"], "k1_f32": ff.F32_LAUNCHES,
-               "k2": fg.LAUNCHES, "k3": am.LAUNCHES + ranks["k3"]}
+               "k2": fg.LAUNCHES, "k3": am.LAUNCHES + ranks["k3"],
+               "k4": ba.LAUNCHES}
     log("[spatial] path: K1 launches {} ({} on the gloo ranks), K2 "
         "launches {}".format(spatial["k1"], ranks["k1"], spatial["k2"]))
     k1_tile_err = check_k1_tiles(card)
@@ -4980,10 +5111,12 @@ def main():
     # the host paths (deterministic resume, native loader, import):
     # counts from 0 just before them; the cost readings after, uncounted
     import shutil
-    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = 0
+    ff.LAUNCHES = ff.F32_LAUNCHES = fg.LAUNCHES = am.LAUNCHES = \
+        ba.LAUNCHES = 0
     forwards, want_k2, work, root = phase_host_paths(card)
     host = {"k1": ff.LAUNCHES, "k1_f32": ff.F32_LAUNCHES,
-            "k2": fg.LAUNCHES, "k3": am.LAUNCHES}
+            "k2": fg.LAUNCHES, "k3": am.LAUNCHES,
+            "k4": ba.LAUNCHES}
     if host["k1"] != forwards or host["k2"] != want_k2:
         raise AssertionError("host paths: K1 launches {k1} for {0} "
                              "forwards, K2 launches {k2}, expected {1}".format(
@@ -5006,6 +5139,15 @@ def main():
     if any(k3_paths[n] for n in ("serve", "resize", "eval")) or \
             not all(k3_paths[n] for n in ("train", "loop", "graph")):
         raise AssertionError("K3 launches by path: {}".format(k3_paths))
+    # K4 is ResNet's: none on squeezeDet's paths; phase 9's ResNet50, the
+    # float conv1 of its int8 forward, and phase 13's ResNet50 tiles and
+    # the unsharded forwards they are held to launch it
+    k4_paths = {n: c["k4"] for n, c in paths.items()}
+    log("[k4] launches by path (this process): {}".format(k4_paths))
+    if any(k4_paths[n] for n in ("serve", "resize", "train", "loop", "eval",
+                                 "dp", "graph", "host")) or \
+            not k4_paths["backbones"]:
+        raise AssertionError("K4 launches by path: {}".format(k4_paths))
     log(json.dumps({"kernels": [{
         "name": "conv1_pool1",
         "route": "cuda",
@@ -5052,6 +5194,20 @@ def main():
                   "memory; the dense targets written once",
         "tensor_core_instructions": tc["anchor_match"],
         **k3,
+    }, {
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "squeezedet_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "launches": sum(k4_paths.values()),
+        "design": "one grid-stride pass over 16-byte channels-last vectors, "
+                  "a fixed channel group a thread with its scale and shift "
+                  "in registers, streaming loads and stores, written over "
+                  "the conv's output; the conv bias, batch-norm affine, "
+                  "the shortcut's affine, the join's add and ReLU each "
+                  "rounded as torch rounds them",
+        "tensor_core_instructions": tc["bn_act"],
+        **k4,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

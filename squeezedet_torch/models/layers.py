@@ -44,6 +44,7 @@ from torch import nn
 
 from squeezedet_torch.models import halo
 from squeezedet_torch.models.halo import Tiled
+from squeezedet_torch.ops.bn_act import bn_act
 
 
 def same_padding(size: int, k: int, s: int) -> Tuple[int, int, int]:
@@ -481,17 +482,32 @@ def init_conv_bn(generator: torch.Generator, tracer: NetTracer, name: str,
                   bn_name=bn_name, scale_name=scale_name)
 
 
+class PendingBN(NamedTuple):
+    """A conv's raw output ``y`` (NCHW, channels_last) whose conv bias and
+    batch norm, ``layer``'s, are still to apply: :func:`join` applies
+    them in the pass that joins it."""
+
+    y: torch.Tensor
+    layer: ConvBN
+
+
 def conv_bn(layer, x: torch.Tensor, stride: int, *,
             relu: bool = True, eps: float = 1e-5,
-            padding: str = "SAME") -> torch.Tensor:
+            padding: str = "SAME", pending: bool = False):
     """NHWC SAME conv (+ bias), then the frozen-statistics batch norm as an
     affine, gamma * (y - mean) / sqrt(var + eps) + beta, in the JAX
     package's arithmetic: ``inv = gamma * rsqrt(var + eps)`` in f32, then
-    ``y * inv + (beta - mean * inv)`` with both terms cast to y's dtype
-    (not ``F.batch_norm``, and not folded into the conv, which round
-    bf16 differently).  Never routed through K2, as the JAX conv_bn
-    calls its conv directly.  A :class:`QConv` (the batch norm folded
-    into it at quantize time, ``quant._fold_bn``) takes the int8 path."""
+    ``y * inv + (beta - mean * inv)`` with both terms cast to y's dtype,
+    each op rounding to it.  ``ops/bn_act.bn_act`` applies it (and the
+    ReLU): on the card, in one pass of K4 where ``bn_act.takes`` the call
+    (a ReLU'd layer in scoring; in training, the frozen ones); else its
+    plain version, ``bn_act_reference``, in those torch ops.  With
+    ``pending`` (and no ``relu``), the conv's raw output as a
+    :class:`PendingBN`, for :func:`join` to finish.  Never routed through
+    K2, as the JAX conv_bn calls its conv directly.  A :class:`QConv` (the
+    batch norm folded into it at quantize time, ``quant._fold_bn``) takes
+    the int8 path, and a tiled ``x`` runs tile by tile, each tile a whole
+    ``conv_bn``; neither is ever pending."""
     if isinstance(x, Tiled):
         return halo.windowed(
             [x], lambda w: conv_bn(layer, w, stride, relu=relu, eps=eps,
@@ -500,16 +516,26 @@ def conv_bn(layer, x: torch.Tensor, stride: int, *,
     if isinstance(layer, QConv):
         return qconv(layer, [x], stride, padding, relu)
     y = _conv_nchw(x, layer.weight, None, stride, padding)
-    dev, dt = y.device, y.dtype
-    if layer.bias is not None:
-        y = y + layer.bias.to(dev, dt).view(1, -1, 1, 1)
-    inv = layer.gamma * torch.rsqrt(layer.var + eps)
-    shift = layer.beta - layer.mean * inv
-    y = y * inv.to(dev, dt).view(1, -1, 1, 1) + \
-        shift.to(dev, dt).view(1, -1, 1, 1)
-    if relu:
-        y = F.relu(y)
-    return y.permute(0, 2, 3, 1)
+    if pending:
+        return PendingBN(y, layer)
+    return bn_act(y, layer, eps, relu=relu).permute(0, 2, 3, 1)
+
+
+def join(shortcut, y, eps: float = 1e-5) -> torch.Tensor:
+    """A residual block's join, relu(shortcut + y), NHWC.  Both operands
+    NHWC tensors (an int8 block's, a tile's), or ``y`` a
+    :class:`PendingBN` of :func:`conv_bn` and the shortcut an NHWC tensor
+    (the identity) or pending too (a projection): then one ``bn_act``
+    call (one launch of K4 on the card) applies their batch norms, the
+    add and the ReLU."""
+    if not isinstance(y, PendingBN):
+        return F.relu(shortcut + y)
+    if isinstance(shortcut, PendingBN):
+        s, s_layer = shortcut.y, shortcut.layer
+    else:
+        s, s_layer = shortcut.permute(0, 3, 1, 2), None
+    return bn_act(y.y, y.layer, eps, relu=True, shortcut=s,
+                  shortcut_layer=s_layer).permute(0, 2, 3, 1)
 
 
 def max_pool(x: torch.Tensor, size: int, stride: int,

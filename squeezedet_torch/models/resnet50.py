@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from squeezedet_torch.models import layers as L
@@ -125,7 +124,10 @@ class ResNet50(nn.Module):
         return out
 
     def _block(self, stage: str, block: str, x, tape):
-        """Block ``res<stage><block>`` on ``x``."""
+        """Block ``res<stage><block>`` on ``x``.  branch2c's batch norm, and
+        a projection shortcut's, are left pending (``layers.PendingBN``)
+        for the join, which applies them with its add and ReLU in one pass
+        (``layers.join``)."""
         eps = self.eps
         name = "res" + stage + block
         res = getattr(self, name)
@@ -133,7 +135,8 @@ class ResNet50(nn.Module):
         shortcut = x
         if block == "a":
             stride = 1 if stage == "2" else 2
-            shortcut = L.conv_bn(res.branch1, x, stride, relu=False, eps=eps)
+            shortcut = L.conv_bn(res.branch1, x, stride, relu=False,
+                                 eps=eps, pending=True)
         elif getattr(res, "shortcut_scale", None) is not None:
             shortcut = L.pointwise(
                 lambda s, scale=res.shortcut_scale:
@@ -143,8 +146,8 @@ class ResNet50(nn.Module):
         L.record(tape, name + "_branch2a", y)
         y = L.conv_bn(b2.branch2b, y, 1, eps=eps)
         L.record(tape, name + "_branch2b", y)
-        y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps)
-        x = L.pointwise(lambda s, t: F.relu(s + t), shortcut, y)
+        y = L.conv_bn(b2.branch2c, y, 1, relu=False, eps=eps, pending=True)
+        x = L.pointwise(lambda s, t: L.join(s, t, eps), shortcut, y)
         if getattr(res, "out_scale", None) is not None:
             x = L.pointwise(lambda t, scale=res.out_scale:
                             L.quantize_activation(t, scale), x)

@@ -99,9 +99,11 @@ def check(name: str, err: int, what: str) -> None:
 def _counters():
     """The kernel wrappers' launch counts, as (module, attribute): each
     wrapper's ``LAUNCHES``, and K1's f32 route's share of its own."""
-    from squeezedet_torch.ops import anchor_match, filter_grad, fused_frontend
+    from squeezedet_torch.ops import (anchor_match, bn_act, filter_grad,
+                                      fused_frontend)
     return ((fused_frontend, "LAUNCHES"), (filter_grad, "LAUNCHES"),
-            (fused_frontend, "F32_LAUNCHES"), (anchor_match, "LAUNCHES"))
+            (fused_frontend, "F32_LAUNCHES"), (anchor_match, "LAUNCHES"),
+            (bn_act, "LAUNCHES"))
 
 
 class CapturedLaunches:
